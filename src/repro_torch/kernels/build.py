@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA C++ kernels.
+
+Each kernel source ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own
+shared library with a plain C interface, loaded with :mod:`ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -shared -Xcompiler -fPIC -o lib<name>.so csrc/<name>.cu
+
+There is deliberately no ``--use_fast_math``: the Jaccard epilogue's f32
+division must round to nearest like the reference's (nvcc's default
+``-prec-div=true``).
+
+Libraries land in ``repro_torch/_build/<name>-<digest>/`` where the digest
+hashes the flags, the source and the shared header, so an edited source
+rebuilds and an unchanged one loads at once. Nothing is built at import:
+the first wrapper call on a CUDA tensor (or :func:`build`) compiles.
+:func:`build` starts one ``nvcc`` per missing library, all at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+KERNELS = ("goldfinger_knn", "descent_hop")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                       "the CUDA kernels cannot be built")
+
+
+def digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu"] + [CSRC / hd for hd in HEADERS]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{digest(name)}" / f"lib{name}.so"
+
+
+def build(names=KERNELS) -> dict[str, dict]:
+    """Compile every missing library in ``names``, all ``nvcc`` processes
+    running at once. Returns per-kernel ``{"path", "seconds", "log"}``
+    (seconds 0 and an empty log for a library that was already built).
+    Raises RuntimeError with the compiler's output if any build fails."""
+    started = {}
+    report = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            report[name] = {"path": str(out), "seconds": 0.0, "log": ""}
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, out, t0) in started.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name} "
+                            f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {"path": str(out), "seconds": seconds, "log": log}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built first if missing."""
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

@@ -1,0 +1,147 @@
+"""Online KNN query serving CLI (torch port of ``repro.launch.knn_serve``):
+build (or load) an index, serve a wave of unseen query profiles, report
+QPS / latency / recall vs brute force.
+
+    PYTHONPATH=src python -m repro_torch.launch.knn_serve \
+        --index /tmp/ml1m.npz --dataset ml1M --scale 1.0 \
+        --queries 2048 --kernel
+
+``--index`` serves an artifact written by either package's ``knn_build
+--index-out``; without it the index is built in-process with the
+reference's serving parameters. ``--kernel`` selects the fused descent
+hop (the CUDA kernel; identical results to the plain hop). Everything runs
+on ``--device`` (default ``cuda``; without a card that raises at once).
+
+This slice serves single placement × wave batching. The reference's other
+flags are accepted by name and raise NotImplementedError naming the
+ROADMAP item that ports them when set to anything but their default.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.core.params import params_for
+from repro_torch.data.synthetic import make_dataset
+from repro_torch.device import resolve_device
+from repro_torch.query.engine import QueryConfig, QueryEngine, QueryRequest
+from repro_torch.query.index import KNNIndex, build_index
+
+# Reference flags outside this slice: (flag, type, default, ROADMAP item).
+_LATER = (
+    ("--continuous", bool, False, "queue 1 item 4 (continuous batching)"),
+    ("--slots", int, 32, "queue 1 item 4 (continuous batching)"),
+    ("--shards", int, 1, "queue 1 item 5 (sharded placement)"),
+    ("--dma", bool, False, "queue 2 item 3 (hop_pallas_dma)"),
+    ("--insert", int, 0, "queue 1 item 3 (online insert)"),
+    ("--churn", int, 0, "queue 1 item 6 (lifecycle)"),
+    ("--ttl", int, 0, "queue 1 item 6 (lifecycle)"),
+    ("--repair-every", int, 0, "queue 1 item 6 (lifecycle)"),
+    ("--admission", str, "fifo", "queue 1 item 7 (SLO admission)"),
+    ("--max-pending", int, 0, "queue 1 item 7 (SLO admission)"),
+    ("--priority-split", float, 0.0, "queue 1 item 7 (SLO admission)"),
+    ("--deadline-ms", float, 0.0, "queue 1 item 7 (SLO admission)"),
+    ("--adaptive", int, 0, "queue 1 item 7 (adaptive budgets)"),
+    ("--cache", int, 0, "queue 1 item 7 (result cache)"),
+    ("--rebalance-every", int, 0, "queue 1 item 8 (re-balance)"),
+    ("--rebalance-threshold", float, 1.25, "queue 1 item 8 (re-balance)"),
+    ("--resident-configs", int, 0, "queue 1 item 8 (tiered residency)"),
+    ("--fault-plan", str, None, "queue 1 item 9 (faults)"),
+    ("--store", str, None, "queue 1 item 9 (crash store)"),
+    ("--snapshot-every", int, 0, "queue 1 item 9 (crash store)"),
+    ("--recover", str, None, "queue 1 item 9 (crash recovery)"),
+)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="synth")
+    ap.add_argument("--scale", type=float, default=0.2)
+    ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--beam", type=int, default=32)
+    ap.add_argument("--hops", type=int, default=3)
+    ap.add_argument("--max-wave", type=int, default=256)
+    ap.add_argument("--kernel", action="store_true",
+                    help="fused descent hop (CUDA kernel; identical results)")
+    ap.add_argument("--index", default=None, help="load a saved index")
+    ap.add_argument("--save-index", default=None, help="save the built index")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the index and the descent live on")
+    for flag, typ, default, item in _LATER:
+        if typ is bool:
+            ap.add_argument(flag, action="store_true",
+                            help=f"not ported yet: ROADMAP {item}")
+        else:
+            ap.add_argument(flag, type=typ, default=default,
+                            help=f"not ported yet: ROADMAP {item}")
+    return ap
+
+
+def main(argv=None):
+    """Run the CLI; returns ``(stats, recall, engine)``."""
+    args = _parser().parse_args(argv)
+    for flag, _, default, item in _LATER:
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            raise NotImplementedError(
+                f"{flag} is outside this port's slice: ROADMAP {item}")
+    dev = resolve_device(args.device)
+    qc = QueryConfig(k=args.k, beam=args.beam, hops=args.hops,
+                     max_wave=args.max_wave, kernel=args.kernel)
+
+    if args.index:
+        index = KNNIndex.load(args.index)
+        print(f"[serve] loaded index: {index.n} users, k={index.k}, "
+              f"t={index.t}, {index.n_clusters} clusters")
+    else:
+        ds = make_dataset(args.dataset, scale=args.scale, seed=args.seed)
+        params = params_for(args.dataset, k=args.k,
+                            b=max(64, ds.n_users // 16),
+                            max_cluster=max(48, int(0.06 * ds.n_users)))
+        t0 = time.perf_counter()
+        index = build_index(ds, params, device=dev)
+        print(f"[serve] built index: {ds.n_users} users, k={params.k} "
+              f"({time.perf_counter() - t0:.2f}s, "
+              f"{index.n_clusters} clusters)")
+    if args.save_index:
+        index.save(args.save_index)
+        print(f"[serve] index saved to {args.save_index}")
+
+    engine = QueryEngine(index, qc, device=dev)
+    print(f"[serve] plan: {engine.plan.describe()} on {dev}")
+
+    # Unseen profiles from the same distribution (different seed).
+    qds = make_dataset(args.dataset, scale=args.scale, seed=args.seed + 1)
+    n_q = min(args.queries, qds.n_users)
+    profiles = [qds.profile(u) for u in range(n_q)]
+    if not profiles:
+        print("[serve] no queries requested")
+        return {"requests": 0}, 0.0, engine
+
+    # Warm-up wave: first-use costs (kernel build and load, allocator)
+    # stay out of the timed run.
+    engine.submit(QueryRequest(rid=-1, profile=profiles[0]))
+    engine.run()
+    engine.done.clear()
+
+    for rid, p in enumerate(profiles):
+        engine.submit(QueryRequest(rid=rid, profile=p))
+    stats = engine.run()
+    recall = engine.recall_vs_brute_force()
+    print(f"[serve] {stats['requests']} queries in {stats['waves']} waves "
+          f"({stats['mode']}) | "
+          f"QPS {stats['qps']:.0f} | "
+          f"p50 {stats['p50_latency_s'] * 1e3:.1f}ms | "
+          f"p95 {stats['p95_latency_s'] * 1e3:.1f}ms | "
+          f"recall@{args.k} vs brute force {recall:.3f}")
+    if "descent" in stats:
+        d = stats["descent"]
+        n_served = max(stats["served"], 1)
+        print(f"[serve] descent: {d['scored_lanes']} lanes scored "
+              f"({d['scored_lanes'] / n_served:.0f}/query)")
+    return stats, recall, engine
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,137 @@
+"""Batched graph descent for query serving (torch port of the wave pieces
+of ``repro.query.search``).
+
+Every query of a wave keeps a fixed-width beam of its best candidates;
+each hop gathers the forward AND reverse neighbors of the beam
+(friend-of-a-friend), scores them against the query fingerprint with the
+GoldFinger estimator, and re-selects the beam. The hop has two
+implementations with bitwise-identical results:
+
+* ``kernel=False`` — the plain unfused hop
+  (``kernels/descent_score/ref.py``): gather, score every lane, dedup
+  after the fact, one wide stable top-k;
+* ``kernel=True`` — ``kernels/descent_score/ops.descent_hop``: the fused
+  CUDA hop on a GPU (its plain version on the CPU), which suppresses
+  duplicate/PAD/in-beam lanes before scoring and reports how many lanes
+  it scored.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.descent_score import ops as ds_ops
+from repro_torch.kernels.descent_score import ref as ds_ref
+from repro_torch.kernels.scoring import score_lanes
+from repro_torch.knn.topk import merge_topk
+from repro_torch.sketch.goldfinger import jaccard_pairwise, words_tensor
+from repro_torch.types import NEG_INF, PAD_ID
+
+
+def descent_init(words, card, q_words, q_card, seed_ids, *, beam: int,
+                 tomb=None):
+    """Score routed seeds and select the initial beam per query.
+
+    Returns (beam_ids int32[q, beam], beam_sims float32[q, beam]),
+    sim-descending, PAD_ID padded. ``tomb`` (bool[n] or None) PADs out
+    seeds naming tombstoned rows before scoring.
+    """
+    if tomb is not None:
+        seed_ids = ds_ref.mask_dead(tomb, seed_ids)
+    return merge_topk(seed_ids,
+                      score_lanes(words, card, q_words, q_card, seed_ids),
+                      beam)
+
+
+def descent_step(graph_ids, rev_ids, words, card, q_words, q_card,
+                 beam_ids, beam_sims, *, kernel: bool = False, tomb=None):
+    """One descent hop for every query of the wave.
+
+    Returns ``(beam_ids, beam_sims, n_scored)`` with ``n_scored`` int32[q]
+    the candidate lanes the fused hop scored (zeros for the plain hop,
+    which scores every lane, as in the reference).
+    """
+    if kernel:
+        return ds_ops.descent_hop(graph_ids, rev_ids, words, card, q_words,
+                                  q_card, beam_ids, beam_sims, tomb=tomb,
+                                  with_counts=True)
+    ids, sims = ds_ref.descent_hop_ref(graph_ids, rev_ids, words, card,
+                                       q_words, q_card, beam_ids, beam_sims,
+                                       tomb=tomb)
+    return ids, sims, torch.zeros(beam_ids.shape[0], dtype=torch.int32,
+                                  device=beam_ids.device)
+
+
+def batched_descent(graph_ids, rev_ids, words, card, q_words, q_card,
+                    seed_ids, *, k: int, beam: int, hops: int,
+                    kernel: bool = False, tomb=None):
+    """Beam search over the index graph for a wave of queries.
+
+    graph_ids int32[n, kg], rev_ids int32[n, r]: forward/reverse adjacency.
+    words int32[n, W] bit-views, card int32[n]: index fingerprints.
+    q_words int32[q, W], q_card int32[q]: query fingerprints.
+    seed_ids int32[q, S]: routed seed candidates (PAD_ID padded).
+    Returns (ids int32[q, k], sims float32[q, k], n_scored int32[q]) with
+    ``n_scored`` summed over the hops.
+    """
+    beam_ids, beam_sims = descent_init(words, card, q_words, q_card,
+                                       seed_ids, beam=beam, tomb=tomb)
+    scored = torch.zeros(beam_ids.shape[0], dtype=torch.int32,
+                         device=beam_ids.device)
+    for _ in range(hops):
+        beam_ids, beam_sims, n_scored = descent_step(
+            graph_ids, rev_ids, words, card, q_words, q_card, beam_ids,
+            beam_sims, kernel=kernel, tomb=tomb)
+        scored += n_scored
+    ids, sims = merge_topk(beam_ids, beam_sims, k)
+    return ids, sims, scored
+
+
+def _exact_block(words, card, tomb, q_words, q_card, k: int,
+                 dchunk: int = 512):
+    """Exact top-k of a query block over every index row, streaming the
+    database axis in ``dchunk``-column tiles through ``merge_topk`` (the
+    running set is concatenated first, so equal-sim ties keep the
+    earliest id, exactly as one global top-k)."""
+    n = words.shape[0]
+    q = q_words.shape[0]
+    dev = q_words.device
+    ids = torch.full((q, k), PAD_ID, dtype=torch.int32, device=dev)
+    sims = torch.full((q, k), NEG_INF, dtype=torch.float32, device=dev)
+    for s in range(0, n, dchunk):
+        e = min(s + dchunk, n)
+        c_sims = jaccard_pairwise(q_words, q_card, words[s:e], card[s:e])
+        c_sims = torch.where(tomb[s:e][None, :], NEG_INF, c_sims)
+        c_ids = torch.arange(s, e, dtype=torch.int32,
+                             device=dev)[None, :].expand(q, e - s)
+        ids, sims = merge_topk(torch.cat([ids, c_ids], dim=1),
+                               torch.cat([sims, c_sims], dim=1), k)
+    return ids, sims
+
+
+def exact_knn(words: np.ndarray, card: np.ndarray, q_words: np.ndarray,
+              q_card: np.ndarray, k: int, block: int = 256,
+              tomb: np.ndarray | None = None, device="cuda"):
+    """Brute-force query KNN (ground truth for recall), query-blocked.
+
+    Host uint32 fingerprints in, host (ids int32[q, k], sims f32[q, k])
+    out; the work runs on ``device``. ``tomb`` (bool[n] or None) drops
+    tombstoned rows to −inf so the ground truth ranks survivors only.
+    """
+    dev = resolve_device(device)
+    w = words_tensor(words, dev)
+    c = torch.from_numpy(np.asarray(card, dtype=np.int32)).to(dev)
+    t = (torch.zeros(w.shape[0], dtype=torch.bool, device=dev)
+         if tomb is None else torch.from_numpy(np.asarray(tomb, bool)).to(dev))
+    qw = words_tensor(q_words, dev)
+    qc = torch.from_numpy(np.asarray(q_card, dtype=np.int32)).to(dev)
+    q = qw.shape[0]
+    ids_out = np.full((q, k), PAD_ID, dtype=np.int32)
+    sims_out = np.full((q, k), NEG_INF, dtype=np.float32)
+    for s in range(0, q, block):
+        e = min(s + block, q)
+        ids, sims = _exact_block(w, c, t, qw[s:e], qc[s:e], k)
+        ids_out[s:e] = ids.cpu().numpy()
+        sims_out[s:e] = sims.cpu().numpy()
+    return ids_out, sims_out
