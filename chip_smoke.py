@@ -19,8 +19,10 @@ Phases, each fatal on failure:
    each kernel's launch count is read from this run and must be > 0.
    The same queries served with the plain hop must give bitwise-equal
    ids and sims, and a small build on the card must equal the CPU's;
-5. timing — each kernel at the main path's shapes beside its plain
-   version and the least time the card could take (``bound_ms``).
+5. timing — each kernel at the main path's shapes (all of Step 2's
+   cluster batches; the first hop of a wave), held bitwise against its
+   plain version there, and timed beside it and the least time the card
+   could take (``bound_ms``).
 
 Prints one ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.
@@ -337,7 +339,7 @@ def small_build_matches_cpu() -> None:
 
 # -- phase 5: timing at the main path's shapes -----------------------------
 
-def time_cluster_knn(dev, built, index, launches: int) -> dict:
+def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
     import numpy as np
     import torch
 
@@ -370,6 +372,16 @@ def time_cluster_knn(dev, built, index, launches: int) -> dict:
     def sweep(fn):
         return lambda: [fn(w, c, i, k) for w, c, i in batches]
 
+    # The main path's own Step-2 batches, kernel against plain, bitwise.
+    k_out, p_out = sweep(ops.cluster_knn)(), sweep(ref.cluster_knn_ref)()
+    err = 0.0
+    for (k_ids, k_sims), (p_ids, p_sims) in zip(k_out, p_out):
+        if not (torch.equal(k_ids, p_ids) and torch.equal(k_sims, p_sims)):
+            fail("cluster-KNN over the main path's Step-2 batches differs "
+                 "from the plain version")
+        err = max(err, max_abs_err(k_sims, p_sims))
+    log(f"[main] cluster-KNN over the main path's {len(batches)} Step-2 "
+        f"batches: bitwise equal to the plain version")
     ms = cuda_ms(sweep(ops.cluster_knn), reps=5)
     plain_ms = cuda_ms(sweep(ref.cluster_knn_ref), reps=3)
     ops_count = 2 * pairs * W * 32
@@ -383,7 +395,7 @@ def time_cluster_knn(dev, built, index, launches: int) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "shape": f"Step-2 sweep of ml1M@1.0 k=30: {len(batches)} "
-                     f"batches, {pairs} ordered pairs, W={W}"}
+                     f"batches, {pairs} ordered pairs, W={W}"}, err
 
 
 def time_hop(dev, engine, launches: int) -> tuple[dict, float]:
@@ -495,12 +507,13 @@ def main() -> int:
     small_build_matches_cpu()
     with tempfile.TemporaryDirectory() as tmp:
         run = main_path(dev, Path(tmp))
-        ck_row = time_cluster_knn(dev, run["built"], run["engine"].index,
-                                  run["launches"]["goldfinger_knn"])
+        ck_row, err_ck_main = time_cluster_knn(
+            dev, run["built"], run["engine"].index,
+            run["launches"]["goldfinger_knn"])
         hop_row, err_hop_main = time_hop(dev, run["engine"],
                                          run["launches"]["descent_hop"])
     build_stages()
-    ck_row["max_abs_err"] = err_ck
+    ck_row["max_abs_err"] = max(err_ck, err_ck_main)
     hop_row["max_abs_err"] = max(err_hop, err_hop_main)
     rows = [ck_row, hop_row]
     for row in rows:

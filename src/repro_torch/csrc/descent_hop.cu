@@ -65,8 +65,8 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
                    const int* __restrict__ beam_ids,
                    const float* __restrict__ beam_sims,
                    int* __restrict__ out_ids, float* __restrict__ out_sims,
-                   int* __restrict__ n_scored, int W, int kg, int kr, int B,
-                   int vec4) {
+                   int* __restrict__ n_scored, int W, int kg, int kr,
+                   int B) {
   extern __shared__ unsigned char smem_raw[];
   const int C = B * (kg + kr);
   const int L = B + C;
@@ -130,17 +130,8 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
       ++scored;
       const long long row = static_cast<long long>(id) * W;
       int inter = 0;
-      if (vec4) {
-        const uint4* cw = reinterpret_cast<const uint4*>(words + row);
-        for (int w4 = 0; w4 < (W >> 2); ++w4) {
-          const uint4 v = __ldg(cw + w4);
-          const int w = w4 << 2;
-          inter += __popc(v.x & s_qw[w]) + __popc(v.y & s_qw[w + 1]) +
-                   __popc(v.z & s_qw[w + 2]) + __popc(v.w & s_qw[w + 3]);
-        }
-      } else {
-        for (int w = 0; w < W; ++w) inter += __popc(__ldg(words + row + w) & s_qw[w]);
-      }
+      for (int w = 0; w < W; ++w)
+        inter += __popc(__ldg(words + row + w) & s_qw[w]);
       sim = repro::jaccard_sim(inter, qcard, card[id]);
     }
     s_id[B + c] = id;
@@ -225,15 +216,13 @@ REPRO_EXPORT int repro_descent_hop(const void* graph, const void* rev,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int vec4 =
-      (W % 4 == 0) && (reinterpret_cast<uintptr_t>(words) % 16 == 0);
   descent_hop_kernel<<<q, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(graph), static_cast<const int*>(rev),
       static_cast<const uint32_t*>(words), static_cast<const int*>(card),
       static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
       static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
       static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
-      static_cast<float*>(out_sims), static_cast<int*>(n_scored), W, kg, kr, B,
-      vec4);
+      static_cast<float*>(out_sims), static_cast<int*>(n_scored), W, kg, kr,
+      B);
   return static_cast<int>(cudaGetLastError());
 }

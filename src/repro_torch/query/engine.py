@@ -32,8 +32,6 @@ from repro_torch.query.search import exact_knn
 class QueryRequest:
     rid: int
     profile: np.ndarray                  # int32[|P|] item ids
-    hops: Optional[int] = None           # per-request hop budget
-                                         # (None → QueryConfig.hops)
     # Filled by the engine:
     ids: Optional[np.ndarray] = None     # int32[k] neighbor ids
     sims: Optional[np.ndarray] = None    # float32[k] similarities
@@ -69,18 +67,16 @@ class QueryConfig:
 
 class QueryEngine:
     def __init__(self, index: KNNIndex, qc: QueryConfig | None = None, *,
-                 device="cuda", clock=None):
+                 device="cuda"):
         self.index = index
         self.qc = qc or QueryConfig()
-        self.clock = clock or time.perf_counter
-        self.plan = DescentPlan(index, self.qc.spec(), device=device,
-                                clock=self.clock)
+        self.plan = DescentPlan(index, self.qc.spec(), device=device)
         self.device = self.plan.device
         self.queue: deque[QueryRequest] = deque()
         self.done: list[QueryRequest] = []
 
     def submit(self, req: QueryRequest):
-        req.t_submit = self.clock()
+        req.t_submit = time.perf_counter()
         self.queue.append(req)
 
     def busy(self) -> bool:
@@ -92,13 +88,13 @@ class QueryEngine:
 
     def run(self) -> dict:
         """Drain the queue through the plan; returns aggregate stats."""
-        t0 = self.clock()
+        t0 = time.perf_counter()
         n_steps = 0
         n_new_done = 0
         while self.busy():
             n_new_done += self.step()
             n_steps += 1
-        dt = max(self.clock() - t0, 1e-9)
+        dt = max(time.perf_counter() - t0, 1e-9)
         recent = self.done[-n_new_done:] if n_new_done else []
         lats = [r.latency for r in recent
                 if r.status == "done" and r.latency is not None]

@@ -84,13 +84,11 @@ class PlanSpec:
 class DescentPlan:
     """Single placement × wave batching, on one device."""
 
-    def __init__(self, index: KNNIndex, spec: PlanSpec, device="cuda",
-                 clock=None):
+    def __init__(self, index: KNNIndex, spec: PlanSpec, device="cuda"):
         self.index = index
         self.spec = spec
         self.device = resolve_device(device)
         self.beam = max(spec.beam, spec.k)
-        self.clock = clock or time.perf_counter
         self._tables = None     # device copies of the index, built once
         # Candidate lanes the fused hop scored (real query rows only),
         # and how many (query, hop) pairs that covers.
@@ -117,16 +115,14 @@ class DescentPlan:
 
     # -- one closed wave -----------------------------------------------------
 
-    def search(self, items, offsets, qgf, k: int, *,
-               hops: int | None = None):
+    def search(self, items, offsets, qgf, k: int):
         """Route + beam-descend already-fingerprinted query profiles."""
         seeds = route(self.index, items, offsets, self.spec.seeds_per_config)
-        return self.descend_rows(qgf.words, qgf.card, seeds, k, hops=hops)
+        return self.descend_rows(qgf.words, qgf.card, seeds, k)
 
-    def descend_rows(self, q_words, q_card, seeds, k: int, *,
-                     hops: int | None = None):
+    def descend_rows(self, q_words, q_card, seeds, k: int):
         """Beam-descend from explicit seed rows; host arrays in and out."""
-        hops = self.spec.hops if hops is None else hops
+        hops = self.spec.hops
         dev = self.device
         graph_ids, rev_ids, words, card, tomb = self.tables()
         qn = len(q_card)
@@ -141,31 +137,26 @@ class DescentPlan:
             self.descent_stats["hop_queries"] += qn * hops
         return ids.cpu().numpy(), sims.cpu().numpy()
 
-    def query_batch(self, profiles, k: int | None = None,
-                    hops: int | None = None):
+    def query_batch(self, profiles, k: int | None = None):
         """Answer raw profiles: (ids int32[q, k], sims float32[q, k])."""
         items, offsets = profiles_to_csr(profiles)
         qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
                                    self.index.fp_seed)
-        return self.search(items, offsets, qgf, k or self.spec.k, hops=hops)
+        return self.search(items, offsets, qgf, k or self.spec.k)
 
     # -- the serving loop ------------------------------------------------------
 
     def step(self, queue, done) -> int:
         """Close one wave from ``queue`` (a deque of requests), append the
         completed requests to ``done``; returns how many completed.
-
-        A wave runs to the largest hop budget of its members.
         """
         wave = []
         while queue and len(wave) < self.spec.max_wave:
             wave.append(queue.popleft())
         if not wave:
             return 0
-        hops = max(r.hops if r.hops is not None else self.spec.hops
-                   for r in wave)
-        ids, sims = self.query_batch([r.profile for r in wave], hops=hops)
-        now = self.clock()
+        ids, sims = self.query_batch([r.profile for r in wave])
+        now = time.perf_counter()
         for j, r in enumerate(wave):
             r.ids, r.sims = ids[j], sims[j]
             r.t_done = now
