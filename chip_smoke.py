@@ -7,22 +7,33 @@ Phases, each fatal on failure:
 
 1. device — a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
-2. build — compiles the CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all at once);
+2. build — compiles the four CUDA kernels from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   bitwise (ids, sims and the hop's scored-lane counts), over PAD rows,
-   tombstones, planted equal sims and duplicate candidates, at W = 32
-   and 64;
+   bitwise: cluster-KNN (ids, sims) and the hop (ids, sims, scored lanes)
+   over PAD rows, tombstones, planted equal sims and duplicate candidates
+   at W = 32 and 64; the DMA hop against its plain version and against
+   the hop kernel, with exact byte counters, at W = 32, 64 and 33 (the
+   4-byte copy path), over tombstone-heavy tables, chunks that do not
+   divide the lanes, rings 1 to 3 deep, several queries per block and
+   chunks whose every lane is suppressed; FastRandomHash at the reference
+   test's shapes and at ml1M@1.0, where it also equals the host hashing;
 4. main path — ``knn_build`` on ml1M@1.0 with the paper's parameters
    (k=30) into a temporary index, then ``knn_serve`` of 2,048 unseen
-   profiles (k=10, beam 32, 3 hops, waves of 256) with the fused hop;
-   each kernel's launch count is read from this run and must be > 0.
-   The same queries served with the plain hop must give bitwise-equal
-   ids and sims, and a small build on the card must equal the CPU's;
+   profiles (k=10, beam 32, 3 hops) in waves of 256 with the fused hop,
+   then with ``--continuous --slots 256 --kernel --dma`` and with
+   ``--kernel --dma`` in waves of 256: both must serve ids and sims
+   bitwise equal, rid by rid, to the fused-hop waves, as must the plain
+   hop; then ``dataset_minhash`` of ml1M@1.0. Each path is driven with the
+   launch counts set to 0 just before it and read just after, and each
+   kernel must have launched on its path. A small build on the card must
+   equal the CPU's;
 5. timing — each kernel at the main path's shapes (all of Step 2's
-   cluster batches; the first hop of a wave), held bitwise against its
-   plain version there, and timed beside it and the least time the card
-   could take (``bound_ms``).
+   cluster batches; the first hop of a 256-query wave, fused and DMA;
+   FastRandomHash of ml1M@1.0), held bitwise against its plain version
+   there, and timed beside it and the least time the card could take
+   (``bound_ms``); the host clock per phase of a wave and of continuous
+   ticks.
 
 Prints one ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.
@@ -45,12 +56,24 @@ ROOT = Path(__file__).resolve().parent
 # cheapest form of the same work on this card.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# CUDA-core rate of NVIDIA's H100 SXM data sheet (67 T/s, float32 outside
+# the tensor cores); the card's int32 ALUs are no faster, so this
+# under-states the least time of integer hashing.
+CUDA_CORE_OPS_PER_S = 67e12
+# Integer operations of one FastRandomHash (item, seed): the xor with the
+# seed mix, fmix32's three shift-xors and two multiplies, the mask and
+# the min.
+MINHASH_OPS = 11
 
 CLUSTER_KNN_SOURCE = "src/repro_torch/csrc/goldfinger_knn.cu"
 HOP_SOURCE = "src/repro_torch/csrc/descent_hop.cu"
+DMA_SOURCE = "src/repro_torch/csrc/descent_hop_dma.cu"
+MINHASH_SOURCE = "src/repro_torch/csrc/frh_minhash.cu"
 CLUSTER_KNN_REPLACES = ("src/repro/kernels/goldfinger_knn/goldfinger_knn.py"
                         ":96")
 HOP_REPLACES = "src/repro/kernels/descent_score/descent_score.py:177"
+DMA_REPLACES = "src/repro/kernels/descent_score/descent_score.py:407"
+MINHASH_REPLACES = "src/repro/kernels/frh_minhash/frh_minhash.py:48"
 
 
 def log(msg: str) -> None:
@@ -77,6 +100,26 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def cold_ms(fn, reps: int, flush) -> float:
+    """Median device time of one call of ``fn`` with the L2 cache flushed
+    before each (``flush``: a tensor larger than the 50 MB L2, rewritten
+    outside the timed span)."""
+    import torch
+
+    fn()  # warm
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -206,7 +249,23 @@ def hop_kernel(graph, rev, words, card, qw, qc, beam, sims, tomb):
     from repro_torch.kernels.descent_score import ops
 
     return ops.descent_hop(graph, rev, words, card, qw, qc, beam, sims,
-                           tomb=tomb, with_counts=True)
+                           tomb=tomb, with_counts=True)[:3]
+
+
+def dma_kernel(graph, rev, words, card, qw, qc, beam, sims, tomb, **kw):
+    from repro_torch.kernels.descent_score import ops
+
+    return ops.descent_hop(graph, rev, words, card, qw, qc, beam, sims,
+                           tomb=tomb, dma=True, with_counts=True, **kw)
+
+
+def dma_plain(graph, rev, words, card, qw, qc, beam, sims, tomb):
+    from repro_torch.kernels.descent_score import ref
+
+    ids, out, n_scored = hop_plain(graph, rev, words, card, qw, qc, beam,
+                                   sims, tomb)
+    C = beam.shape[1] * (graph.shape[1] + rev.shape[1])
+    return (ids, out, n_scored) + ref.dma_counts(n_scored, words.shape[1], C)
 
 
 def same_hop(a, b) -> bool:
@@ -240,19 +299,199 @@ def check_hop(dev) -> tuple[int, float]:
     return n_checked, err
 
 
+def check_dma_counts(out, W: int, C: int) -> bool:
+    """dma_bytes == n_scored·W·4 and bytes_saved == (C − n_scored)·W·4,
+    exactly, with ``n_scored`` counted apart from the copies."""
+    import torch
+
+    n_scored, dma_bytes, saved = out[2:]
+    return (torch.equal(dma_bytes, n_scored * (W * 4))
+            and torch.equal(saved, (C - n_scored) * (W * 4)))
+
+
+def check_dma_case(label, args, err, **kw) -> float:
+    """The DMA hop against its plain version and the hop kernel."""
+    import torch
+
+    graph, rev, words = args[:3]
+    W = words.shape[1]
+    C = args[6].shape[1] * (graph.shape[1] + rev.shape[1])
+    d_out = dma_kernel(*args, **kw)
+    p_out = dma_plain(*args)
+    v_out = hop_kernel(*args)
+    torch.cuda.synchronize()
+    if not same_hop(d_out, p_out):
+        fail(f"DMA hop {label}: differs from the plain version ("
+             + ", ".join(f"{name} {torch.equal(a, b)}" for name, a, b in zip(
+                 ("ids", "sims", "n_scored", "dma_bytes", "bytes_saved"),
+                 d_out, p_out)) + ")")
+    if not same_hop(d_out[:3], v_out):
+        fail(f"DMA hop {label}: differs from descent_hop.cu")
+    if not check_dma_counts(d_out, W, C):
+        fail(f"DMA hop {label}: byte counters disagree with n_scored")
+    n_scored = int(d_out[2].sum())
+    log(f"[kernels] descent_hop_dma {label}: bitwise ok (scored {n_scored} "
+        f"of {args[6].shape[0] * C} lanes, {int(d_out[3].sum())} B fetched, "
+        f"{int(d_out[4].sum())} B skipped)")
+    return max(err, max_abs_err(d_out[1], p_out[1]))
+
+
+def all_suppressed_inputs(dev):
+    """Beams that hold every reachable row: every lane is suppressed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sketch.goldfinger import popcount_rows, words_tensor
+
+    rng = np.random.default_rng(3)
+    n, B, W = 6, 6, 4
+    graph = np.stack([(np.arange(n) + 1) % n, (np.arange(n) + 2) % n],
+                     axis=1).astype(np.int32)
+    rev = np.stack([(np.arange(n) - 1) % n], axis=1).astype(np.int32)
+    words = random_words(rng, (n, W))
+    qw = random_words(rng, (5, W))
+    beam = np.tile(np.arange(n, dtype=np.int32), (5, 1))
+    sims = -np.sort(-rng.random((5, B))).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(graph), t(rev), words_tensor(words, dev),
+            t(popcount_rows(words)), words_tensor(qw, dev),
+            t(popcount_rows(qw)), t(beam), t(sims),
+            torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+def check_dma_hop(dev) -> tuple[int, float]:
+    import numpy as np
+
+    from repro_torch.kernels.descent_score import ops, tune
+    from repro_torch.types import PAD_ID
+
+    # tune.smem_bytes mirrors the kernel's layout; the heuristic's choices
+    # fit one block at the widths the tests sweep.
+    lib = ops._lib_dma()
+    for W in (1, 32, 33, 64, 1024):
+        p = tune._heuristic(6038, W, 32, 60)
+        for bq, chunk, nb in ((p.block_q, p.score_chunk, p.n_buffers),
+                              (3, 100, 3), (1, 7, 1)):
+            got = lib.repro_descent_hop_dma_smem_bytes(W, 30, 30, 32, bq,
+                                                       chunk, nb)
+            if got != tune.smem_bytes(W, 60, 32, bq, chunk, nb):
+                fail(f"tune.smem_bytes differs from the kernel's layout at "
+                     f"W={W} ({bq}, {chunk}, {nb})")
+        if tune.smem_bytes(W, 60, 32, p.block_q, p.score_chunk,
+                           p.n_buffers) > tune.SMEM_LIMIT:
+            fail(f"the tuner's DMA hop params at W={W} overflow a block")
+    log("[kernels] DMA hop shared-memory layout: tune.smem_bytes == the "
+        "kernel's at W = 1, 32, 33, 64, 1024")
+
+    n_checked, err = 0, 0.0
+    cases = [  # (n, W, tomb_frac, launch params)
+        (6038, 32, 0.05, {}),
+        (6038, 64, 0.05, {}),
+        (300, 33, 0.05, {}),                 # 4-byte copies
+        (300, 32, 0.6, {}),                  # tombstone-heavy, duplicates
+        (6038, 32, 0.05, {"score_chunk": 100, "n_buffers": 2}),
+        (300, 33, 0.3, {"score_chunk": 7, "n_buffers": 1}),
+        (6038, 64, 0.05, {"score_chunk": 64, "n_buffers": 3}),
+        (300, 32, 0.05, {"block_q": 3, "score_chunk": 128}),
+    ]
+    for n, W, frac, kw in cases:
+        rng = np.random.default_rng(W * 7 + n + int(frac * 100))
+        args = hop_inputs(rng, dev, n, W, 30, 30, 256, 32, tomb_frac=frac)
+        label = (f"n={n} W={W} tomb={frac:.0%} "
+                 + " ".join(f"{k}={v}" for k, v in kw.items()))
+        err = check_dma_case(label.strip(), args, err, **kw)
+        n_checked += 1
+    # Whole chunks with no surviving lane: the rows in every query's first
+    # two beam lanes lose their forward edges, so chunks 0 and 1 (30 lanes
+    # each) issue no copy at all.
+    rng = np.random.default_rng(99)
+    args = list(hop_inputs(rng, dev, 300, 32, 30, 30, 64, 32))
+    first = args[6][:, :2]
+    graph = args[0].clone()
+    graph[first[first != PAD_ID].long()] = PAD_ID
+    args[0] = graph
+    err = check_dma_case("n=300 W=32 all-suppressed chunks 0-1 "
+                         "score_chunk=30", tuple(args), err, score_chunk=30)
+    err = check_dma_case("all lanes suppressed (n=6, W=4) score_chunk=5",
+                         all_suppressed_inputs(dev), err, score_chunk=5)
+    return n_checked + 2, err
+
+
+def check_minhash(dev) -> tuple[int, float]:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.frh_minhash import ops, ref
+    from repro_torch.types import PAD_ID
+
+    n_checked = 0
+    for n, P in ((8, 16), (100, 40), (256, 64), (300, 7)):
+        for t in (1, 8):
+            for b in (256, 4096):
+                rng = np.random.default_rng(n + P + t + b)
+                padded = rng.integers(0, 10**6, size=(n, P)).astype(np.int32)
+                for i in range(n):
+                    padded[i, int(rng.integers(1, P + 1)):] = PAD_ID
+                padded[0] = PAD_ID
+                seeds = np.arange(t, dtype=np.int32) * 7 + 1
+                x = torch.from_numpy(padded).to(dev)
+                got = ops.minhash(x, seeds, b)
+                want = ref.minhash_ref(x, seeds, b)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"minhash n={n} P={P} t={t} b={b}: differs from "
+                         f"the plain version")
+                n_checked += 1
+    log(f"[kernels] frh_minhash: {n_checked} shapes (n,P in (8,16), "
+        f"(100,40), (256,64), (300,7); t 1/8; b 256/4096) bitwise ok")
+    return n_checked, 0.0
+
+
 # -- phase 4: the main path ------------------------------------------------
+
+def reset_launches() -> None:
+    from repro_torch.kernels.descent_score import ops as ds_ops
+    from repro_torch.kernels.frh_minhash import ops as mh_ops
+    from repro_torch.kernels.goldfinger_knn import ops as gk_ops
+
+    gk_ops.launches = ds_ops.launches = ds_ops.launches_dma = 0
+    mh_ops.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.descent_score import ops as ds_ops
+    from repro_torch.kernels.frh_minhash import ops as mh_ops
+    from repro_torch.kernels.goldfinger_knn import ops as gk_ops
+
+    return {"goldfinger_knn": gk_ops.launches,
+            "descent_hop": ds_ops.launches,
+            "descent_hop_dma": ds_ops.launches_dma,
+            "frh_minhash": mh_ops.launches}
+
+
+def served(engine):
+    import numpy as np
+
+    done = sorted(engine.done, key=lambda r: r.rid)
+    return (np.stack([r.ids for r in done]), np.stack([r.sims for r in done]),
+            [r.rid for r in done])
+
+
+def serve_line(name: str, stats: dict, recall: float) -> str:
+    return (f"{name}: QPS {stats['qps']:.1f}, "
+            f"p50 {stats['p50_latency_s'] * 1e3:.2f} ms, "
+            f"p95 {stats['p95_latency_s'] * 1e3:.2f} ms, "
+            f"{stats['waves']} steps, recall@10 {recall:.4f}")
+
 
 def main_path(dev, tmp: Path) -> dict:
     import numpy as np
 
-    from repro_torch.kernels.descent_score import ops as ds_ops
-    from repro_torch.kernels.goldfinger_knn import ops as gk_ops
     from repro_torch.launch import knn_build, knn_serve
     from repro_torch.types import PAD_ID
 
     index_path = str(tmp / "ml1m.npz")
-    gk_ops.launches = 0
-    ds_ops.launches = 0
+    reset_launches()
     built = knn_build.main(["--dataset", "ml1M", "--scale", "1.0",
                             "--k", "30", "--seed", "0",
                             "--index-out", index_path, "--device", "cuda"])
@@ -261,12 +500,13 @@ def main_path(dev, tmp: Path) -> dict:
                   "--beam", "32", "--hops", "3", "--max-wave", "256",
                   "--seed", "0", "--device", "cuda"]
     stats, recall, engine = knn_serve.main(serve_args + ["--kernel"])
-    launches = {"goldfinger_knn": gk_ops.launches,
-                "descent_hop": ds_ops.launches}
-    log(f"[main] launches on the main path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    path1 = read_launches()
+    log(f"[main] launches on build + wave x pallas: {path1}")
+    for name in ("goldfinger_knn", "descent_hop"):
+        if path1[name] <= 0:
             fail(f"the main path never launched the {name} kernel")
+    launches = {name: path1[name]
+                for name in ("goldfinger_knn", "descent_hop")}
 
     graph, plan = built["graph"], built["plan"]
     if graph.ids.shape != (6038, 30):
@@ -292,10 +532,7 @@ def main_path(dev, tmp: Path) -> dict:
         fail("served sims are not finite on present neighbours")
     if not 0.5 <= recall <= 1.0:
         fail(f"recall@10 {recall:.3f} outside [0.5, 1]")
-    log(f"[main] serve (fused hop): QPS {stats['qps']:.1f}, "
-        f"p50 {stats['p50_latency_s'] * 1e3:.2f} ms, "
-        f"p95 {stats['p95_latency_s'] * 1e3:.2f} ms, "
-        f"recall@10 {recall:.4f}")
+    log("[main] serve " + serve_line("wave x pallas", stats, recall))
 
     j_stats, j_recall, j_engine = knn_serve.main(serve_args)
     j_done = sorted(j_engine.done, key=lambda r: r.rid)
@@ -304,7 +541,74 @@ def main_path(dev, tmp: Path) -> dict:
         fail("fused-hop serving differs from plain-hop serving")
     log(f"[main] plain hop serves bitwise-equal ids and sims "
         f"(QPS {j_stats['qps']:.1f}, recall@10 {j_recall:.4f})")
-    return {"launches": launches, "built": built, "engine": engine}
+
+    # This slice's paths: the DMA hop under continuous batching (256
+    # slots) and in waves of 256; then FastRandomHash of the dataset.
+    serves = {"wave x pallas": stats}
+    for name, extra in (
+            ("continuous x pallas_dma",
+             ["--continuous", "--slots", "256", "--kernel", "--dma"]),
+            ("wave x pallas_dma", ["--kernel", "--dma"])):
+        reset_launches()
+        d_stats, d_recall, d_engine = knn_serve.main(serve_args + extra)
+        counts = read_launches()
+        if counts["descent_hop_dma"] <= 0 or counts["descent_hop"] != 0:
+            fail(f"{name} launched {counts}: not the DMA hop alone")
+        d_ids, d_sims, d_rids = served(d_engine)
+        if d_rids != list(range(2048)):
+            fail(f"{name} served rids {d_rids[:5]}..., not 0..2047")
+        if not (np.array_equal(ids, d_ids) and np.array_equal(sims, d_sims)):
+            bad = int((~((ids == d_ids) & (sims == d_sims)).all(1)).sum())
+            fail(f"{name} differs from wave x pallas in {bad} requests")
+        desc = d_stats["descent"]
+        W = d_engine.index.words.shape[1]
+        if desc["dma_bytes"] != desc["scored_lanes"] * W * 4:
+            fail(f"{name}: dma_bytes {desc['dma_bytes']} != scored lanes "
+                 f"{desc['scored_lanes']} x {W * 4} B")
+        log(f"[main] serve {serve_line(name, d_stats, d_recall)}; launches "
+            f"{counts}; bitwise equal to wave x pallas; dma "
+            f"{desc['dma_bytes'] / 1e6:.2f} MB moved, "
+            f"{desc['bytes_saved'] / 1e6:.2f} MB skipped")
+        serves[name] = d_stats
+        if name.startswith("continuous"):
+            launches["descent_hop_dma"] = counts["descent_hop_dma"]
+            cont_engine = d_engine
+    launches["frh_minhash"] = minhash_path()
+    return {"launches": launches, "built": built, "engine": engine,
+            "cont_engine": cont_engine, "serves": serves}
+
+
+def ml1m_minhash_inputs():
+    from repro_torch.core.clustering import frh_seeds
+    from repro_torch.core.params import params_for
+    from repro_torch.data.synthetic import make_dataset
+
+    params = params_for("ml1M", k=30)
+    return (make_dataset("ml1M", scale=1.0, seed=0), frh_seeds(params),
+            params.b)
+
+
+def minhash_path() -> int:
+    """``dataset_minhash`` of ml1M@1.0 with the paper build's seeds, which
+    must equal the host hashing of build Step 1 bitwise."""
+    import numpy as np
+
+    from repro_torch.core import hashing
+    from repro_torch.kernels.frh_minhash import ops
+
+    ds, seeds, b = ml1m_minhash_inputs()
+    reset_launches()
+    got = ops.dataset_minhash(ds, seeds, b, device="cuda")
+    count = read_launches()["frh_minhash"]
+    if count <= 0:
+        fail("dataset_minhash never launched the frh_minhash kernel")
+    host = hashing.user_min_hash_np(hashing.item_hashes(ds.items, seeds, b),
+                                    ds.offsets)
+    if got.shape != (len(seeds), ds.n_users) or not np.array_equal(got, host):
+        fail("dataset_minhash of ml1M@1.0 differs from the host hashing")
+    log(f"[main] dataset_minhash ml1M@1.0 (n={ds.n_users}, t={len(seeds)}, "
+        f"b={b}): {count} launch, bitwise equal to user_min_hash_np")
+    return count
 
 
 def build_stages() -> None:
@@ -398,12 +702,40 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
                      f"batches, {pairs} ordered pairs, W={W}"}, err
 
 
-def time_hop(dev, engine, launches: int) -> tuple[dict, float]:
-    import numpy as np
+def hop_bound(args, n_scored: int, n_counts: int) -> tuple[float, str]:
+    """Least time of one hop on this card, for this run's data: the bytes
+    each input and output must move (adjacency rows of live beam lanes,
+    tombstone flags, one fingerprint row and card per distinct scored
+    row, queries, beams, counts) at HBM rate, or the scored lanes'
+    intersections as int8 bit-plane products, whichever is larger."""
+    from repro_torch.kernels.descent_score import ref
+
+    graph, rev, words, card, qw, qc, beam_ids, beam_sims, tomb = args
+    q, B = beam_ids.shape
+    kg, kr, W = graph.shape[1], rev.shape[1], words.shape[1]
+    live_beam = beam_ids[beam_ids >= 0].unique().numel()
+    cand = ref.gather_candidates(graph, rev, beam_ids, tomb)
+    need = ref.survivors(cand, beam_ids)
+    scored_rows = cand[need].unique().numel()
+    cand_rows = cand[cand >= 0].unique().numel()
+    bytes_count = (live_beam * (kg + kr) * 4      # adjacency rows
+                   + (cand_rows + live_beam)       # tombstone flags
+                   + scored_rows * (4 * W + 4)     # fingerprint rows + card
+                   + q * (4 * W + 4 + B * 8)       # queries + beams in
+                   + q * (B * 8 + 4 * n_counts))   # beams + counts out
+    ops_count = 2 * n_scored * W * 32
+    t_ops = ops_count / INT8_OPS_PER_S * 1e3
+    t_bytes = bytes_count / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def time_hops(dev, engine, launches: dict) -> tuple[list, float]:
+    """The fused hop and the DMA hop at the first hop of a 256-query wave
+    of the main path, each against its plain version, in one call."""
     import torch
 
     from repro_torch.data.synthetic import make_dataset
-    from repro_torch.kernels.descent_score import ref
     from repro_torch.query.router import fingerprint_profiles, profiles_to_csr, route
     from repro_torch.query.search import descent_init
     from repro_torch.sketch.goldfinger import words_tensor
@@ -428,7 +760,7 @@ def time_hop(dev, engine, launches: int) -> tuple[dict, float]:
         t3 = time.perf_counter()
         for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
             stages[key].append(dt * 1e3)
-    log("[timing] one 256-query wave, host clock, median of 3: "
+    log("[timing] one 256-query wave (x pallas), host clock, median of 3: "
         + ", ".join(f"{key} {statistics.median(v):.2f} ms"
                     for key, v in stages.items()))
     qw = words_tensor(qgf.words, dev)
@@ -437,38 +769,182 @@ def time_hop(dev, engine, launches: int) -> tuple[dict, float]:
         words, card, qw, qc, torch.from_numpy(seeds).to(dev),
         beam=plan.beam, tomb=tomb)
     args = (graph, rev, words, card, qw, qc, beam_ids, beam_sims, tomb)
-    k_out = hop_kernel(*args)
-    p_out = hop_plain(*args)
+    k_out, p_out = hop_kernel(*args), hop_plain(*args)
+    d_out, dp_out = dma_kernel(*args), dma_plain(*args)
     if not same_hop(k_out, p_out):
         fail("descent hop at the main path's first wave differs from the "
              "plain version")
-    err = max_abs_err(k_out[1], p_out[1])
-    ms = cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20)
+    if not (same_hop(d_out, dp_out) and same_hop(d_out[:3], k_out)):
+        fail("DMA hop at the main path's first wave differs from the plain "
+             "version or from the hop kernel")
+    C = beam_ids.shape[1] * (graph.shape[1] + rev.shape[1])
+    if not check_dma_counts(d_out, words.shape[1], C):
+        fail("DMA hop byte counters disagree with n_scored at the main "
+             "path's first wave")
+    err = max(max_abs_err(k_out[1], p_out[1]), max_abs_err(d_out[1],
+                                                           dp_out[1]))
+    # Fused, DMA, DMA, fused: the two kernels in turns within one call.
+    k_ms = [cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20)]
+    d_ms = [cuda_ms(lambda: dma_kernel(*args), reps=7, inner=20)]
+    d_ms.append(cuda_ms(lambda: dma_kernel(*args), reps=7, inner=20))
+    k_ms.append(cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20))
     plain_ms = cuda_ms(lambda: hop_plain(*args), reps=5)
+    dplain_ms = cuda_ms(lambda: dma_plain(*args), reps=5)
+    log(f"[timing] hop kernels in turns (fused, DMA, DMA, fused): "
+        f"{k_ms[0]:.4f}, {d_ms[0]:.4f}, {d_ms[1]:.4f}, {k_ms[1]:.4f} ms")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    cold = [cold_ms(lambda: hop_kernel(*args), 9, flush),
+            cold_ms(lambda: dma_kernel(*args), 9, flush)]
+    log(f"[timing] the same hop with L2 flushed before each launch: fused "
+        f"{cold[0]:.4f} ms, DMA {cold[1]:.4f} ms")
+    hops_beyond_l2(dev, flush)
+    ring_sweep(args, flush)
 
-    q, B = beam_ids.shape
-    kg, kr, W = graph.shape[1], rev.shape[1], words.shape[1]
-    live_beam = beam_ids[beam_ids >= 0].unique().numel()
-    cand = ref.gather_candidates(graph, rev, beam_ids, tomb)
-    need = ref.survivors(cand, beam_ids)
-    scored_rows = cand[need].unique().numel()
-    cand_rows = cand[cand >= 0].unique().numel()
     n_scored = int(k_out[2].sum())
-    bytes_count = (live_beam * (kg + kr) * 4      # adjacency rows
-                   + (cand_rows + live_beam)       # tombstone flags
-                   + scored_rows * (4 * W + 4)     # fingerprint rows + card
-                   + q * (4 * W + 4 + B * 8)       # queries + beams in
-                   + q * (B * 8 + 4))              # beams + counts out
-    ops_count = 2 * n_scored * W * 32
-    t_ops = ops_count / INT8_OPS_PER_S * 1e3
+    kg, W = graph.shape[1], words.shape[1]
+    shape = (f"first hop of a 256-query ml1M@1.0 wave: n={graph.shape[0]} "
+             f"W={W} B={beam_ids.shape[1]} kg=kr={kg}, {n_scored} lanes "
+             f"scored")
+    rows = []
+    for name, src, rep, count, ms, pms, n_counts in (
+            ("descent_hop", HOP_SOURCE, HOP_REPLACES,
+             launches["descent_hop"], statistics.median(k_ms), plain_ms, 1),
+            ("descent_hop_dma", DMA_SOURCE, DMA_REPLACES,
+             launches["descent_hop_dma"], statistics.median(d_ms),
+             dplain_ms, 3)):
+        bound, by = hop_bound(args, n_scored, n_counts)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": count, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None, "shape": shape})
+    return rows, err
+
+
+def ring_sweep(args, flush) -> None:
+    """The DMA hop at the main path's hop over a few ring shapes
+    (score_chunk, n_buffers), warm and with the L2 flushed, beside the
+    shared memory each block takes and the blocks an SM can hold."""
+    from repro_torch.kernels.descent_score import ops, tune
+
+    graph, rev, words = args[:3]
+    W, kg, kr, B = (words.shape[1], graph.shape[1], rev.shape[1],
+                    args[6].shape[1])
+    log(f"[timing] fused hop: "
+        f"{ops._lib().repro_descent_hop_smem_bytes(W, kg, kr, B)} B/block, "
+        f"{ops._lib().repro_descent_hop_blocks_per_sm(W, kg, kr, B)} "
+        f"blocks/SM")
+    for chunk, nb in ((32, 2), (64, 2), (64, 3), (128, 1), (128, 2),
+                      (256, 2)):
+        kw = {"score_chunk": chunk, "n_buffers": nb}
+        if not same_hop(dma_kernel(*args, **kw), dma_plain(*args)):
+            fail(f"DMA hop with score_chunk={chunk} n_buffers={nb} "
+                 f"differs from the plain version")
+        smem = tune.smem_bytes(W, kg + kr, B, 1, chunk, nb)
+        per_sm = ops._lib_dma().repro_descent_hop_dma_blocks_per_sm(
+            W, kg, kr, B, 1, chunk, nb)
+        warm = cuda_ms(lambda: dma_kernel(*args, **kw), reps=7, inner=20)
+        cold = cold_ms(lambda: dma_kernel(*args, **kw), 9, flush)
+        log(f"[timing] DMA hop ring score_chunk={chunk} n_buffers={nb}: "
+            f"{smem} B/block, {per_sm} blocks/SM, {warm:.4f} ms warm, "
+            f"{cold:.4f} ms L2 flushed")
+
+
+def hops_beyond_l2(dev, flush) -> None:
+    """Both hops over a table of 1,000,000 random rows (W=32: 128 MB of
+    fingerprints, beyond the 50 MB L2), held bitwise against each other
+    and the plain version, then timed in turns with the L2 flushed."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    args = hop_inputs(rng, dev, 1_000_000, 32, 30, 30, 256, 32)
+    d_out, p_out = dma_kernel(*args), dma_plain(*args)
+    if not (same_hop(d_out, p_out) and same_hop(d_out[:3],
+                                                hop_kernel(*args))):
+        fail("hops over the 1,000,000-row table differ")
+    ms = {"fused": [], "DMA": []}
+    for name in ("fused", "DMA", "DMA", "fused"):
+        fn = hop_kernel if name == "fused" else dma_kernel
+        ms[name].append(cold_ms(lambda: fn(*args), 9, flush))
+    log(f"[timing] both hops over 1,000,000 random rows (128 MB, L2 "
+        f"flushed; {int(d_out[2].sum())} lanes scored, "
+        f"{int(d_out[3].sum()) / 1e6:.1f} MB gathered), in turns: fused "
+        f"{ms['fused'][0]:.4f} / {ms['fused'][1]:.4f} ms, DMA "
+        f"{ms['DMA'][0]:.4f} / {ms['DMA'][1]:.4f} ms")
+
+
+def time_minhash(dev, launches: int) -> tuple[dict, float]:
+    """FastRandomHash of ml1M@1.0 (the main path's call) against its plain
+    version."""
+    import torch
+
+    from repro_torch.kernels.frh_minhash import ops, ref
+
+    ds, seeds, b = ml1m_minhash_inputs()
+    padded, mask = ds.padded_profiles()
+    x = torch.from_numpy(padded).to(dev)
+    got, want = ops.minhash(x, seeds, b), ref.minhash_ref(x, seeds, b)
+    if not torch.equal(got, want):
+        fail("minhash at ml1M@1.0 differs from the plain version")
+    ms = cuda_ms(lambda: ops.minhash(x, seeds, b), reps=7, inner=20)
+    plain_ms = cuda_ms(lambda: ref.minhash_ref(x, seeds, b), reps=5)
+    n, P = padded.shape
+    t = len(seeds)
+    bytes_count = n * P * 4 + t * 4 + n * t * 4
+    ops_count = int(mask.sum()) * t * MINHASH_OPS
     t_bytes = bytes_count / HBM_BYTES_PER_S * 1e3
-    return {"name": "descent_hop", "route": "cuda", "source": HOP_SOURCE,
-            "replaces": HOP_REPLACES, "launches": launches, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+    t_ops = ops_count / CUDA_CORE_OPS_PER_S * 1e3
+    return {"name": "frh_minhash", "route": "cuda", "source": MINHASH_SOURCE,
+            "replaces": MINHASH_REPLACES, "launches": launches, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
-            "shape": f"first hop of a 256-query ml1M@1.0 wave: n=6038 "
-                     f"W={W} B={B} kg=kr={kg}, {n_scored} lanes scored"}, err
+            "shape": f"ml1M@1.0 padded profiles n={n} P={P} "
+                     f"({int(mask.sum())} items), t={t}, b={b}"}, 0.0
+
+
+def tick_breakdown(engine) -> None:
+    """Host clock per phase of continuous ticks (256 slots, DMA hop) over
+    512 queries: admission (fingerprints, routing, slot init), the hop,
+    and the completion snapshot; the rest is scheduler bookkeeping."""
+    import torch
+
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.query import plan as plan_mod
+    from repro_torch.query.engine import QueryEngine, QueryRequest
+
+    eng = QueryEngine(engine.index, engine.qc, device=engine.device)
+    plan = eng.plan
+    spent = {"admit": 0.0, "hop": 0.0, "snapshot": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    plan._admit = timed("admit", plan._admit)
+    plan._slot_results = timed("snapshot", plan._slot_results)
+    slot_hop = plan_mod.slot_hop
+    plan_mod.slot_hop = timed("hop", slot_hop)
+    try:
+        qds = make_dataset("ml1M", scale=1.0, seed=2)
+        for rid in range(512):
+            eng.submit(QueryRequest(rid=rid, profile=qds.profile(rid)))
+        t0 = time.perf_counter()
+        stats = eng.run()
+        total = time.perf_counter() - t0
+    finally:
+        plan_mod.slot_hop = slot_hop
+    ticks = stats["waves"]
+    rest = total - sum(spent.values())
+    log(f"[timing] continuous x pallas_dma, 256 slots, 512 queries in "
+        f"{ticks} ticks, host clock per tick: "
+        + ", ".join(f"{k} {v / ticks * 1e3:.2f} ms"
+                    for k, v in spent.items())
+        + f", other {rest / ticks * 1e3:.2f} ms")
 
 
 def main() -> int:
@@ -501,21 +977,31 @@ def main() -> int:
 
     n_ck, err_ck = check_cluster_knn(dev)
     n_hop, err_hop = check_hop(dev)
-    log(f"[kernels] {n_ck} cluster-KNN and {n_hop} hop cases bitwise equal "
-        f"to the plain versions")
+    n_dma, err_dma = check_dma_hop(dev)
+    n_mh, err_mh = check_minhash(dev)
+    log(f"[kernels] {n_ck} cluster-KNN, {n_hop} hop, {n_dma} DMA-hop and "
+        f"{n_mh} minhash cases bitwise equal to the plain versions")
 
     small_build_matches_cpu()
     with tempfile.TemporaryDirectory() as tmp:
         run = main_path(dev, Path(tmp))
+        launches = run["launches"]
         ck_row, err_ck_main = time_cluster_knn(
-            dev, run["built"], run["engine"].index,
-            run["launches"]["goldfinger_knn"])
-        hop_row, err_hop_main = time_hop(dev, run["engine"],
-                                         run["launches"]["descent_hop"])
+            dev, run["built"], run["engine"].index, launches["goldfinger_knn"])
+        (hop_row, dma_row), err_hops = time_hops(dev, run["engine"],
+                                                 launches)
+        mh_row, err_mh_main = time_minhash(dev, launches["frh_minhash"])
+        tick_breakdown(run["cont_engine"])
     build_stages()
     ck_row["max_abs_err"] = max(err_ck, err_ck_main)
-    hop_row["max_abs_err"] = max(err_hop, err_hop_main)
-    rows = [ck_row, hop_row]
+    hop_row["max_abs_err"] = max(err_hop, err_hops)
+    dma_row["max_abs_err"] = max(err_dma, err_hops)
+    mh_row["max_abs_err"] = max(err_mh, err_mh_main)
+    rows = [ck_row, hop_row, dma_row, mh_row]
+    for name, st in run["serves"].items():
+        log(f"[timing] serve 2,048 queries, {name}: QPS {st['qps']:.1f}, "
+            f"p50 {st['p50_latency_s'] * 1e3:.2f} ms, "
+            f"p95 {st['p95_latency_s'] * 1e3:.2f} ms")
     for row in rows:
         log(f"[timing] {row['name']}: {row['ms']:.4f} ms (plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms by "

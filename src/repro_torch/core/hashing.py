@@ -1,5 +1,5 @@
-"""FastRandomHash (paper §II-D) on the host (numpy copy of
-``repro.core.hashing``'s numpy side).
+"""FastRandomHash (paper §II-D): the host numpy functions of
+``repro.core.hashing`` and its device segment-min in torch.
 
 A *generative* hash function h_i maps item ids onto the bounded interval
 [0, b). The FastRandomHash of a user is the minimum hash over her profile::
@@ -15,6 +15,7 @@ without rehashing.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 NO_HASH = np.int32(2**31 - 1)  # "H undefined" sentinel (empty masked min)
 
@@ -53,6 +54,18 @@ def user_min_hash_np(item_h: np.ndarray, offsets: np.ndarray) -> np.ndarray:
         mins = np.minimum.reduceat(item_h[i], starts)
         out[i, nonempty] = mins
     return out
+
+
+def user_min_hash_torch(item_h: torch.Tensor, user_of: torch.Tensor,
+                        n_users: int) -> torch.Tensor:
+    """Device segment-min: item_h int32[t, nnz], user_of int[nnz] →
+    int32[t, n_users], NO_HASH for a user with no items (the counterpart
+    of ``repro.core.hashing.user_min_hash_jnp``)."""
+    t = item_h.shape[0]
+    out = torch.full((t, n_users), int(NO_HASH), dtype=torch.int32,
+                     device=item_h.device)
+    index = user_of.to(torch.int64)[None, :].expand(t, -1)
+    return out.scatter_reduce(1, index, item_h.to(torch.int32), "amin")
 
 
 def user_hash_above_np(item_h_row: np.ndarray, offsets: np.ndarray,

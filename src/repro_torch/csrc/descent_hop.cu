@@ -20,6 +20,8 @@
 //      reduction, retiring every lane that carries the round's winning id:
 //      exactly select_topk(..., dedup_ids=True). Once the best remaining sim
 //      is -inf every later round is too, and the rest of the beam is PAD.
+// Steps 1, 2's ids and suppression, and 3 are hop_common.cuh's, shared with
+// the DMA hop (descent_hop_dma.cu).
 //
 // What bounds it: per query ~B*(kg+kr)*4 bytes of adjacency plus one
 // fingerprint row (4W bytes) per surviving lane, against ~3W integer
@@ -28,32 +30,12 @@
 // suppression before scoring is what cuts the bytes: duplicate and
 // in-beam lanes never touch their fingerprint row.
 
-#include "common.cuh"
+#include "hop_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-struct Best {
-  float sim;
-  int col;
-};
-
-// (sim desc, col asc): true when a ranks before b.
-__device__ __forceinline__ bool better(const Best& a, const Best& b) {
-  return a.sim > b.sim || (a.sim == b.sim && a.col < b.col);
-}
-
-__device__ __forceinline__ Best warp_best(Best v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    Best o;
-    o.sim = __shfl_down_sync(0xffffffffu, v.sim, off);
-    o.col = __shfl_down_sync(0xffffffffu, v.col, off);
-    if (better(o, v)) v = o;
-  }
-  return v;
-}
+using repro::hop::kThreads;
+using repro::hop::SelectScratch;
 
 __global__ void __launch_bounds__(kThreads)
 descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
@@ -73,60 +55,29 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
   int* s_id = reinterpret_cast<int*>(smem_raw);              // [L]
   float* s_sim = reinterpret_cast<float*>(s_id + L);         // [L]
   uint32_t* s_qw = reinterpret_cast<uint32_t*>(s_sim + L);   // [W]
-  float* r_sim = reinterpret_cast<float*>(s_qw + W);         // [kWarps]
-  int* r_col = reinterpret_cast<int*>(r_sim + kWarps);       // [kWarps]
-  int* s_count = r_col + kWarps;                             // [1]
-  int* s_win = s_count + 1;                                  // [1]
-  int* s_done = s_win + 1;                                   // [1]
+  SelectScratch* scr = reinterpret_cast<SelectScratch*>(s_qw + W);
+  int* s_count = reinterpret_cast<int*>(scr + 1);            // [1]
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int lane = tid & 31;
   const long long q = blockIdx.x;
   const float ninf = repro::neg_inf();
 
   // (1) beam lanes, tombstoned rows dropped to PAD / -inf.
-  for (int b = tid; b < B; b += kThreads) {
-    int id = beam_ids[q * B + b];
-    float s = beam_sims[q * B + b];
-    if (id != repro::kPadId && tomb[id]) {
-      id = repro::kPadId;
-      s = ninf;
-    }
-    s_id[b] = id;
-    s_sim[b] = s;
-  }
+  repro::hop::stage_beam(beam_ids + q * B, beam_sims + q * B, tomb, B, s_id,
+                         s_sim);
   for (int w = tid; w < W; w += kThreads) s_qw[w] = q_words[q * W + w];
-  if (tid == 0) {
-    *s_count = 0;
-    *s_done = 0;
-  }
+  if (tid == 0) *s_count = 0;
   __syncthreads();
 
   // (2) gather candidate ids, suppress, score the survivors.
   const int qcard = q_card[q];
-  const int n_fwd = B * kg;
   int scored = 0;
   for (int c = tid; c < C; c += kThreads) {
-    int id;
-    if (c < n_fwd) {
-      const int b = c / kg;
-      const int bid = s_id[b];
-      id = bid == repro::kPadId
-               ? repro::kPadId
-               : graph[static_cast<long long>(bid) * kg + (c - b * kg)];
-    } else {
-      const int cr = c - n_fwd;
-      const int b = cr / kr;
-      const int bid = s_id[b];
-      id = bid == repro::kPadId
-               ? repro::kPadId
-               : rev[static_cast<long long>(bid) * kr + (cr - b * kr)];
-    }
-    if (id != repro::kPadId && tomb[id]) id = repro::kPadId;
-    bool need = id != repro::kPadId;
-    for (int b = 0; need && b < B; ++b) need = s_id[b] != id;
+    const int id =
+        repro::hop::candidate_id(graph, rev, tomb, s_id, c, B, kg, kr);
     float sim = ninf;
-    if (need) {
+    if (repro::hop::survives(id, s_id, B)) {
       ++scored;
       const long long row = static_cast<long long>(id) * W;
       int inter = 0;
@@ -144,45 +95,8 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
   if (tid == 0) n_scored[q] = *s_count;
 
   // (3) B rounds of (max sim, min column) with winner-id retirement.
-  for (int r = 0; r < B; ++r) {
-    Best best{ninf, 0x7fffffff};
-    for (int l = tid; l < L; l += kThreads) {
-      const Best v{s_sim[l], l};
-      if (better(v, best)) best = v;
-    }
-    best = warp_best(best);
-    if (lane == 0) {
-      r_sim[warp] = best.sim;
-      r_col[warp] = best.col;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      Best v = lane < kWarps ? Best{r_sim[lane], r_col[lane]}
-                             : Best{ninf, 0x7fffffff};
-      v = warp_best(v);
-      if (lane == 0) {
-        if (v.sim == ninf) {
-          // Every remaining lane is -inf: the rest of the beam is PAD.
-          for (int j = r; j < B; ++j) {
-            out_ids[q * B + j] = repro::kPadId;
-            out_sims[q * B + j] = ninf;
-          }
-          *s_done = 1;
-        } else {
-          const int win = s_id[v.col];
-          out_ids[q * B + r] = win;
-          out_sims[q * B + r] = v.sim;
-          *s_win = win;
-        }
-      }
-    }
-    __syncthreads();
-    if (*s_done) break;  // uniform across the block
-    const int win = *s_win;
-    for (int l = tid; l < L; l += kThreads)
-      if (s_id[l] == win) s_sim[l] = ninf;
-    __syncthreads();
-  }
+  repro::hop::select_beam(s_id, s_sim, L, B, out_ids + q * B,
+                          out_sims + q * B, scr);
 }
 
 }  // namespace
@@ -193,7 +107,24 @@ REPRO_EXPORT size_t repro_descent_hop_smem_bytes(int W, int kg, int kr,
                                                  int B) {
   const size_t L = static_cast<size_t>(B) * (1 + kg + kr);
   return L * (sizeof(int) + sizeof(float)) + sizeof(uint32_t) * W +
-         kWarps * (sizeof(float) + sizeof(int)) + 3 * sizeof(int);
+         sizeof(SelectScratch) + sizeof(int);
+}
+
+// Blocks of this kernel one SM can hold at these parameters (shared
+// memory, registers and threads together), or minus a CUDA error.
+REPRO_EXPORT int repro_descent_hop_blocks_per_sm(int W, int kg, int kr,
+                                                 int B) {
+  const size_t smem = repro_descent_hop_smem_bytes(W, kg, kr, B);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)  // as at launch: the default cap is 48 KB
+    e = cudaFuncSetAttribute(descent_hop_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, descent_hop_kernel, kThreads, smem);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 // Tables: graph [n, kg], rev [n, kr], words [n, W] (uint32 bit patterns),

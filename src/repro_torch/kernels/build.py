@@ -11,7 +11,7 @@ division must round to nearest like the reference's (nvcc's default
 ``-prec-div=true``).
 
 Libraries land in ``repro_torch/_build/<name>-<digest>/`` where the digest
-hashes the flags, the source and the shared header, so an edited source
+hashes the flags, the source and the shared headers, so an edited source
 rebuilds and an unchanged one loads at once. Nothing is built at import:
 the first wrapper call on a CUDA tensor (or :func:`build`) compiles.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
@@ -29,8 +29,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("goldfinger_knn", "descent_hop")
-HEADERS = ("common.cuh",)
+KERNELS = ("goldfinger_knn", "descent_hop", "descent_hop_dma", "frh_minhash")
+HEADERS = ("common.cuh", "hop_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,8 +1,10 @@
-"""Wrapper for the fused descent-hop kernel (``csrc/descent_hop.cu``).
+"""Wrappers for the fused descent-hop kernels (``csrc/descent_hop.cu`` and
+``csrc/descent_hop_dma.cu``).
 
 The tensor's device selects the implementation: CPU tensors run the plain
 version (:mod:`.ref`), CUDA tensors launch the kernel, and anything else
-raises. ``launches`` counts kernel launches (plain calls do not count).
+raises. ``launches`` counts launches of the hop kernel and
+``launches_dma`` those of the DMA hop (plain calls count in neither).
 """
 from __future__ import annotations
 
@@ -11,12 +13,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.descent_score import ref
+from repro_torch.kernels.descent_score import ref, tune
 
 KERNEL = "descent_hop"
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+KERNEL_DMA = "descent_hop_dma"
+SMEM_LIMIT = tune.SMEM_LIMIT
 
 launches = 0
+launches_dma = 0
 
 
 def _lib():
@@ -28,12 +32,29 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.repro_descent_hop_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.repro_descent_hop_smem_bytes.restype = ctypes.c_size_t
+        lib.repro_descent_hop_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.repro_descent_hop_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-def _launch(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
-            beam_ids, beam_sims):
-    global launches
+def _lib_dma():
+    lib = build.load(KERNEL_DMA)
+    fn = lib.repro_descent_hop_dma
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.repro_descent_hop_dma_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.repro_descent_hop_dma_smem_bytes.restype = ctypes.c_size_t
+        lib.repro_descent_hop_dma_blocks_per_sm.argtypes = [ctypes.c_int] * 7
+        lib.repro_descent_hop_dma_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
+def _checked_args(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
+                  beam_ids, beam_sims):
+    """Contiguous kernel arguments, after checking device, dtype and shape
+    of every input (tomb None → all live)."""
     n, kg = graph_ids.shape
     kr = rev_ids.shape[1]
     W = words.shape[1]
@@ -53,6 +74,18 @@ def _launch(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
                 f"got {t.dtype}{list(t.shape)} on {t.device}")
     args = [t.contiguous() for t, _, _ in typed]
     args[4] = args[4].view(torch.uint8)
+    return args
+
+
+def _launch(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
+            beam_ids, beam_sims):
+    global launches
+    args = _checked_args(graph_ids, rev_ids, words, card, tomb, q_words,
+                         q_card, beam_ids, beam_sims)
+    n, kg = graph_ids.shape
+    kr, W = rev_ids.shape[1], words.shape[1]
+    q, B = beam_ids.shape
+    dev = beam_ids.device
     out_ids = torch.empty((q, B), dtype=torch.int32, device=dev)
     out_sims = torch.empty((q, B), dtype=torch.float32, device=dev)
     n_scored = torch.empty((q,), dtype=torch.int32, device=dev)
@@ -73,15 +106,76 @@ def _launch(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
     return out_ids, out_sims, n_scored
 
 
+def _launch_dma(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
+                beam_ids, beam_sims, block_q: int, chunk: int,
+                n_buffers: int):
+    global launches_dma
+    args = _checked_args(graph_ids, rev_ids, words, card, tomb, q_words,
+                         q_card, beam_ids, beam_sims)
+    n, kg = graph_ids.shape
+    kr, W = rev_ids.shape[1], words.shape[1]
+    q, B = beam_ids.shape
+    dev = beam_ids.device
+    outs = [torch.empty((q, B), dtype=torch.int32, device=dev),
+            torch.empty((q, B), dtype=torch.float32, device=dev)]
+    outs += [torch.empty((q,), dtype=torch.int32, device=dev)
+             for _ in range(3)]
+    if q == 0:
+        return tuple(outs)
+    if block_q < 1 or chunk < 1 or not 1 <= n_buffers <= tune.MAX_BUFFERS:
+        raise ValueError(f"DMA hop needs block_q >= 1, score_chunk >= 1 and "
+                         f"1 <= n_buffers <= {tune.MAX_BUFFERS}; got "
+                         f"{block_q}, {chunk}, {n_buffers}")
+    # As the reference: a chunk never exceeds the lanes, nor the ring the
+    # chunks.
+    C = B * (kg + kr)
+    chunk = max(1, min(chunk, C))
+    n_buffers = max(1, min(n_buffers, -(-C // chunk)))
+    lib = _lib_dma()
+    smem = lib.repro_descent_hop_dma_smem_bytes(W, kg, kr, B, block_q, chunk,
+                                                n_buffers)
+    if smem != tune.smem_bytes(W, kg + kr, B, block_q, chunk, n_buffers):
+        raise RuntimeError(
+            f"tune.smem_bytes disagrees with the kernel's layout ({smem} B) "
+            f"at W={W} kg+kr={kg + kr} B={B} block_q={block_q} "
+            f"chunk={chunk} n_buffers={n_buffers}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"DMA hop needs {smem} B of shared memory at W={W}, B={B}, "
+            f"kg+kr={kg + kr}, block_q={block_q}, score_chunk={chunk}, "
+            f"n_buffers={n_buffers}; the limit is {SMEM_LIMIT}")
+    with torch.cuda.device(dev):
+        err = lib.repro_descent_hop_dma(
+            *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+            q, W, kg, kr, B, block_q, chunk, n_buffers,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, KERNEL_DMA)
+    launches_dma += 1
+    return tuple(outs)
+
+
 def descent_hop(graph_ids, rev_ids, words, card, q_words, q_card,
-                beam_ids, beam_sims, *, tomb=None, with_counts: bool = False):
+                beam_ids, beam_sims, *, tomb=None, dma: bool = False,
+                block_q: int | None = None, score_chunk: int | None = None,
+                n_buffers: int | None = None, with_counts: bool = False):
     """One fused descent hop; same contract as ref.descent_hop_ref.
 
     ``tomb`` (bool[n] or None) marks tombstoned index rows; their lanes
     retire with the PAD/in-beam suppression, before the estimator. Beam
     rows must not repeat an id (every merge_topk output satisfies this).
-    With ``with_counts`` also returns ``n_scored`` int32[q], the lanes
-    that survived suppression and were scored.
+
+    ``dma=True`` selects the DMA hop (``csrc/descent_hop_dma.cu``): the
+    surviving lanes' fingerprint rows are gathered chunk by chunk into a
+    shared-memory ring, with ``(block_q, score_chunk, n_buffers)`` from
+    :func:`tune.hop_params` unless given. Results are bitwise those of the
+    hop kernel and of the plain version either way.
+
+    With ``with_counts`` returns ``(ids, sims, n_scored, dma_bytes,
+    bytes_saved)``, each count int32[q]: lanes that survived suppression
+    and were scored, fingerprint bytes gathered (``n_scored·W·4`` for the
+    DMA hop, 0 for the hop kernel) and fingerprint bytes the suppression
+    left unread (``(C − n_scored)·W·4`` with ``C = B·(kg+kr)``; 0 for the
+    hop kernel).
     """
     kind = beam_ids.device.type
     if kind == "cpu":
@@ -90,10 +184,27 @@ def descent_hop(graph_ids, rev_ids, words, card, q_words, q_card,
                                         beam_sims, tomb=tomb)
         if not with_counts:
             return ids, sims
-        return ids, sims, ref.scored_lanes(graph_ids, rev_ids, beam_ids,
-                                           tomb=tomb)
+        n_scored = ref.scored_lanes(graph_ids, rev_ids, beam_ids, tomb=tomb)
+        if dma:
+            C = beam_ids.shape[1] * (graph_ids.shape[1] + rev_ids.shape[1])
+            dma_bytes, saved = ref.dma_counts(n_scored, words.shape[1], C)
+        else:
+            dma_bytes = saved = torch.zeros_like(n_scored)
+        return ids, sims, n_scored, dma_bytes, saved
     if kind != "cuda":
         raise ValueError(f"unsupported device {beam_ids.device}")
-    ids, sims, n_scored = _launch(graph_ids, rev_ids, words, card, tomb,
-                                  q_words, q_card, beam_ids, beam_sims)
-    return (ids, sims, n_scored) if with_counts else (ids, sims)
+    if dma:
+        q, B = beam_ids.shape
+        p = tune.hop_params(words.shape[0], words.shape[1], B,
+                            graph_ids.shape[1] + rev_ids.shape[1], q)
+        out = _launch_dma(
+            graph_ids, rev_ids, words, card, tomb, q_words, q_card, beam_ids,
+            beam_sims, p.block_q if block_q is None else block_q,
+            p.score_chunk if score_chunk is None else score_chunk,
+            p.n_buffers if n_buffers is None else n_buffers)
+    else:
+        ids, sims, n_scored = _launch(graph_ids, rev_ids, words, card, tomb,
+                                      q_words, q_card, beam_ids, beam_sims)
+        zero = torch.zeros_like(n_scored)
+        out = (ids, sims, n_scored, zero, zero)
+    return out if with_counts else out[:2]

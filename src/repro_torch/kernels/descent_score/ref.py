@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the descent-hop kernel (``csrc/descent_hop.cu``).
+"""Plain PyTorch version of the descent-hop kernels (``csrc/descent_hop.cu``,
+``csrc/descent_hop_dma.cu``).
 
 The unfused hop of ``repro.kernels.descent_score.ref``: gather forward +
 reverse neighbors of the beam, score every candidate lane, let
 :func:`~repro_torch.knn.topk.merge_topk` mask duplicates/PADs and rank.
 The kernel must match it bit for bit (ids and sims). :func:`scored_lanes`
-is the kernel's third output, the count of lanes that survive the
-pre-scoring suppression. Serving runs this hop under scorer ``"jnp"``.
+is the kernels' third output, the count of lanes that survive the
+pre-scoring suppression, and :func:`dma_counts` the DMA hop's byte
+counters. Serving runs this hop under scorer ``"jnp"``.
 """
 from __future__ import annotations
 
@@ -75,3 +77,11 @@ def scored_lanes(graph_ids, rev_ids, beam_ids, tomb=None):
         beam_ids = mask_dead(tomb, beam_ids)
     cand = gather_candidates(graph_ids, rev_ids, beam_ids, tomb)
     return survivors(cand, beam_ids).sum(dim=1, dtype=torch.int32)
+
+
+def dma_counts(n_scored, W: int, C: int):
+    """The DMA hop's byte counters from its scored lanes: (dma_bytes,
+    bytes_saved) int32[q] — fingerprint bytes of the C = B·(kg+kr)
+    candidate lanes gathered (one W-word row per scored lane) and left
+    unread."""
+    return n_scored * (W * 4), (C - n_scored) * (W * 4)

@@ -4,17 +4,21 @@ QPS / latency / recall vs brute force.
 
     PYTHONPATH=src python -m repro_torch.launch.knn_serve \
         --index /tmp/ml1m.npz --dataset ml1M --scale 1.0 \
-        --queries 2048 --kernel
+        --queries 2048 --continuous --slots 256 --kernel --dma
 
 ``--index`` serves an artifact written by either package's ``knn_build
 --index-out``; without it the index is built in-process with the
 reference's serving parameters. ``--kernel`` selects the fused descent
-hop (the CUDA kernel; identical results to the plain hop). Everything runs
-on ``--device`` (default ``cuda``; without a card that raises at once).
+hop (the CUDA kernel; identical results to the plain hop), ``--dma`` on
+top the DMA hop (identical results; reports fingerprint bytes moved and
+skipped). ``--continuous`` streams the requests through ``--slots``
+in-flight slots instead of closed waves of ``--max-wave`` (identical
+results). Everything runs on ``--device`` (default ``cuda``; without a
+card that raises at once).
 
-This slice serves single placement × wave batching. The reference's other
-flags are accepted by name and raise NotImplementedError naming the
-ROADMAP item that ports them when set to anything but their default.
+This port serves the single placement. The reference's other flags are
+accepted by name and raise NotImplementedError naming the ROADMAP item
+that ports them when set to anything but their default.
 """
 from __future__ import annotations
 
@@ -29,10 +33,7 @@ from repro_torch.query.index import KNNIndex, build_index
 
 # Reference flags outside this slice: (flag, type, default, ROADMAP item).
 _LATER = (
-    ("--continuous", bool, False, "queue 1 item 4 (continuous batching)"),
-    ("--slots", int, 32, "queue 1 item 4 (continuous batching)"),
     ("--shards", int, 1, "queue 1 item 5 (sharded placement)"),
-    ("--dma", bool, False, "queue 2 item 3 (hop_pallas_dma)"),
     ("--insert", int, 0, "queue 1 item 3 (online insert)"),
     ("--churn", int, 0, "queue 1 item 6 (lifecycle)"),
     ("--ttl", int, 0, "queue 1 item 6 (lifecycle)"),
@@ -62,8 +63,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--beam", type=int, default=32)
     ap.add_argument("--hops", type=int, default=3)
     ap.add_argument("--max-wave", type=int, default=256)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching (slot scheduler, streaming "
+                         "admission) instead of closed waves")
+    ap.add_argument("--slots", type=int, default=32,
+                    help="in-flight slot capacity in continuous mode")
     ap.add_argument("--kernel", action="store_true",
                     help="fused descent hop (CUDA kernel; identical results)")
+    ap.add_argument("--dma", action="store_true",
+                    help="with --kernel: the DMA hop (fingerprint rows "
+                         "gathered through a shared-memory ring; identical "
+                         "results, reports bytes moved/skipped)")
     ap.add_argument("--index", default=None, help="load a saved index")
     ap.add_argument("--save-index", default=None, help="save the built index")
     ap.add_argument("--seed", type=int, default=0)
@@ -88,7 +98,9 @@ def main(argv=None):
                 f"{flag} is outside this port's slice: ROADMAP {item}")
     dev = resolve_device(args.device)
     qc = QueryConfig(k=args.k, beam=args.beam, hops=args.hops,
-                     max_wave=args.max_wave, kernel=args.kernel)
+                     max_wave=args.max_wave, continuous=args.continuous,
+                     slots=args.slots, kernel=args.kernel, dma=args.dma)
+    qc.spec()  # --dma without --kernel fails before any work
 
     if args.index:
         index = KNNIndex.load(args.index)
@@ -119,7 +131,7 @@ def main(argv=None):
         print("[serve] no queries requested")
         return {"requests": 0}, 0.0, engine
 
-    # Warm-up wave: first-use costs (kernel build and load, allocator)
+    # Warm-up step: first-use costs (kernel build and load, allocator)
     # stay out of the timed run.
     engine.submit(QueryRequest(rid=-1, profile=profiles[0]))
     engine.run()
@@ -129,7 +141,8 @@ def main(argv=None):
         engine.submit(QueryRequest(rid=rid, profile=p))
     stats = engine.run()
     recall = engine.recall_vs_brute_force()
-    print(f"[serve] {stats['requests']} queries in {stats['waves']} waves "
+    unit = "ticks" if args.continuous else "waves"
+    print(f"[serve] {stats['requests']} queries in {stats['waves']} {unit} "
           f"({stats['mode']}) | "
           f"QPS {stats['qps']:.0f} | "
           f"p50 {stats['p50_latency_s'] * 1e3:.1f}ms | "
@@ -138,8 +151,15 @@ def main(argv=None):
     if "descent" in stats:
         d = stats["descent"]
         n_served = max(stats["served"], 1)
-        print(f"[serve] descent: {d['scored_lanes']} lanes scored "
-              f"({d['scored_lanes'] / n_served:.0f}/query)")
+        line = (f"[serve] descent: {d['scored_lanes']} lanes scored "
+                f"({d['scored_lanes'] / n_served:.0f}/query)")
+        if d["dma_bytes"]:
+            moved, saved = d["dma_bytes"], d["bytes_saved"]
+            line += (f" | dma {moved / 1e6:.2f} MB moved "
+                     f"({moved / n_served / 1e3:.1f} KB/query), "
+                     f"{saved / 1e6:.2f} MB skipped "
+                     f"({saved / (moved + saved):.0%} of gather traffic)")
+        print(line)
     return stats, recall, engine
 
 

@@ -3,10 +3,11 @@
 
 The engine is host bookkeeping around one
 :class:`~repro_torch.query.plan.DescentPlan`: every request takes the path
-``submit → plan.step → collect``, and :meth:`QueryEngine.run` drains the
-queue and reports QPS and latency percentiles with the reference's stats
-keys. :meth:`QueryEngine.recall_vs_brute_force` scores served results
-against the exact KNN over the index.
+``submit → plan.step → collect`` (a step is a closed wave, or a continuous
+tick), and :meth:`QueryEngine.run` drains the queue and reports QPS and
+latency percentiles with the reference's stats keys.
+:meth:`QueryEngine.recall_vs_brute_force` scores served results against
+the exact KNN over the index.
 
 Online mutation (insert, delete, update), SLO admission, result caching,
 re-balancing and faults are later slices (ROADMAP queue 1 items 3 and
@@ -32,6 +33,8 @@ from repro_torch.query.search import exact_knn
 class QueryRequest:
     rid: int
     profile: np.ndarray                  # int32[|P|] item ids
+    hops: Optional[int] = None           # per-request hop budget
+                                         # (None → QueryConfig.hops)
     # Filled by the engine:
     ids: Optional[np.ndarray] = None     # int32[k] neighbor ids
     sims: Optional[np.ndarray] = None    # float32[k] similarities
@@ -54,14 +57,27 @@ class QueryConfig:
     hops: int = 3              # descent depth
     max_wave: int = 256        # queries per wave
     seeds_per_config: int = 16 # routed seed candidates per hash config
+    continuous: bool = False   # slot-based streaming admission (sched/)
+    slots: int = 32            # in-flight capacity in continuous mode
     kernel: bool = False       # fused descent hop (scorer "pallas"):
                                # the CUDA kernel on a GPU; identical
                                # results to the plain hop
+    dma: bool = False          # with kernel: the DMA hop (scorer
+                               # "pallas_dma"); identical results, and
+                               # reports fingerprint bytes moved/skipped
 
     def spec(self) -> PlanSpec:
-        return PlanSpec(scorer="pallas" if self.kernel else "jnp",
-                        k=self.k, beam=self.beam, hops=self.hops,
-                        max_wave=self.max_wave,
+        """Map the flags onto a validated plan on the three axes."""
+        if self.dma and not self.kernel:
+            raise ValueError(
+                "dma selects the DMA placement of the fused kernel hop; it "
+                "needs kernel=True")
+        scorer = ("pallas_dma" if self.dma
+                  else "pallas" if self.kernel else "jnp")
+        return PlanSpec(batching="continuous" if self.continuous else "wave",
+                        scorer=scorer, k=self.k, beam=self.beam,
+                        hops=self.hops, max_wave=self.max_wave,
+                        slots=self.slots,
                         seeds_per_config=self.seeds_per_config)
 
 
@@ -79,19 +95,40 @@ class QueryEngine:
         req.t_submit = time.perf_counter()
         self.queue.append(req)
 
+    @property
+    def n_ticks(self) -> int:
+        """Continuous ticks that ran a hop (0 for wave plans)."""
+        return self.plan.n_ticks
+
     def busy(self) -> bool:
-        return bool(self.queue)
+        """True while requests are queued or (continuous) in flight."""
+        return bool(self.queue) or self.plan.busy()
 
     def step(self) -> int:
-        """Serve one wave; returns requests completed."""
+        """Serve one step, a wave or a continuous tick; returns requests
+        completed."""
         return self.plan.step(self.queue, self.done)
 
-    def run(self) -> dict:
-        """Drain the queue through the plan; returns aggregate stats."""
+    def tick(self) -> int:
+        """One continuous tick (the step of a slot plan)."""
+        if not self.qc.continuous:
+            raise ValueError("tick() is the continuous step; this engine "
+                             f"serves {self.plan.describe()}")
+        return self.step()
+
+    def run(self, on_tick=None) -> dict:
+        """Drain the queue through the plan; returns aggregate stats.
+
+        ``on_tick`` (continuous plans only): ``f(engine, tick)`` called
+        between steps, e.g. to submit arrivals while slots are in flight.
+        """
         t0 = time.perf_counter()
         n_steps = 0
         n_new_done = 0
+        continuous = self.qc.continuous
         while self.busy():
+            if continuous and on_tick is not None:
+                on_tick(self, n_steps)
             n_new_done += self.step()
             n_steps += 1
         dt = max(time.perf_counter() - t0, 1e-9)
@@ -102,7 +139,7 @@ class QueryEngine:
             "requests": n_new_done,
             "served": n_new_done,
             "shed": 0,
-            "mode": "wave",
+            "mode": "continuous" if continuous else "wave",
             "plan": self.plan.describe(),
             "waves": n_steps,
             "qps": n_new_done / dt,

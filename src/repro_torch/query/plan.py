@@ -1,22 +1,26 @@
-"""Descent plans: placement × batching × scorer (torch port of the single ×
-wave corner of ``repro.query.plan``).
+"""Descent plans: placement × batching × scorer (torch port of the single
+placement of ``repro.query.plan``).
 
 A :class:`PlanSpec` names the three serving axes of the reference. This
-slice runs placement ``1`` (one device) × batching ``"wave"`` with scorer
-``"jnp"`` (the plain unfused hop) or ``"pallas"`` (the fused CUDA hop; the
-name is the reference's, so specs and CLI flags carry over). Both scorers
-give bitwise-identical ids and sims. The other corners raise
-NotImplementedError naming the ROADMAP item that ports them.
+port runs placement ``1`` (one device) under batching ``"wave"`` (closed
+waves) or ``"continuous"`` (a slot scheduler, streaming admission,
+per-request hop budgets), with scorer ``"jnp"`` (the plain unfused hop),
+``"pallas"`` (the fused CUDA hop) or ``"pallas_dma"`` (the DMA hop); the
+scorer names are the reference's, so specs and CLI flags carry over. For
+a fixed placement, batching and scorer never change a result: every
+combination gives bitwise-identical ids and sims. The sharded placement
+raises NotImplementedError naming the ROADMAP item that ports it.
 
-A :class:`DescentPlan` owns its device state — the index tables uploaded
-once to the plan's device — and serves closed waves:
-``step(queue, done)`` pops up to ``max_wave`` requests, routes them on the
-host, runs one batched descent on the device, and stamps the results.
+A :class:`DescentPlan` owns its device state (the index tables uploaded
+once to the plan's device and, for continuous plans, the slot arrays) and
+serves through ``step(queue, done)``: one closed wave, or one continuous
+tick.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -24,18 +28,15 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.router import fingerprint_profiles, profiles_to_csr, route
-from repro_torch.query.search import batched_descent
+from repro_torch.query.search import batched_descent, slot_admit, slot_hop
+from repro_torch.sched import SlotScheduler
 from repro_torch.sketch.goldfinger import words_tensor
+from repro_torch.types import NEG_INF, PAD_ID
 
 BATCHINGS = ("wave", "continuous")
 SCORERS = ("jnp", "pallas", "pallas_dma")
 
-_NOT_PORTED = {
-    "placement": "sharded placement is ROADMAP queue 1 item 5",
-    "continuous": "continuous batching is ROADMAP queue 1 item 4",
-    "pallas_dma": "the DMA hop (scorer 'pallas_dma') is ROADMAP queue 2 "
-                  "item 3",
-}
+_SHARDED_NOT_PORTED = "sharded placement is ROADMAP queue 1 item 5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +50,7 @@ class PlanSpec:
     beam: int = 32
     hops: int = 3
     max_wave: int = 256         # wave batching: queries per descent
+    slots: int = 32             # continuous batching: in-flight capacity
     seeds_per_config: int = 16
 
     def __post_init__(self):
@@ -62,12 +64,11 @@ class PlanSpec:
             raise ValueError(
                 f"unknown scorer {self.scorer!r}; supported: {SCORERS}")
         if self.placement > 1:
-            raise NotImplementedError(_NOT_PORTED["placement"])
-        if self.batching == "continuous":
-            raise NotImplementedError(_NOT_PORTED["continuous"])
-        if self.scorer == "pallas_dma":
-            raise NotImplementedError(_NOT_PORTED["pallas_dma"])
-        if self.max_wave < 1:
+            raise NotImplementedError(_SHARDED_NOT_PORTED)
+        if self.batching == "continuous" and self.slots < 1:
+            raise ValueError(f"continuous plans need slots >= 1, "
+                             f"got {self.slots}")
+        if self.batching == "wave" and self.max_wave < 1:
             raise ValueError(f"wave plans need max_wave >= 1, "
                              f"got {self.max_wave}")
         if self.k < 1 or self.hops < 0:
@@ -75,14 +76,41 @@ class PlanSpec:
 
     @property
     def kernel(self) -> bool:
-        return self.scorer == "pallas"
+        return self.scorer in ("pallas", "pallas_dma")
+
+    @property
+    def dma(self) -> bool:
+        """The DMA hop (``ops.descent_hop(dma=True)``)."""
+        return self.scorer == "pallas_dma"
 
     def describe(self) -> str:
-        return f"single x wave x {self.scorer}"
+        batch = ("wave" if self.batching == "wave"
+                 else f"continuous(slots={self.slots})")
+        return f"single x {batch} x {self.scorer}"
+
+
+class _SlotState:
+    """Device-resident per-slot state of a continuous plan: the query
+    fingerprints and beams of the ``n_slots`` rows, and on the host each
+    slot's hops done and hop budget."""
+
+    def __init__(self, index: KNNIndex, spec: PlanSpec, beam: int, device):
+        n_slots = spec.slots
+        self.beam = beam
+        self.sched = SlotScheduler(n_slots)
+        self.q_words = torch.zeros((n_slots, index.words.shape[1]),
+                                   dtype=torch.int32, device=device)
+        self.q_card = torch.zeros(n_slots, dtype=torch.int32, device=device)
+        self.beam_ids = torch.full((n_slots, beam), PAD_ID, dtype=torch.int32,
+                                   device=device)
+        self.beam_sims = torch.full((n_slots, beam), NEG_INF,
+                                    dtype=torch.float32, device=device)
+        self.hops_done = np.zeros(n_slots, np.int64)
+        self.budget = np.full(n_slots, spec.hops, np.int64)
 
 
 class DescentPlan:
-    """Single placement × wave batching, on one device."""
+    """Single placement × wave or continuous batching, on one device."""
 
     def __init__(self, index: KNNIndex, spec: PlanSpec, device="cuda"):
         self.index = index
@@ -90,18 +118,36 @@ class DescentPlan:
         self.device = resolve_device(device)
         self.beam = max(spec.beam, spec.k)
         self._tables = None     # device copies of the index, built once
-        # Candidate lanes the fused hop scored (real query rows only),
-        # and how many (query, hop) pairs that covers.
-        self.descent_stats = {"scored_lanes": 0, "hop_queries": 0}
+        self._slots: Optional[_SlotState] = None
+        self.n_ticks = 0
+        # Hop accounting over every hop this plan ran, real query rows
+        # only (inactive slots are masked out before they land here):
+        # candidate lanes scored, fingerprint bytes the DMA hop gathered
+        # and those its suppression skipped, and the query rows noted —
+        # one per query of a wave, one per active slot of a tick, as the
+        # reference counts them.
+        self.descent_stats = {"scored_lanes": 0, "dma_bytes": 0,
+                              "bytes_saved": 0, "hop_queries": 0}
 
     def describe(self) -> str:
         return self.spec.describe()
+
+    def _note_stats(self, stats: torch.Tensor) -> None:
+        """Fold int32[rows, 3] of ``(n_scored, dma_bytes, bytes_saved)``,
+        already masked to real rows, into :attr:`descent_stats`."""
+        s = stats.cpu().numpy().astype(np.int64)
+        if s.size == 0:
+            return
+        self.descent_stats["scored_lanes"] += int(s[:, 0].sum())
+        self.descent_stats["dma_bytes"] += int(s[:, 1].sum())
+        self.descent_stats["bytes_saved"] += int(s[:, 2].sum())
+        self.descent_stats["hop_queries"] += int(s.shape[0])
 
     def tables(self):
         """The index uploaded to the plan's device: (graph_ids, rev_ids,
         words bit-views, card, tombstone). The port's index is read-only
         (online mutation is a later slice), so one upload serves every
-        wave."""
+        wave and tick."""
         if self._tables is None:
             ix, dev = self.index, self.device
             self._tables = (
@@ -115,47 +161,68 @@ class DescentPlan:
 
     # -- one closed wave -----------------------------------------------------
 
-    def search(self, items, offsets, qgf, k: int):
+    def search(self, items, offsets, qgf, k: int, *,
+               hops: int | None = None):
         """Route + beam-descend already-fingerprinted query profiles."""
         seeds = route(self.index, items, offsets, self.spec.seeds_per_config)
-        return self.descend_rows(qgf.words, qgf.card, seeds, k)
+        return self.descend_rows(qgf.words, qgf.card, seeds, k, hops=hops)
 
-    def descend_rows(self, q_words, q_card, seeds, k: int):
+    def descend_rows(self, q_words, q_card, seeds, k: int, *,
+                     hops: int | None = None):
         """Beam-descend from explicit seed rows; host arrays in and out."""
-        hops = self.spec.hops
+        spec = self.spec
+        hops = spec.hops if hops is None else hops
         dev = self.device
         graph_ids, rev_ids, words, card, tomb = self.tables()
-        qn = len(q_card)
-        ids, sims, scored = batched_descent(
+        ids, sims, stats = batched_descent(
             graph_ids, rev_ids, words, card, words_tensor(q_words, dev),
             torch.from_numpy(np.asarray(q_card, dtype=np.int32)).to(dev),
             torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(dev),
-            k=k, beam=max(self.beam, k), hops=hops, kernel=self.spec.kernel,
-            tomb=tomb)
-        if self.spec.kernel:
-            self.descent_stats["scored_lanes"] += int(scored.sum())
-            self.descent_stats["hop_queries"] += qn * hops
+            k=k, beam=max(self.beam, k), hops=hops, kernel=spec.kernel,
+            dma=spec.dma, tomb=tomb)
+        self._note_stats(stats)
         return ids.cpu().numpy(), sims.cpu().numpy()
 
-    def query_batch(self, profiles, k: int | None = None):
+    def query_batch(self, profiles, k: int | None = None,
+                    hops: int | None = None):
         """Answer raw profiles: (ids int32[q, k], sims float32[q, k])."""
         items, offsets = profiles_to_csr(profiles)
         qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
                                    self.index.fp_seed)
-        return self.search(items, offsets, qgf, k or self.spec.k)
+        return self.search(items, offsets, qgf, k or self.spec.k, hops=hops)
 
     # -- the serving loop ------------------------------------------------------
 
+    @property
+    def scheduler(self) -> Optional[SlotScheduler]:
+        """The continuous slot scheduler (None for wave plans)."""
+        return self._slots.sched if self._slots is not None else None
+
+    def busy(self) -> bool:
+        """True while this plan holds in-flight work (continuous slots)."""
+        return self._slots is not None and self._slots.sched.has_work()
+
     def step(self, queue, done) -> int:
-        """Close one wave from ``queue`` (a deque of requests), append the
-        completed requests to ``done``; returns how many completed.
-        """
+        """Serve one step, a wave or a continuous tick, from ``queue`` (a
+        deque of requests); append the completed requests to ``done`` with
+        results and ``t_done`` stamped; return how many completed."""
+        if self.spec.batching == "continuous":
+            return self._step_continuous(queue, done)
+        return self._step_wave(queue, done)
+
+    def _step_wave(self, queue, done) -> int:
+        """Close one wave. It runs to the largest hop budget of its
+        members (one deep request convoys the shallow ones; per-slot
+        budgets under continuous batching are the fix)."""
+        spec = self.spec
         wave = []
-        while queue and len(wave) < self.spec.max_wave:
+        while queue and len(wave) < spec.max_wave:
             wave.append(queue.popleft())
         if not wave:
             return 0
-        ids, sims = self.query_batch([r.profile for r in wave])
+        hops = max(r.hops if r.hops is not None else spec.hops
+                   for r in wave)
+        ids, sims = self.query_batch([r.profile for r in wave], hops=hops)
         now = time.perf_counter()
         for j, r in enumerate(wave):
             r.ids, r.sims = ids[j], sims[j]
@@ -163,3 +230,87 @@ class DescentPlan:
             r.status = "done"
             done.append(r)
         return len(wave)
+
+    # -- continuous batching ---------------------------------------------------
+
+    def _slot_state(self) -> _SlotState:
+        if self._slots is None:
+            self._slots = _SlotState(self.index, self.spec, self.beam,
+                                     self.device)
+        return self._slots
+
+    def _slot_results(self, st: _SlotState):
+        """(ids int32[n_slots, k], sims f32[n_slots, k]) host snapshots:
+        the beam is sorted, so the top k is its prefix."""
+        k = self.spec.k
+        return (st.beam_ids[:, :k].cpu().numpy(),
+                st.beam_sims[:, :k].cpu().numpy())
+
+    def _admit(self, st: _SlotState, admitted) -> None:
+        """Fingerprint, route and scatter one admission generation into
+        the slot arrays."""
+        spec = self.spec
+        dev = self.device
+        items, offsets = profiles_to_csr([r.profile for _, r in admitted])
+        qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
+                                   self.index.fp_seed)
+        seeds = route(self.index, items, offsets, spec.seeds_per_config)
+        slots = np.array([slot for slot, _ in admitted], dtype=np.int64)
+        for slot, req in admitted:
+            st.hops_done[slot] = 0
+            st.budget[slot] = req.hops if req.hops is not None else spec.hops
+        words, card, tomb = self.tables()[2:5]
+        slot_admit(words, card, words_tensor(qgf.words, dev),
+                   torch.from_numpy(np.asarray(qgf.card, np.int32)).to(dev),
+                   torch.from_numpy(np.asarray(seeds, np.int32)).to(dev),
+                   torch.from_numpy(slots).to(dev), st.q_words, st.q_card,
+                   st.beam_ids, st.beam_sims, beam=st.beam, tomb=tomb)
+
+    def _step_continuous(self, queue, done) -> int:
+        """One continuous tick: admit into free slots, advance every
+        in-flight beam one hop, complete the slots whose budget is spent
+        or whose beam reached its fixed point (no later hop could change
+        it, so the result is the full-budget one). Admission is
+        mid-flight: rows freed by an earlier tick take fresh requests
+        while the others keep descending, with no wave barrier."""
+        spec = self.spec
+        st = self._slot_state()
+        sched = st.sched
+        while queue:
+            sched.submit(queue.popleft())
+        admitted = sched.admit()
+        if admitted:
+            self._admit(st, admitted)
+        active = sched.active_mask()
+        if not active.any():
+            return 0
+        # Zero-budget slots never enter the hop (a hops=0 wave runs no
+        # hop); they complete at the snapshot below.
+        hop_active = active & (st.hops_done < st.budget)
+        changed = np.zeros(active.shape[0], bool)
+        if hop_active.any():
+            graph_ids, rev_ids, words, card, tomb = self.tables()
+            mask = torch.from_numpy(hop_active).to(self.device)
+            st.beam_ids, st.beam_sims, changed_t, stats = slot_hop(
+                graph_ids, rev_ids, words, card, st.q_words, st.q_card,
+                st.beam_ids, st.beam_sims, mask, kernel=spec.kernel,
+                dma=spec.dma, tomb=tomb)
+            changed = changed_t.cpu().numpy()
+            # The hop ran every slot row; count only the active ones.
+            self._note_stats(stats[mask])
+            st.hops_done[hop_active] += 1
+            self.n_ticks += 1
+        finished = active & ((st.hops_done >= st.budget)
+                             | (hop_active & ~changed))
+        if not finished.any():
+            return 0
+        ids, sims = self._slot_results(st)
+        now = time.perf_counter()
+        slots = np.flatnonzero(finished)
+        for slot, req in zip(slots, sched.release_many(slots)):
+            req.ids = ids[slot].copy()
+            req.sims = sims[slot].copy()
+            req.t_done = now
+            req.status = "done"
+            done.append(req)
+        return len(slots)

@@ -1,10 +1,10 @@
-"""Batched graph descent for query serving (torch port of the wave pieces
-of ``repro.query.search``).
+"""Batched graph descent for query serving (torch port of the wave and
+single-placement slot pieces of ``repro.query.search``).
 
 Every query of a wave keeps a fixed-width beam of its best candidates;
 each hop gathers the forward AND reverse neighbors of the beam
 (friend-of-a-friend), scores them against the query fingerprint with the
-GoldFinger estimator, and re-selects the beam. The hop has two
+GoldFinger estimator, and re-selects the beam. The hop has three
 implementations with bitwise-identical results:
 
 * ``kernel=False`` — the plain unfused hop
@@ -13,7 +13,14 @@ implementations with bitwise-identical results:
 * ``kernel=True`` — ``kernels/descent_score/ops.descent_hop``: the fused
   CUDA hop on a GPU (its plain version on the CPU), which suppresses
   duplicate/PAD/in-beam lanes before scoring and reports how many lanes
-  it scored.
+  it scored;
+* ``kernel=True, dma=True`` — the DMA hop, which gathers the surviving
+  rows through a shared-memory ring and also reports the fingerprint
+  bytes it gathered and skipped.
+
+Waves run :func:`batched_descent`; continuous batching runs the same
+pieces a hop at a time over a fixed slot array (:func:`slot_admit`,
+:func:`slot_hop`).
 """
 from __future__ import annotations
 
@@ -45,47 +52,103 @@ def descent_init(words, card, q_words, q_card, seed_ids, *, beam: int,
 
 
 def descent_step(graph_ids, rev_ids, words, card, q_words, q_card,
-                 beam_ids, beam_sims, *, kernel: bool = False, tomb=None):
-    """One descent hop for every query of the wave.
+                 beam_ids, beam_sims, *, kernel: bool = False,
+                 dma: bool = False, tomb=None):
+    """One descent hop for every query row.
 
-    Returns ``(beam_ids, beam_sims, n_scored)`` with ``n_scored`` int32[q]
-    the candidate lanes the fused hop scored (zeros for the plain hop,
-    which scores every lane, as in the reference).
+    ``kernel=False`` runs the plain unfused hop, ``kernel=True`` the fused
+    hop, and ``dma=True`` on top the DMA hop: bitwise the same ids and sims
+    all three ways. Rows are independent, which is what lets the
+    continuous slots advance in-flight queries hop by hop while other rows
+    take fresh admissions.
+
+    Returns ``(beam_ids, beam_sims, stats)`` with ``stats`` int32[q, 3] of
+    ``(n_scored, dma_bytes, bytes_saved)`` for this hop: zeros for the
+    plain hop (it scores every lane, as in the reference), ``n_scored``
+    alone for the fused hop, all three for the DMA hop.
     """
     if kernel:
-        return ds_ops.descent_hop(graph_ids, rev_ids, words, card, q_words,
-                                  q_card, beam_ids, beam_sims, tomb=tomb,
-                                  with_counts=True)
+        ids, sims, *counts = ds_ops.descent_hop(
+            graph_ids, rev_ids, words, card, q_words, q_card, beam_ids,
+            beam_sims, tomb=tomb, dma=dma, with_counts=True)
+        return ids, sims, torch.stack(counts, dim=1)
     ids, sims = ds_ref.descent_hop_ref(graph_ids, rev_ids, words, card,
                                        q_words, q_card, beam_ids, beam_sims,
                                        tomb=tomb)
-    return ids, sims, torch.zeros(beam_ids.shape[0], dtype=torch.int32,
+    return ids, sims, torch.zeros((beam_ids.shape[0], 3), dtype=torch.int32,
                                   device=beam_ids.device)
 
 
 def batched_descent(graph_ids, rev_ids, words, card, q_words, q_card,
                     seed_ids, *, k: int, beam: int, hops: int,
-                    kernel: bool = False, tomb=None):
+                    kernel: bool = False, dma: bool = False, tomb=None):
     """Beam search over the index graph for a wave of queries.
 
     graph_ids int32[n, kg], rev_ids int32[n, r]: forward/reverse adjacency.
     words int32[n, W] bit-views, card int32[n]: index fingerprints.
     q_words int32[q, W], q_card int32[q]: query fingerprints.
     seed_ids int32[q, S]: routed seed candidates (PAD_ID padded).
-    Returns (ids int32[q, k], sims float32[q, k], n_scored int32[q]) with
-    ``n_scored`` summed over the hops.
+    Returns (ids int32[q, k], sims float32[q, k], stats int32[q, 3]) with
+    ``stats`` the per-hop ``(n_scored, dma_bytes, bytes_saved)`` summed
+    over the hops.
     """
     beam_ids, beam_sims = descent_init(words, card, q_words, q_card,
                                        seed_ids, beam=beam, tomb=tomb)
-    scored = torch.zeros(beam_ids.shape[0], dtype=torch.int32,
-                         device=beam_ids.device)
+    acc = torch.zeros((beam_ids.shape[0], 3), dtype=torch.int32,
+                      device=beam_ids.device)
     for _ in range(hops):
-        beam_ids, beam_sims, n_scored = descent_step(
+        beam_ids, beam_sims, stats = descent_step(
             graph_ids, rev_ids, words, card, q_words, q_card, beam_ids,
-            beam_sims, kernel=kernel, tomb=tomb)
-        scored += n_scored
+            beam_sims, kernel=kernel, dma=dma, tomb=tomb)
+        acc += stats
     ids, sims = merge_topk(beam_ids, beam_sims, k)
-    return ids, sims, scored
+    return ids, sims, acc
+
+
+def slot_admit(words, card, new_words, new_card, new_seeds, slot_idx,
+               q_words, q_card, beam_ids, beam_sims, *, beam: int,
+               tomb=None):
+    """Admit requests into the persistent slot state, in place.
+
+    ``new_*`` hold one row per admitted request, ``slot_idx`` int64[A] its
+    slot. Each admitted row's beam is initialised from its routed seeds
+    (:func:`descent_init`) and its fingerprint parked in ``q_words`` /
+    ``q_card``, so later hops never upload per-slot query state. The four
+    slot tensors are updated with ``index_copy_`` and returned. A whole
+    admission generation goes in one call: ``descent_init`` is
+    row-independent, so the rows' results do not depend on how requests
+    are grouped.
+    """
+    init_ids, init_sims = descent_init(words, card, new_words, new_card,
+                                       new_seeds, beam=beam, tomb=tomb)
+    q_words.index_copy_(0, slot_idx, new_words)
+    q_card.index_copy_(0, slot_idx, new_card)
+    beam_ids.index_copy_(0, slot_idx, init_ids)
+    beam_sims.index_copy_(0, slot_idx, init_sims)
+    return q_words, q_card, beam_ids, beam_sims
+
+
+def slot_hop(graph_ids, rev_ids, words, card, q_words, q_card, beam_ids,
+             beam_sims, active, *, kernel: bool = False, dma: bool = False,
+             tomb=None):
+    """One continuous-batching tick over the whole slot array.
+
+    Every row takes one :func:`descent_step` hop (the kernels run at the
+    fixed slot capacity); ``active`` (bool[n_slots]) rows keep the result
+    and inactive rows pass through unchanged. Returns ``(beam_ids,
+    beam_sims, changed, stats)``: ``changed[i]`` is False once row i's beam
+    reached a fixed point this hop (a hop is a function of the beam, so an
+    unchanged beam never changes again, and the request may complete early
+    with its full-budget result); ``stats`` is the hop's raw int32[n_slots,
+    3], which the caller masks by its own active set.
+    """
+    nids, nsims, stats = descent_step(graph_ids, rev_ids, words, card,
+                                      q_words, q_card, beam_ids, beam_sims,
+                                      kernel=kernel, dma=dma, tomb=tomb)
+    changed = (nids != beam_ids).any(dim=1) & active
+    out_ids = torch.where(active[:, None], nids, beam_ids)
+    out_sims = torch.where(active[:, None], nsims, beam_sims)
+    return out_ids, out_sims, changed, stats
 
 
 def _exact_block(words, card, tomb, q_words, q_card, k: int,

@@ -1,0 +1,108 @@
+"""The port's FastRandomHash held bitwise against the JAX reference.
+
+The plain version (what the CUDA kernel is checked against on the card)
+and the CPU dispatch of ``ops.minhash`` against ``repro``'s ``minhash_ref``
+and its Pallas kernel in interpret mode; ``dataset_minhash`` against the
+host CSR segment-min; ``user_min_hash_torch`` against
+``user_min_hash_jnp``.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import hashing as r_hashing  # noqa: E402
+from repro.kernels import config as r_kernel_config  # noqa: E402
+from repro.kernels.frh_minhash import ops as r_mh_ops  # noqa: E402
+from repro.kernels.frh_minhash import ref as r_mh_ref  # noqa: E402
+from repro_torch.core import hashing  # noqa: E402
+from repro_torch.data.synthetic import make_dataset  # noqa: E402
+from repro_torch.kernels.frh_minhash import ops as mh_ops  # noqa: E402
+from repro_torch.kernels.frh_minhash import ref as mh_ref  # noqa: E402
+from repro_torch.types import PAD_ID  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _pallas_interpret():
+    r_kernel_config.set_interpret(True)
+    yield
+    r_kernel_config.set_interpret(None)
+
+
+@pytest.mark.parametrize("n,P", [(8, 16), (100, 40), (256, 64), (300, 7)])
+@pytest.mark.parametrize("t", [1, 8])
+@pytest.mark.parametrize("b", [256, 4096])
+def test_minhash_matches_reference(n, P, t, b):
+    rng = np.random.default_rng(n + P + t + b)
+    padded = rng.integers(0, 10**6, size=(n, P)).astype(np.int32)
+    for i in range(n):
+        padded[i, int(rng.integers(1, P + 1)):] = PAD_ID
+    padded[0] = PAD_ID  # an empty profile: NO_HASH
+    seeds = np.arange(t, dtype=np.int32) * 7 + 1
+    want_ref = np.asarray(r_mh_ref.minhash_ref(jnp.asarray(padded),
+                                               jnp.asarray(seeds), b))
+    want_kernel = np.asarray(r_mh_ops.minhash(jnp.asarray(padded), seeds, b))
+    np.testing.assert_array_equal(want_ref, want_kernel)
+    got_ref = mh_ref.minhash_ref(torch.from_numpy(padded),
+                                 torch.from_numpy(seeds), b)
+    got_ops = mh_ops.minhash(torch.from_numpy(padded), seeds, b)
+    assert got_ref.dtype == got_ops.dtype == torch.int32
+    np.testing.assert_array_equal(got_ref.numpy(), want_ref)
+    np.testing.assert_array_equal(got_ops.numpy(), want_ref)
+    assert (got_ref[0] == int(hashing.NO_HASH)).all()
+
+
+def test_minhash_wraps_uint32_seeds_and_items():
+    """Seeds and items near and past 2^31 wrap as uint32, as the
+    reference's."""
+    padded = np.array([[2**31 - 1, 0, 12345, PAD_ID],
+                       [7, 2**30 + 3, PAD_ID, PAD_ID]], np.int32)
+    seeds = np.array([-1, -3, 2**31 - 1, 0], np.int32)
+    want = np.asarray(r_mh_ref.minhash_ref(jnp.asarray(padded),
+                                           jnp.asarray(seeds), 1 << 20))
+    got = mh_ops.minhash(torch.from_numpy(padded), seeds, 1 << 20)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dataset_minhash_matches_host_csr():
+    ds = make_dataset("ml1M", scale=0.08, seed=7)
+    seeds = np.arange(4, dtype=np.int32)
+    host = hashing.user_min_hash_np(hashing.item_hashes(ds.items, seeds, 1024),
+                                    ds.offsets)
+    got = mh_ops.dataset_minhash(ds, seeds, 1024, device="cpu")
+    assert got.dtype == np.int32 and got.shape == (4, ds.n_users)
+    np.testing.assert_array_equal(got, host)
+    np.testing.assert_array_equal(got, r_hashing.user_min_hash_np(
+        r_hashing.item_hashes(ds.items, seeds, 1024), ds.offsets))
+
+
+def test_user_min_hash_torch_matches_jnp():
+    rng = np.random.default_rng(9)
+    n_users, nnz, t = 37, 400, 5
+    user_of = np.sort(rng.integers(0, n_users - 3, size=nnz)).astype(np.int32)
+    item_h = rng.integers(0, 4096, size=(t, nnz)).astype(np.int32)
+    want = np.asarray(r_hashing.user_min_hash_jnp(
+        jnp.asarray(item_h), jnp.asarray(user_of), n_users))
+    got = hashing.user_min_hash_torch(torch.from_numpy(item_h),
+                                      torch.from_numpy(user_of), n_users)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # Users without items (the last three) hold NO_HASH.
+    assert (got[:, -3:] == int(hashing.NO_HASH)).all()
+
+
+@pytest.mark.parametrize("b", [0, 1000, 3 << 10])
+def test_minhash_needs_a_power_of_two(b):
+    padded = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        mh_ops.minhash(padded, [1], b)
+
+
+def test_dataset_minhash_on_cuda_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_dataset("ml1M", scale=0.01, seed=7)
+    with pytest.raises(RuntimeError, match="is_available"):
+        mh_ops.dataset_minhash(ds, [1, 2], 1024)

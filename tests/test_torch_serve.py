@@ -93,13 +93,14 @@ def test_plain_hop_matches_reference_and_pallas(W, with_tomb):
              torch.from_numpy(bi), torch.from_numpy(bs))
     tomb_t = torch.from_numpy(tomb) if with_tomb else None
     p_ids, p_sims = ds_ref.descent_hop_ref(*targs, tomb=tomb_t)
-    o_ids, o_sims, o_scored = ds_ops.descent_hop(*targs, tomb=tomb_t,
-                                                 with_counts=True)
+    o_ids, o_sims, o_scored, o_dma, o_saved = ds_ops.descent_hop(
+        *targs, tomb=tomb_t, with_counts=True)
     for ids, sims in ((ref_ids, ref_sims), (k_ids, k_sims)):
         np.testing.assert_array_equal(np.asarray(ids), p_ids.numpy())
         np.testing.assert_array_equal(np.asarray(sims), p_sims.numpy())
     assert torch.equal(p_ids, o_ids) and torch.equal(p_sims, o_sims)
     np.testing.assert_array_equal(np.asarray(k_scored), o_scored.numpy())
+    assert not o_dma.any() and not o_saved.any()
 
 
 @pytest.fixture(scope="module")
@@ -203,8 +204,8 @@ def test_knn_serve_cli_on_cpu(indexes, tmp_path, capsys):
     assert stats["requests"] == 40 and 0.5 < recall <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["--continuous"],
-                                  ["--dma"], ["--insert", "3"],
+@pytest.mark.parametrize("flag", [["--shards", "2"], ["--adaptive", "2"],
+                                  ["--churn", "3"], ["--insert", "3"],
                                   ["--cache", "8"]])
 def test_knn_serve_flags_outside_slice_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -212,12 +213,14 @@ def test_knn_serve_flags_outside_slice_raise(flag):
 
 
 def test_plans_outside_slice_raise():
-    for kw in (dict(placement=2), dict(batching="continuous"),
-               dict(scorer="pallas_dma")):
+    for kw in (dict(placement=2),
+               dict(placement=2, batching="continuous")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PlanSpec(**kw)
     with pytest.raises(ValueError):
         PlanSpec(scorer="nope")
+    with pytest.raises(ValueError, match="kernel"):
+        QueryConfig(dma=True).spec()
 
 
 def test_cuda_without_card_raises(indexes, monkeypatch):
