@@ -10,14 +10,17 @@ Phases, each fatal on failure:
 2. build — compiles the four CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   bitwise: cluster-KNN (ids, sims) and the hop (ids, sims, scored lanes)
-   over PAD rows, tombstones, planted equal sims and duplicate candidates
-   at W = 32 and 64; the DMA hop against its plain version and against
-   the hop kernel, with exact byte counters, at W = 32, 64 and 33 (the
-   4-byte copy path), over tombstone-heavy tables, chunks that do not
-   divide the lanes, rings 1 to 3 deep, several queries per block and
-   chunks whose every lane is suppressed; FastRandomHash at the reference
-   test's shapes and at ml1M@1.0, where it also equals the host hashing;
+   bitwise: cluster-KNN (ids, sims) at W 1-64, k 1-64, caps 32-2048, PAD
+   ids at cluster ends and scattered, lone members, equal sims in every
+   database tile, and ``knn`` at 17x1,000 and 1,000x17; the hop (ids,
+   sims, scored lanes) over PAD rows, tombstones, planted equal sims and
+   duplicate candidates at W = 32 and 64; the DMA hop against its plain
+   version and against the hop kernel, with exact byte counters, at W =
+   32, 64 and 33 (the 4-byte copy path), over tombstone-heavy tables,
+   chunks that do not divide the lanes, rings 1 to 3 deep, several
+   queries per block and chunks whose every lane is suppressed;
+   FastRandomHash at the reference test's shapes and at ml1M@1.0, where
+   it also equals the host hashing;
 4. main path — ``knn_build`` on ml1M@1.0 with the paper's parameters
    (k=30) into a temporary index, then ``knn_serve`` of 2,048 unseen
    profiles (k=10, beam 32, 3 hops) in waves of 256 with the fused hop,
@@ -32,8 +35,9 @@ Phases, each fatal on failure:
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
    there, and timed beside it and the least time the card could take
-   (``bound_ms``); the host clock per phase of a wave and of continuous
-   ticks.
+   (``bound_ms``); the Step-2 sweep's device time per capacity group
+   beside its host clock; the host clock per phase of a wave and of
+   continuous ticks.
 
 Prints one ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +68,9 @@ CUDA_CORE_OPS_PER_S = 67e12
 # seed mix, fmix32's three shift-xors and two multiplies, the mask and
 # the min.
 MINHASH_OPS = 11
+# A sleep of ~25 ms at the H100's clocks: longer than the host takes to
+# queue a whole Step-2 sweep behind it.
+SLEEP_CYCLES = 50_000_000
 
 CLUSTER_KNN_SOURCE = "src/repro_torch/csrc/goldfinger_knn.cu"
 HOP_SOURCE = "src/repro_torch/csrc/descent_hop.cu"
@@ -145,7 +152,27 @@ def random_words(rng, shape, density_rounds: int = 3):
     return w.astype(np.uint32)
 
 
+def same_knn(ki, ks, pi, ps) -> bool:
+    """Kernel (ids, sims) [..., k] against the plain version's, which keeps
+    only min(k, nd) columns: the rest must be PAD/-inf."""
+    import torch
+
+    from repro_torch.types import PAD_ID
+
+    w = pi.shape[-1]
+    return (torch.equal(ki[..., :w], pi) and torch.equal(ks[..., :w], ps)
+            and bool((ki[..., w:] == PAD_ID).all())
+            and bool((ks[..., w:] == float("-inf")).all()))
+
+
 def check_cluster_knn(dev) -> tuple[int, float]:
+    """The cluster-KNN kernel against its plain version, bitwise: W from 1
+    to 64 words (16- and 4-byte copies), k from 1 to 64 (one and two keys
+    per lane), caps 32 to 2048 with a full cap-2048 cluster, PAD ids at the
+    end of clusters and scattered through them (their rows keep garbage
+    words, as ``batch_inputs`` gives them), a batch of lone members, and
+    equal sims planted in every 32-row database tile, so that ties meet
+    across the warps' slices; then ``knn`` with nq != nd."""
     import numpy as np
     import torch
 
@@ -153,55 +180,79 @@ def check_cluster_knn(dev) -> tuple[int, float]:
     from repro_torch.sketch.goldfinger import popcount_rows, words_tensor
     from repro_torch.types import PAD_ID
 
-    cases = [(32, 32, 10, 6), (512, 32, 30, 4), (2048, 32, 30, 2),
-             (32, 64, 30, 6), (512, 64, 10, 3), (2048, 64, 10, 2)]
+    # (cap, W, k, clusters, how PAD ids are placed)
+    cases = [(32, 32, 10, 6, "tail"), (32, 1, 1, 6, "scatter"),
+             (64, 31, 64, 4, "scatter"), (128, 33, 30, 4, "tail"),
+             (256, 64, 10, 3, "scatter"), (512, 32, 30, 4, "tail"),
+             (512, 1, 64, 2, "tail"), (1024, 33, 64, 2, "scatter"),
+             (1024, 32, 30, 2, "scatter"), (2048, 32, 30, 2, "tail"),
+             (2048, 64, 10, 2, "scatter"), (2048, 31, 1, 1, "tail"),
+             (64, 32, 30, 40, "lone"), (2048, 32, 64, 3, "lone")]
     n_checked, err = 0, 0.0
-    for cap, W, k, m in cases:
+    for cap, W, k, m, pad in cases:
         rng = np.random.default_rng(cap * 100 + W + k)
         words = random_words(rng, (m, cap, W))
-        # Planted equal sims: repeated fingerprints tie against everyone.
+        # Planted equal sims: repeated fingerprints tie against everyone,
+        # and every 32-row tile holds a copy of row 0 and of row 3.
         words[:, 1::7] = words[:, :1]
         words[:, 2::11] = words[:, 3:4]
+        words[:, 5::32] = words[:, :1]
+        words[:, 17::32] = words[:, 3:4]
         card = popcount_rows(words.reshape(-1, W)).reshape(m, cap)
         ids = rng.permutation(m * cap * 4)[: m * cap].astype(
             np.int32).reshape(m, cap)
-        sizes = rng.integers(2, cap + 1, size=m)
-        sizes[0] = cap
-        sizes[-1] = 1  # a lone member: every slot PAD
-        for j, s in enumerate(sizes):
-            ids[j, s:] = PAD_ID
-            card[j, s:] = 0
-            words[j, s:] = 0
+        if pad == "lone":
+            ids[:, 1:] = PAD_ID  # every cluster a lone member
+        else:
+            sizes = rng.integers(2, cap + 1, size=m)
+            sizes[0] = cap  # a full cluster
+            sizes[-1] = 1  # a lone member: every slot PAD
+            for j, size in enumerate(sizes):
+                if pad == "tail":
+                    ids[j, size:] = PAD_ID
+                    card[j, size:] = 0
+                    words[j, size:] = 0
+                else:
+                    ids[j, rng.permutation(cap)[: cap - size]] = PAD_ID
         w = words_tensor(words, dev)
         c = torch.from_numpy(card).to(dev)
         i = torch.from_numpy(ids).to(dev)
         ki, ks = ops.cluster_knn(w, c, i, k)
         pi, ps = ref.cluster_knn_ref(w, c, i, k)
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(ks, ps))
-        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
-            bad = (ki != pi) | (ks != ps)
-            fail(f"cluster-KNN cap={cap} W={W} k={k}: "
+        err = max(err, max_abs_err(ks[..., :pi.shape[-1]], ps))
+        if not same_knn(ki, ks, pi, ps):
+            bad = (ki[..., :pi.shape[-1]] != pi) | (ks[..., :pi.shape[-1]]
+                                                    != ps)
+            fail(f"cluster-KNN cap={cap} W={W} k={k} PAD {pad}: "
                  f"{int(bad.sum())} entries differ from the plain version")
         n_checked += 1
-        log(f"[kernels] cluster_knn cap={cap} W={W} k={k} m={m}: bitwise ok")
-    # Ragged query/database counts (not multiples of the tiles).
-    rng = np.random.default_rng(5)
-    qw, dw = random_words(rng, (200, 32)), random_words(rng, (300, 32))
-    qc, dc = popcount_rows(qw), popcount_rows(dw)
-    qi = np.arange(200, dtype=np.int32)
-    di = np.arange(100, 400, dtype=np.int32)
-    args = [words_tensor(qw, dev), torch.from_numpy(qc).to(dev),
-            torch.from_numpy(qi).to(dev), words_tensor(dw, dev),
-            torch.from_numpy(dc).to(dev), torch.from_numpy(di).to(dev)]
-    ki, ks = ops.knn(*args, 30)
-    pi, ps = ref.knn_ref(*args, 30)
-    torch.cuda.synchronize()
-    err = max(err, max_abs_err(ks, ps))
-    if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
-        fail("knn 200x300 ragged: differs from the plain version")
-    log("[kernels] knn nq=200 nd=300 k=30: bitwise ok")
-    return n_checked + 1, err
+        log(f"[kernels] cluster_knn cap={cap} W={W} k={k} m={m} PAD {pad}: "
+            f"bitwise ok")
+    # knn with query and database counts that differ and are not multiples
+    # of the tiles.
+    for nq, nd, W, k in ((200, 300, 32, 30), (17, 1000, 32, 30),
+                         (1000, 17, 32, 30), (1000, 17, 33, 10)):
+        rng = np.random.default_rng(nq + nd + W)
+        qw, dw = random_words(rng, (nq, W)), random_words(rng, (nd, W))
+        qw[::5] = dw[0]
+        qi = np.arange(nq, dtype=np.int32)
+        di = np.arange(nd // 2, nd // 2 + nd, dtype=np.int32)
+        di[rng.random(nd) < 0.1] = PAD_ID
+        args = [words_tensor(qw, dev),
+                torch.from_numpy(popcount_rows(qw)).to(dev),
+                torch.from_numpy(qi).to(dev), words_tensor(dw, dev),
+                torch.from_numpy(popcount_rows(dw)).to(dev),
+                torch.from_numpy(di).to(dev)]
+        ki, ks = ops.knn(*args, k)
+        pi, ps = ref.knn_ref(*args, k)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(ks[..., :pi.shape[-1]], ps))
+        if not same_knn(ki, ks, pi, ps):
+            fail(f"knn {nq}x{nd} W={W} k={k}: differs from the plain version")
+        n_checked += 1
+        log(f"[kernels] knn nq={nq} nd={nd} W={W} k={k}: bitwise ok")
+    return n_checked, err
 
 
 def hop_inputs(rng, dev, n, W, kg, kr, q, B, tomb_frac=0.05):
@@ -656,7 +707,7 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
     words = words_tensor(index.words, dev)
     card = torch.from_numpy(index.card).to(dev)
     W = words.shape[1]
-    batches = []
+    batches, caps = [], []
     in_bytes = out_bytes = 0
     for i in range(plan.t):  # as knn_build: one map task per configuration
         members = [m for m, c in zip(plan.members, plan.config_of) if c == i]
@@ -665,6 +716,7 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
                           n_users=plan.n_users, t=1)
         for cap, _, mem in group_batches(sub, W):
             batches.append(batch_inputs(words, card, mem))
+            caps.append(cap)
             m = mem.shape[0]
             in_bytes += m * cap * (4 * W + 8)
             out_bytes += m * cap * k * 8
@@ -688,6 +740,7 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
         f"batches: bitwise equal to the plain version")
     ms = cuda_ms(sweep(ops.cluster_knn), reps=5)
     plain_ms = cuda_ms(sweep(ref.cluster_knn_ref), reps=3)
+    sweep_by_cap(batches, caps, k, ms)
     ops_count = 2 * pairs * W * 32
     bytes_count = in_bytes + out_bytes
     t_ops = ops_count / INT8_OPS_PER_S * 1e3
@@ -700,6 +753,57 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
             "library_ms": None,
             "shape": f"Step-2 sweep of ml1M@1.0 k=30: {len(batches)} "
                      f"batches, {pairs} ordered pairs, W={W}"}, err
+
+
+def sweep_by_cap(batches, caps, k: int, sweep_ms: float) -> None:
+    """Where the Step-2 sweep's time goes: the device time of each launch
+    (CUDA events around it; median of 5 sweeps), summed per capacity
+    group, beside the blocks each launch runs. A sleep kernel ahead of each
+    sweep holds the card while the host queues every launch, so an event
+    pair spans its launch's device time and none of the host's. The sum
+    over all groups against the whole sweep's time leaves the host gap
+    between launches."""
+    import torch
+
+    from repro_torch.kernels.goldfinger_knn import ops
+
+    per_launch = []
+    for _ in range(5):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        events = []
+        for w, c, i in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ops.cluster_knn(w, c, i, k)
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        per_launch.append([s.elapsed_time(e) for s, e in events])
+    launch_ms = [statistics.median(t) for t in zip(*per_launch)]
+    total = 0.0
+    for cap in sorted(set(caps)):
+        idx = [j for j, c in enumerate(caps) if c == cap]
+        blocks = [ops.launch_params(cap, cap, batches[j][0].shape[2], k)
+                  .blocks(batches[j][0].shape[0], cap) for j in idx]
+        group_ms = sum(launch_ms[j] for j in idx)
+        total += group_ms
+        log(f"[timing] cluster-KNN cap {cap}: {len(idx)} launches, "
+            f"{statistics.mean(blocks):.1f} blocks per launch "
+            f"({min(blocks)}-{max(blocks)}), {group_ms:.4f} ms device")
+    log(f"[timing] cluster-KNN launches sum to {total:.4f} ms of device time "
+        f"against the sweep's {sweep_ms:.4f} ms: host gap "
+        f"{sweep_ms - total:.4f} ms")
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w, c, i in batches:
+            ops.cluster_knn(w, c, i, k)
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    log(f"[timing] cluster-KNN host clock to queue the {len(batches)} launches: "
+        f"{statistics.median(host):.4f} ms (median of 5)")
 
 
 def hop_bound(args, n_scored: int, n_counts: int) -> tuple[float, str]:

@@ -40,28 +40,10 @@ namespace {
 using repro::hop::kThreads;
 using repro::hop::SelectScratch;
 
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using repro::cp_async_16;
+using repro::cp_async_4;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 // At most n_buffers - 1 committed groups may still be pending.
 __device__ __forceinline__ void wait_ring(int n_buffers) {

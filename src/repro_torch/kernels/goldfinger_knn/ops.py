@@ -3,10 +3,13 @@
 The tensor's device selects the implementation: CPU tensors run the plain
 version (:mod:`.ref`), CUDA tensors launch the kernel, and anything else
 raises. ``launches`` counts kernel launches (plain calls do not count).
+Launch parameters come from :func:`launch_params` alone.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -17,24 +20,88 @@ KERNEL = "goldfinger_knn"
 MAX_K = 64
 MAX_BATCHES = 65535  # CUDA grid y limit
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+ROWS = 16            # query rows per block: one mma M
+TILE = 32            # database rows per warp tile: one per lane
+MIN_WARPS = 4        # warps per block: a power of two, 4 to 8
+MAX_WARPS = 8
+STAGES = 2           # cp.async ring depth per warp: copy one tile ahead
 
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchParams:
+    """One launch's shape: ``rows`` query rows per block, ``warps`` warps
+    each taking every ``warps``-th database tile and keeping the top-k of
+    every ``warps``-th row, a ``stages``-deep copy ring per warp, and
+    ``smem`` bytes of dynamic shared memory."""
+    rows: int
+    warps: int
+    stages: int
+    smem: int
+
+    def blocks(self, m: int, nq: int) -> int:
+        """Blocks of a launch over ``m`` batches of ``nq`` query rows."""
+        return m * -(-nq // self.rows)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(W: int, k: int, warps: int, stages: int) -> int:
+    """The block's dynamic shared memory, from the kernel's layout: the
+    query tile (W padded to 8 words, plus 4, per row; ids and cards) and a
+    flag per warp and step; two key tiles of 16 rows × (32 per warp + 8)
+    keys; per query row a sorted list of 32 or 64 keys (k ≤ 32 or not) and
+    a 32-key buffer, keys 8 bytes; then per warp its copy ring of
+    ``stages`` database tiles of 32 rows (words, ids and cards).
+    ``repro_goldfinger_knn_smem_bytes`` in the kernel computes the same."""
+    ws = ((W + 7) & ~7) + 4
+    ks = warps * TILE + 8
+    kp = 64 if k > 32 else 32
+    head = _align16(ROWS * ws * 4 + 2 * ROWS * 4 + 2 * warps * 4)
+    tiles = 2 * ROWS * ks * 8 + ROWS * (kp + TILE) * 8
+    ring = _align16(stages * TILE * (ws + 2) * 4)
+    return head + tiles + warps * ring
+
+
+@functools.lru_cache(maxsize=None)
+def launch_params(nq: int, nd: int, W: int, k: int) -> LaunchParams:
+    """Launch parameters for ``nq`` query rows against ``nd`` database rows
+    of ``W`` words at top-``k``: a warp per database tile of a step, as a
+    power of two from ``MIN_WARPS`` to ``MAX_WARPS`` (the warps also share
+    the 16 rows' top-k, so a block has at least ``MIN_WARPS``), two ring
+    stages; then fewer warps, and one stage, until the block fits
+    ``SMEM_LIMIT``. Raises ValueError if nothing fits."""
+    del nq  # every shape takes 16-row query tiles
+    tiles = -(-nd // TILE)
+    warps = MIN_WARPS
+    while warps < MAX_WARPS and warps < tiles:
+        warps *= 2
+    stages = STAGES
+    while smem_bytes(W, k, warps, stages) > SMEM_LIMIT:
+        if warps > 1:
+            warps //= 2
+        elif stages > 1:
+            stages -= 1
+        else:
+            raise ValueError(f"cluster-KNN needs "
+                             f"{smem_bytes(W, k, 1, 1)} B of shared memory "
+                             f"at W={W}, k={k}; the limit is {SMEM_LIMIT}")
+    return LaunchParams(ROWS, warps, stages, smem_bytes(W, k, warps, stages))
 
 
 def _lib():
     lib = build.load(KERNEL)
     fn = lib.repro_goldfinger_knn
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_goldfinger_knn_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.repro_goldfinger_knn_smem_bytes.restype = ctypes.c_size_t
     return lib
-
-
-def _tile(rows: int) -> int:
-    return 32 if rows <= 32 else 64
 
 
 def _launch(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
@@ -44,10 +111,10 @@ def _launch(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
     nd = d_words.shape[1]
     dev = q_words.device
     tensors = (q_words, q_card, q_ids, d_words, d_card, d_ids)
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.int32:
-            raise ValueError("cluster-KNN inputs must be int32 tensors on one "
-                             "CUDA device")
+    if any(t.dtype != torch.int32 or t.get_device() != dev.index
+           for t in tensors):
+        raise ValueError("cluster-KNN inputs must be int32 tensors on one "
+                         "CUDA device")
     if (q_card.shape != (m, nq) or q_ids.shape != (m, nq)
             or d_words.shape != (m, nd, W) or d_card.shape != (m, nd)
             or d_ids.shape != (m, nd)):
@@ -58,21 +125,29 @@ def _launch(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
         raise ValueError(f"cluster-KNN takes at most {MAX_BATCHES} clusters "
                          f"per call, got {m}")
     tensors = tuple(t.contiguous() for t in tensors)
-    out_ids = torch.empty((m, nq, k), dtype=torch.int32, device=dev)
-    out_sims = torch.empty((m, nq, k), dtype=torch.float32, device=dev)
+    # One allocation for both outputs: ids, then the sims' bit patterns.
+    out = torch.empty((2, m, nq, k), dtype=torch.int32, device=dev)
+    out_ids, out_sims = out[0], out[1].view(torch.float32)
     if m == 0 or nq == 0:
         return out_ids, out_sims
     lib = _lib()
-    tq, td = _tile(nq), _tile(nd)
-    smem = lib.repro_goldfinger_knn_smem_bytes(W, k, tq, td)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"cluster-KNN needs {smem} B of shared memory at "
-                         f"W={W}, k={k}; the limit is {SMEM_LIMIT}")
-    with torch.cuda.device(dev):
-        err = lib.repro_goldfinger_knn(
-            *(t.data_ptr() for t in tensors), out_ids.data_ptr(),
-            out_sims.data_ptr(), m, nq, nd, W, k, tq, td,
-            torch.cuda.current_stream(dev).cuda_stream)
+    p = launch_params(nq, nd, W, k)
+    smem = lib.repro_goldfinger_knn_smem_bytes(W, k, p.warps, p.stages)
+    if smem != p.smem:
+        raise RuntimeError(f"cluster-KNN layout mismatch at W={W}, k={k}: "
+                           f"the kernel needs {smem} B, smem_bytes says "
+                           f"{p.smem}")
+    vec16 = int(W % 4 == 0 and tensors[0].data_ptr() % 16 == 0
+                and tensors[3].data_ptr() % 16 == 0)
+    args = ([t.data_ptr() for t in tensors]
+            + [out_ids.data_ptr(), out_sims.data_ptr(), m, nq, nd, W, k,
+               p.warps, p.stages, vec16,
+               torch._C._cuda_getCurrentRawStream(dev.index)])
+    if dev.index == torch.cuda.current_device():
+        err = lib.repro_goldfinger_knn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.repro_goldfinger_knn(*args)
     build.check(lib, err, KERNEL)
     launches += 1
     return out_ids, out_sims
