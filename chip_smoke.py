@@ -18,7 +18,11 @@ Phases, each fatal on failure:
    version and against the hop kernel, with exact byte counters, at W =
    32, 64 and 33 (the 4-byte copy path), over tombstone-heavy tables,
    chunks that do not divide the lanes, rings 1 to 3 deep, several
-   queries per block and chunks whose every lane is suppressed;
+   queries per block and chunks whose every lane is suppressed; both hops
+   at W = 4, 8, 33, 64 and 65 (every row grouping and both copy paths),
+   beams of 1, 64, 128 and 512 lanes, beams that are all PAD, candidates
+   that all name one id, and equal sims across ids, where the column
+   decides;
    FastRandomHash at the reference test's shapes and at ml1M@1.0, where
    it also equals the host hashing;
 4. main path — ``knn_build`` on ml1M@1.0 with the paper's parameters
@@ -35,7 +39,9 @@ Phases, each fatal on failure:
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
    there, and timed beside it and the least time the card could take
-   (``bound_ms``); the Step-2 sweep's device time per capacity group
+   (``bound_ms``); both hops' cycles per block by phase
+   (``repro_torch.bench.hop_phases``) and resident warps per SM; the
+   Step-2 sweep's device time per capacity group
    beside its host clock; the host clock per phase of a wave and of
    continuous ticks.
 
@@ -73,6 +79,7 @@ MINHASH_OPS = 11
 SLEEP_CYCLES = 50_000_000
 
 CLUSTER_KNN_SOURCE = "src/repro_torch/csrc/goldfinger_knn.cu"
+HOP_WARPS = 16  # warps of a hop block (csrc/hop_common.cuh kThreads / 32)
 HOP_SOURCE = "src/repro_torch/csrc/descent_hop.cu"
 DMA_SOURCE = "src/repro_torch/csrc/descent_hop_dma.cu"
 MINHASH_SOURCE = "src/repro_torch/csrc/frh_minhash.cu"
@@ -91,8 +98,12 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps: int, inner: int = 1) -> float:
-    """Median over ``reps`` of the device time of ``inner`` calls / inner."""
+def cuda_ms(fn, reps: int, inner: int = 1, hold: bool = False) -> float:
+    """Median over ``reps`` of the time between events around ``inner``
+    calls, / inner. Without ``hold`` the events span the host's queueing
+    too wherever it is slower than the device; with ``hold`` a sleep kernel
+    holds the card until every call is queued, so they span device time
+    alone."""
     import torch
 
     fn()  # warm
@@ -101,6 +112,8 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -113,13 +126,15 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
 def cold_ms(fn, reps: int, flush) -> float:
     """Median device time of one call of ``fn`` with the L2 cache flushed
     before each (``flush``: a tensor larger than the 50 MB L2, rewritten
-    outside the timed span)."""
+    outside the timed span); a sleep kernel after the flush holds the card
+    while the call is queued, so the events span device time alone."""
     import torch
 
     fn()  # warm
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES // 10)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -382,9 +397,27 @@ def check_dma_case(label, args, err, **kw) -> float:
         fail(f"DMA hop {label}: byte counters disagree with n_scored")
     n_scored = int(d_out[2].sum())
     log(f"[kernels] descent_hop_dma {label}: bitwise ok (scored {n_scored} "
-        f"of {args[6].shape[0] * C} lanes, {int(d_out[3].sum())} B fetched, "
-        f"{int(d_out[4].sum())} B skipped)")
+        f"of {args[6].shape[0] * C} lanes, counters {int(d_out[3].sum())} B "
+        f"fetched, {int(d_out[4].sum())} B skipped; rows read "
+        f"{distinct_rows(args)})")
     return max(err, max_abs_err(d_out[1], p_out[1]))
+
+
+def distinct_rows(args) -> int:
+    """Rows both hop kernels read: one per distinct surviving candidate id
+    of each query (``n_scored`` counts lanes, duplicates included)."""
+    import torch
+
+    from repro_torch.kernels.descent_score import ref
+
+    graph, rev, beam, tomb = args[0], args[1], args[6], args[8]
+    beam = ref.mask_dead(tomb, beam)
+    cand = ref.gather_candidates(graph, rev, beam, tomb)
+    kept = torch.where(ref.survivors(cand, beam), cand, -1)
+    ids = torch.sort(kept, dim=1).values
+    new = torch.ones_like(ids, dtype=torch.bool)
+    new[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    return int((new & (ids >= 0)).sum())
 
 
 def all_suppressed_inputs(dev):
@@ -466,6 +499,66 @@ def check_dma_hop(dev) -> tuple[int, float]:
     err = check_dma_case("all lanes suppressed (n=6, W=4) score_chunk=5",
                          all_suppressed_inputs(dev), err, score_chunk=5)
     return n_checked + 2, err
+
+
+def check_hop_shapes(dev) -> tuple[int, float]:
+    """Both hops at the row groupings and list widths of the redesign, each
+    against the plain version and each other with exact counters: W = 4, 8,
+    33, 64, 65 (a row per 1, 2, 32, 16, 32 threads; 16-byte bulk copies at
+    W % 4 == 0, 4-byte cp.async otherwise), beams of 1, 64, 128 and 512
+    lanes (1, 2, 4 and 16 keys per lane; the wide beams over fewer edges,
+    so their state fits a block), every beam PAD, every candidate naming
+    one id, and every fingerprint equal, so that sims tie across ids and
+    the column decides."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sketch.goldfinger import popcount_rows, words_tensor
+    from repro_torch.types import NEG_INF, PAD_ID
+
+    n_checked, err = 0, 0.0
+    for n, W, B, kg in ((6038, 4, 32, 30), (6038, 8, 32, 30),
+                        (300, 33, 32, 30), (6038, 64, 32, 30),
+                        (300, 65, 32, 30), (6038, 32, 1, 30),
+                        (300, 32, 1, 30), (6038, 32, 64, 30),
+                        (300, 64, 64, 30), (6038, 32, 128, 15),
+                        (6038, 32, 512, 2)):
+        rng = np.random.default_rng(n + W * 11 + B * 101)
+        args = hop_inputs(rng, dev, n, W, kg, kg, 256, B)
+        err = check_dma_case(f"n={n} W={W} B={B} kg=kr={kg}", args, err)
+        n_checked += 1
+    rng = np.random.default_rng(5)
+    args = list(hop_inputs(rng, dev, 6038, 32, 30, 30, 256, 32))
+    args[6] = torch.full_like(args[6], PAD_ID)
+    args[7] = torch.full_like(args[7], NEG_INF)
+    err = check_dma_case("every beam PAD", tuple(args), err)
+    # Every adjacency entry names row 7, which no beam holds.
+    rng = np.random.default_rng(6)
+    args = list(hop_inputs(rng, dev, 300, 32, 30, 30, 256, 32))
+    args[0] = torch.full_like(args[0], 7)
+    args[1] = torch.full_like(args[1], 7)
+    beam = args[6].clone()
+    beam[beam == 7] = PAD_ID
+    args[6] = beam
+    args[7] = torch.where(beam == PAD_ID, NEG_INF, args[7])
+    args[8] = torch.zeros_like(args[8])
+    err = check_dma_case("every candidate row 7", tuple(args), err)
+    # One fingerprint for every row: every candidate ties with every other,
+    # and a third of the beam lanes carry that same sim.
+    from repro_torch.kernels.scoring import score_lanes
+
+    rng = np.random.default_rng(8)
+    args = list(hop_inputs(rng, dev, 6038, 32, 30, 30, 256, 32))
+    words = np.repeat(random_words(rng, (1, 32)), 6038, axis=0)
+    args[2] = words_tensor(words, dev)
+    args[3] = torch.from_numpy(popcount_rows(words)).to(dev)
+    same = score_lanes(args[2], args[3], args[4], args[5],
+                       torch.zeros_like(args[6][:, :1]))
+    sims = args[7].clone()
+    sims[:, 1::3] = torch.where(args[6][:, 1::3] == PAD_ID, NEG_INF, same)
+    args[7] = sims
+    err = check_dma_case("every row equal: ties across ids", tuple(args), err)
+    return n_checked + 3, err
 
 
 def check_minhash(dev) -> tuple[int, float]:
@@ -839,6 +932,7 @@ def time_hops(dev, engine, launches: dict) -> tuple[list, float]:
     of the main path, each against its plain version, in one call."""
     import torch
 
+    from repro_torch.bench import hop_phases
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.query.router import fingerprint_profiles, profiles_to_csr, route
     from repro_torch.query.search import descent_init
@@ -887,15 +981,26 @@ def time_hops(dev, engine, launches: dict) -> tuple[list, float]:
              "path's first wave")
     err = max(max_abs_err(k_out[1], p_out[1]), max_abs_err(d_out[1],
                                                            dp_out[1]))
-    # Fused, DMA, DMA, fused: the two kernels in turns within one call.
-    k_ms = [cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20)]
-    d_ms = [cuda_ms(lambda: dma_kernel(*args), reps=7, inner=20)]
-    d_ms.append(cuda_ms(lambda: dma_kernel(*args), reps=7, inner=20))
-    k_ms.append(cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20))
+    log(f"[timing] the main path's first hop: {int(k_out[2].sum())} lanes "
+        f"scored, {distinct_rows(args)} rows read by either kernel (one per "
+        f"distinct surviving id)")
+    # Fused, DMA, DMA, fused: the two kernels in turns within one call,
+    # device time (the card held while 20 calls are queued); then the same
+    # calls paced by the host's queueing, as a serving loop sees them.
+    k_ms = [cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20, hold=True)]
+    d_ms = [cuda_ms(lambda: dma_kernel(*args), reps=7, inner=20, hold=True)]
+    d_ms.append(cuda_ms(lambda: dma_kernel(*args), reps=7, inner=20,
+                        hold=True))
+    k_ms.append(cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20,
+                        hold=True))
+    paced = [cuda_ms(lambda: hop_kernel(*args), reps=7, inner=20),
+             cuda_ms(lambda: dma_kernel(*args), reps=7, inner=20)]
     plain_ms = cuda_ms(lambda: hop_plain(*args), reps=5)
     dplain_ms = cuda_ms(lambda: dma_plain(*args), reps=5)
-    log(f"[timing] hop kernels in turns (fused, DMA, DMA, fused): "
-        f"{k_ms[0]:.4f}, {d_ms[0]:.4f}, {d_ms[1]:.4f}, {k_ms[1]:.4f} ms")
+    log(f"[timing] hop kernels in turns (fused, DMA, DMA, fused), device "
+        f"time: {k_ms[0]:.4f}, {d_ms[0]:.4f}, {d_ms[1]:.4f}, {k_ms[1]:.4f} "
+        f"ms; paced by the host's queueing: fused {paced[0]:.4f}, DMA "
+        f"{paced[1]:.4f} ms")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     cold = [cold_ms(lambda: hop_kernel(*args), 9, flush),
             cold_ms(lambda: dma_kernel(*args), 9, flush)]
@@ -903,6 +1008,7 @@ def time_hops(dev, engine, launches: dict) -> tuple[list, float]:
         f"{cold[0]:.4f} ms, DMA {cold[1]:.4f} ms")
     hops_beyond_l2(dev, flush)
     ring_sweep(args, flush)
+    hop_phases.run(args)
 
     n_scored = int(k_out[2].sum())
     kg, W = graph.shape[1], words.shape[1]
@@ -933,10 +1039,11 @@ def ring_sweep(args, flush) -> None:
     graph, rev, words = args[:3]
     W, kg, kr, B = (words.shape[1], graph.shape[1], rev.shape[1],
                     args[6].shape[1])
+    per_sm = ops._lib().repro_descent_hop_blocks_per_sm(W, kg, kr, B)
     log(f"[timing] fused hop: "
         f"{ops._lib().repro_descent_hop_smem_bytes(W, kg, kr, B)} B/block, "
-        f"{ops._lib().repro_descent_hop_blocks_per_sm(W, kg, kr, B)} "
-        f"blocks/SM")
+        f"{per_sm} blocks/SM ({per_sm * HOP_WARPS} warps/SM resident at "
+        f"most; a 256-query wave: {256 / 132 * HOP_WARPS:.1f} warps/SM)")
     for chunk, nb in ((32, 2), (64, 2), (64, 3), (128, 1), (128, 2),
                       (256, 2)):
         kw = {"score_chunk": chunk, "n_buffers": nb}
@@ -946,11 +1053,12 @@ def ring_sweep(args, flush) -> None:
         smem = tune.smem_bytes(W, kg + kr, B, 1, chunk, nb)
         per_sm = ops._lib_dma().repro_descent_hop_dma_blocks_per_sm(
             W, kg, kr, B, 1, chunk, nb)
-        warm = cuda_ms(lambda: dma_kernel(*args, **kw), reps=7, inner=20)
+        warm = cuda_ms(lambda: dma_kernel(*args, **kw), reps=7, inner=20,
+                       hold=True)
         cold = cold_ms(lambda: dma_kernel(*args, **kw), 9, flush)
         log(f"[timing] DMA hop ring score_chunk={chunk} n_buffers={nb}: "
-            f"{smem} B/block, {per_sm} blocks/SM, {warm:.4f} ms warm, "
-            f"{cold:.4f} ms L2 flushed")
+            f"{smem} B/block, {per_sm} blocks/SM ({per_sm * HOP_WARPS} "
+            f"warps/SM), {warm:.4f} ms warm, {cold:.4f} ms L2 flushed")
 
 
 def hops_beyond_l2(dev, flush) -> None:
@@ -1082,9 +1190,11 @@ def main() -> int:
     n_ck, err_ck = check_cluster_knn(dev)
     n_hop, err_hop = check_hop(dev)
     n_dma, err_dma = check_dma_hop(dev)
+    n_shapes, err_shapes = check_hop_shapes(dev)
     n_mh, err_mh = check_minhash(dev)
-    log(f"[kernels] {n_ck} cluster-KNN, {n_hop} hop, {n_dma} DMA-hop and "
-        f"{n_mh} minhash cases bitwise equal to the plain versions")
+    log(f"[kernels] {n_ck} cluster-KNN, {n_hop} hop, {n_dma} DMA-hop, "
+        f"{n_shapes} two-hop and {n_mh} minhash cases bitwise equal to the "
+        f"plain versions")
 
     small_build_matches_cpu()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1098,8 +1208,8 @@ def main() -> int:
         tick_breakdown(run["cont_engine"])
     build_stages()
     ck_row["max_abs_err"] = max(err_ck, err_ck_main)
-    hop_row["max_abs_err"] = max(err_hop, err_hops)
-    dma_row["max_abs_err"] = max(err_dma, err_hops)
+    hop_row["max_abs_err"] = max(err_hop, err_shapes, err_hops)
+    dma_row["max_abs_err"] = max(err_dma, err_shapes, err_hops)
     mh_row["max_abs_err"] = max(err_mh, err_mh_main)
     rows = [ck_row, hop_row, dma_row, mh_row]
     for name, st in run["serves"].items():

@@ -4,40 +4,79 @@
 // ::hop_pallas (body _hop_kernel, helpers _mask_dead_beam / _suppress /
 // _merge), which every hop of every query runs under scorer "pallas".
 //
-// Design. One block per query; the lanes are [beam | fwd | rev] in the
-// reference's column order, B + C of them with C = B * (kg + kr):
-//   1. stage the B beam ids and sims in shared memory, dead lanes (rows
-//      marked in `tomb`) turned to PAD / -inf;
-//   2. gather the C candidate ids (forward then reverse neighbours of each
-//      beam lane; PAD under a PAD beam lane; tombstoned ids to PAD) and
-//      decide, before any fingerprint is read, which lanes survive: not
-//      PAD and not already in the beam. Suppressed lanes load nothing.
-//      Survivors are counted (n_scored) and scored with GoldFinger Jaccard,
-//      the intersection a __popc over the W packed words -- the same code
-//      for every W (the TPU switched to a bit-plane matmul at W >= 64; the
-//      numbers are identical);
-//   3. select the new beam by B rounds of a block-wide (max sim, min column)
-//      reduction, retiring every lane that carries the round's winning id:
-//      exactly select_topk(..., dedup_ids=True). Once the best remaining sim
-//      is -inf every later round is too, and the rest of the beam is PAD.
-// Steps 1, 2's ids and suppression, and 3 are hop_common.cuh's, shared with
-// the DMA hop (descent_hop_dma.cu).
+// Design. One block of 512 threads per query, in the five steps of
+// hop_common.cuh (shared with the DMA hop, descent_hop_dma.cu): stage the
+// beam, gather the B * (kg + kr) candidate ids into a shared-memory hash
+// table, suppress PAD / tombstoned / in-beam lanes and keep one "owner"
+// lane per distinct id, score the owners, select the top B. Step 4 here
+// reads each owner's fingerprint row straight from global memory: a group
+// of G threads per row (G = W / 4 at W % 4 == 0, 8 at the main path's
+// W = 32), one 16-byte load each, so one warp load instruction moves
+// 32 / G whole rows; each thread pops its words and a __shfl_xor over the
+// group sums the intersection (an integer sum: the order does not move a
+// bit). Each group keeps 6 rows in flight, and the Jaccard epilogue of a
+// warp's 24 rows runs once, one row per lane. W % 4 != 0 (or a table that is
+// not 16-byte aligned) reads words in the same grouping. The selection is
+// an exact parallel top-B over 64-bit (sim, column) keys: per-warp lists
+// filtered against their B-th key and the beam's lowest key, merged by
+// warp-shuffle bitonic networks, then in a tree across the warps.
 //
 // What bounds it: per query ~B*(kg+kr)*4 bytes of adjacency plus one
-// fingerprint row (4W bytes) per surviving lane, against ~3W integer
-// operations per surviving lane -- under one operation per byte, so it is
-// bound by the latency and bandwidth of those scattered row reads. The
-// suppression before scoring is what cuts the bytes: duplicate and
-// in-beam lanes never touch their fingerprint row.
+// fingerprint row (4W bytes) per distinct surviving id, against ~3W
+// integer operations per row -- under one operation per byte, so the
+// least time is the bytes, and the kernel is bound by the latency of the
+// dependent reads (beam, adjacency, then tombstone and card, then row).
+// One block per query at 512 threads puts 16 warps of each query on an
+// SM, and a 256-query wave about 32 warps on each of the 132 SMs. At the
+// main path's first hop the kernel takes 0.026 ms, and the row reads are
+// its largest phase, ~38% of a block's cycles (repro_torch.bench.
+// hop_phases; NVIDIA H100 80GB HBM3, 700 W).
 
 #include "hop_common.cuh"
 
 namespace {
 
 using repro::hop::kThreads;
-using repro::hop::SelectScratch;
+using repro::hop::kWarps;
 
-__global__ void __launch_bounds__(kThreads)
+// The intersections of U rows in global memory with the query, over this
+// thread's pieces of each (g, g + G, ...; 16 bytes when vec, else a word):
+// the U rows' loads of one piece are issued together.
+template <int U>
+__device__ __forceinline__ void rows_inter(const uint32_t* const (&rows)[U],
+                                           const bool (&ok)[U],
+                                           const uint32_t* qw, int W, int vec,
+                                           int g, int G, int (&inter)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) inter[u] = 0;
+  if (vec) {
+    const uint4* q4 = reinterpret_cast<const uint4*>(qw);
+    for (int k = g; k < (W >> 2); k += G) {
+      uint4 a[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        a[u] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(rows[u]) + k)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      const uint4 b = q4[k];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        inter[u] += __popc(a[u].x & b.x) + __popc(a[u].y & b.y) +
+                    __popc(a[u].z & b.z) + __popc(a[u].w & b.w);
+    }
+  } else {
+    for (int k = g; k < W; k += G) {
+      uint32_t a[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) a[u] = ok[u] ? __ldg(rows[u] + k) : 0u;
+      const uint32_t b = qw[k];
+#pragma unroll
+      for (int u = 0; u < U; ++u) inter[u] += __popc(a[u] & b);
+    }
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 2)
 descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
                    const uint32_t* __restrict__ words,
                    const int* __restrict__ card,
@@ -47,67 +86,95 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
                    const int* __restrict__ beam_ids,
                    const float* __restrict__ beam_sims,
                    int* __restrict__ out_ids, float* __restrict__ out_sims,
-                   int* __restrict__ n_scored, int W, int kg, int kr,
-                   int B) {
-  extern __shared__ unsigned char smem_raw[];
-  const int C = B * (kg + kr);
-  const int L = B + C;
-  int* s_id = reinterpret_cast<int*>(smem_raw);              // [L]
-  float* s_sim = reinterpret_cast<float*>(s_id + L);         // [L]
-  uint32_t* s_qw = reinterpret_cast<uint32_t*>(s_sim + L);   // [W]
-  SelectScratch* scr = reinterpret_cast<SelectScratch*>(s_qw + W);
-  int* s_count = reinterpret_cast<int*>(scr + 1);            // [1]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+                   int* __restrict__ n_scored, int W, int kg, int kr, int B,
+                   int vec16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const repro::hop::Layout lo = repro::hop::layout(W, kg, kr, B, 0);
+  const repro::hop::State s = repro::hop::carve(smem, lo);
   const long long q = blockIdx.x;
-  const float ninf = repro::neg_inf();
 
-  // (1) beam lanes, tombstoned rows dropped to PAD / -inf.
-  repro::hop::stage_beam(beam_ids + q * B, beam_sims + q * B, tomb, B, s_id,
-                         s_sim);
-  for (int w = tid; w < W; w += kThreads) s_qw[w] = q_words[q * W + w];
-  if (tid == 0) *s_count = 0;
+  // (1) beam staging.
+  repro::hop::stage_beam(beam_ids + q * B, beam_sims + q * B, tomb,
+                         q_words + q * W, W, B, s);
   __syncthreads();
+  // (2) candidate ids, into the hash table.
+  repro::hop::gather_lanes(graph, rev, kg, kr, B, s);
+  __syncthreads();
+  // (3) suppression, tombstones and one owner lane per id.
+  repro::hop::classify_slots(card, tomb, B, s);
+  __syncthreads();
+  if (threadIdx.x == 0) n_scored[q] = *s.n_scored;
 
-  // (2) gather candidate ids, suppress, score the survivors.
-  const int qcard = q_card[q];
-  int scored = 0;
-  for (int c = tid; c < C; c += kThreads) {
-    const int id =
-        repro::hop::candidate_id(graph, rev, tomb, s_id, c, B, kg, kr);
-    float sim = ninf;
-    if (repro::hop::survives(id, s_id, B)) {
-      ++scored;
-      const long long row = static_cast<long long>(id) * W;
-      int inter = 0;
-      for (int w = 0; w < W; ++w)
-        inter += __popc(__ldg(words + row + w) & s_qw[w]);
-      sim = repro::jaccard_sim(inter, qcard, card[id]);
+  // (4) row loads + popcounts of the owners, 6 rows per group in flight;
+  // the keys overwrite the hash table: the beam's, then the owners'.
+  for (int b = threadIdx.x; b < B; b += kThreads)
+    s.key[b] = repro::hop::beam_key(s, b);
+  {
+    constexpr int U = 6;  // two passes over the main path's ~680 owners
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_work = *s.n_work;
+    const int G = repro::hop::row_group(vec16 ? W >> 2 : W);
+    const int rpw = 32 / G;
+    const int gw = lane / G, g = lane & (G - 1);
+    const int stride = kWarps * rpw;
+    const int qcard = q_card[q];
+    for (int base = warp * rpw; base < n_work; base += stride * U) {
+      const uint32_t* rows[U];
+      bool ok[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u * stride + gw;
+        ok[u] = i < n_work;
+        rows[u] = words + (ok[u] ? static_cast<long long>(s.wid[i]) * W : 0);
+      }
+      int inter[U];
+      rows_inter<U>(rows, ok, s.qw, W, vec16, g, G, inter);
+#pragma unroll
+      for (int u = 0; u < U; ++u) inter[u] = repro::hop::group_sum(inter[u], G);
+      repro::hop::spread_rows<U>(inter, G, lane, [&](int u, int row, int v) {
+        const int i = base + u * stride + row;
+        if (i < n_work)
+          s.key[B + i] = repro::sim_key(
+              repro::jaccard_sim(v, qcard, s.wcard[i]), s.work[i]);
+      });
     }
-    s_id[B + c] = id;
-    s_sim[B + c] = sim;
   }
-  for (int off = 16; off > 0; off >>= 1)
-    scored += __shfl_down_sync(0xffffffffu, scored, off);
-  if (lane == 0 && scored) atomicAdd(s_count, scored);
   __syncthreads();
-  if (tid == 0) n_scored[q] = *s_count;
 
-  // (3) B rounds of (max sim, min column) with winner-id retirement.
-  repro::hop::select_beam(s_id, s_sim, L, B, out_ids + q * B,
-                          out_sims + q * B, scr);
+  // (5) selection.
+  repro::hop::select_beam<P>(B, s, out_ids + q * B, out_sims + q * B);
+}
+
+using KernelFn = void (*)(const int*, const int*, const uint32_t*,
+                          const int*, const uint8_t*, const uint32_t*,
+                          const int*, const int*, const float*, int*, float*,
+                          int*, int, int, int, int, int);
+
+KernelFn kernel_for(int B) {
+  switch (repro::hop::list_regs(B)) {
+    case 1: return descent_hop_kernel<1>;
+    case 2: return descent_hop_kernel<2>;
+    case 4: return descent_hop_kernel<4>;
+    case 8: return descent_hop_kernel<8>;
+    default: return descent_hop_kernel<16>;
+  }
+}
+
+cudaError_t allow_smem(KernelFn fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;  // the default cap
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
 
+// The block's dynamic shared memory in bytes (hop_common.cuh's Layout
+// without a ring).
 REPRO_EXPORT size_t repro_descent_hop_smem_bytes(int W, int kg, int kr,
                                                  int B) {
-  const size_t L = static_cast<size_t>(B) * (1 + kg + kr);
-  return L * (sizeof(int) + sizeof(float)) + sizeof(uint32_t) * W +
-         sizeof(SelectScratch) + sizeof(int);
+  return repro::hop::layout(W, kg, kr, B, 0).total;
 }
 
 // Blocks of this kernel one SM can hold at these parameters (shared
@@ -115,23 +182,21 @@ REPRO_EXPORT size_t repro_descent_hop_smem_bytes(int W, int kg, int kr,
 REPRO_EXPORT int repro_descent_hop_blocks_per_sm(int W, int kg, int kr,
                                                  int B) {
   const size_t smem = repro_descent_hop_smem_bytes(W, kg, kr, B);
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024)  // as at launch: the default cap is 48 KB
-    e = cudaFuncSetAttribute(descent_hop_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const KernelFn fn = kernel_for(B);
+  cudaError_t e = allow_smem(fn, smem);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, descent_hop_kernel, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                      smem);
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 // Tables: graph [n, kg], rev [n, kr], words [n, W] (uint32 bit patterns),
 // card [n], tomb [n] (0 = live). Queries: q_words [q, W], q_card [q],
-// beam_ids / beam_sims [q, B]. Outputs: out_ids / out_sims [q, B],
-// n_scored [q]. Adjacency and beam ids lie in [-1, n). All contiguous.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// beam_ids / beam_sims [q, B], B <= 512, no id repeated in a beam row.
+// Outputs: out_ids / out_sims [q, B], n_scored [q]. Adjacency and beam ids
+// lie in [-1, n). All contiguous. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 REPRO_EXPORT int repro_descent_hop(const void* graph, const void* rev,
                                    const void* words, const void* card,
                                    const void* tomb, const void* q_words,
@@ -141,19 +206,19 @@ REPRO_EXPORT int repro_descent_hop(const void* graph, const void* rev,
                                    int W, int kg, int kr, int B,
                                    void* stream) {
   const size_t smem = repro_descent_hop_smem_bytes(W, kg, kr, B);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        descent_hop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  descent_hop_kernel<<<q, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (B > repro::hop::kMaxBeam) return cudaErrorInvalidValue;
+  const KernelFn fn = kernel_for(B);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec16 =
+      W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  fn<<<q, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(graph), static_cast<const int*>(rev),
       static_cast<const uint32_t*>(words), static_cast<const int*>(card),
       static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
       static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
       static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
       static_cast<float*>(out_sims), static_cast<int*>(n_scored), W, kg, kr,
-      B);
+      B, vec16);
   return static_cast<int>(cudaGetLastError());
 }

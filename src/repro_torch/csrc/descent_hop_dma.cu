@@ -1,94 +1,126 @@
-// Fused descent hop with the fingerprint rows gathered by cp.async into a
-// shared-memory ring (scorer "pallas_dma").
+// Fused descent hop with the fingerprint rows gathered by Hopper's copy
+// engine into a shared-memory ring (scorer "pallas_dma").
 //
 // Replaces the TPU kernel src/repro/kernels/descent_score/descent_score.py
 // ::hop_pallas_dma (body _hop_kernel_dma), which every hop runs under
 // `knn_serve --kernel --dma`. Same results as descent_hop.cu bit for bit:
 // the lanes, the suppression and the selection are hop_common.cuh's.
 //
-// Design. One block per `block_q` queries. Per query the block stages the
-// beam, the C = B * (kg + kr) candidate ids and a suppression flag per lane
-// (PAD, tombstoned or already in the beam: decided from ids alone; the
-// tombstone flag is read per id from global memory, never staged, so the
-// table's row count is not capped by shared memory). The candidate lanes
-// are then scored in chunks of `score_chunk` lanes per query. Chunk c's
-// surviving rows -- the fingerprint (W words) and the card word -- are
-// copied by cp.async into ring stage c % n_buffers, 16 bytes a copy when a
-// row starts on a 16-byte boundary (W % 4 == 0) and 4 bytes otherwise; a
-// suppressed lane issues no copy. Each chunk's copies end with
-// cp.async.commit_group; before chunk c is scored every thread waits with
-// cp.async.wait_group<n_buffers - 1> and the block synchronises, so the
-// copies of the next n_buffers - 1 chunks are in flight while chunk c is
-// scored. `fetched` counts the rows whose copies were issued, per query,
-// and the byte counters derive from it alone: dma_bytes = fetched * W * 4,
-// bytes_saved = (C - fetched) * W * 4 (fingerprint bytes; the card word
-// rides along uncounted, as in the reference). n_scored counts lanes
-// scored, separately, so dma_bytes == n_scored * W * 4 is a check.
+// Design. One block of 512 threads per `block_q` queries, taken one after
+// another through the same shared memory. Per query, steps 1-3 of
+// hop_common.cuh stage the beam, gather the candidate ids into a hash
+// table, suppress PAD / tombstoned / in-beam lanes and compact one owner
+// lane per distinct id into a work list. Step 4 then runs a ring of
+// `n_buffers` stages of `score_chunk` rows each, with warp-specialised
+// roles and no block barrier inside it:
+//   - the last 4 warps produce: for each stage they wait for the stage's
+//     "empty" mbarrier, then copy the stage's owner rows (4W bytes each)
+//     from the table into the stage. When a row is 16-byte aligned
+//     (W % 4 == 0 and an aligned table) each row is ONE
+//     cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes
+//     1-D bulk copy -- Hopper's TMA engine copying a row, not a tile --
+//     completing on the stage's "full" mbarrier, which each producer's
+//     lane 0 armed with its copies' bytes (expect_tx) before issuing them.
+//     Otherwise the producers issue 4-byte cp.async copies and each lane's
+//     cp.async.mbarrier.arrive.noinc completes the same "full" mbarrier;
+//   - the other 12 warps consume: wait for the stage's "full" mbarrier,
+//     score its rows from shared memory (a group of G threads per row, as
+//     in descent_hop.cu, 16-byte shared loads, and one Jaccard epilogue
+//     per 32 rows), and release the stage with one arrive per warp on its
+//     "empty" mbarrier.
+// Then step 5 selects the new beam. The copies of the next stages are in
+// flight while a stage is scored.
 //
-// TMA does not fit: these are per-row gathers of 4W bytes from scattered
-// rows, and Hopper's TMA copies tiles.
+// Counters. Only owner rows are copied: the rows of lanes that repeat an
+// id are never fetched. The byte counters keep the reference's meaning,
+// derived from n_scored (lanes that survive PAD / tombstone / in-beam
+// suppression, duplicates included): dma_bytes = n_scored * W * 4,
+// bytes_saved = (C - n_scored) * W * 4, so the rows actually fetched (one
+// per distinct surviving id) are at most dma_bytes / (4W).
 //
 // What bounds it: as descent_hop.cu, the scattered fingerprint rows of the
-// surviving lanes (4W bytes each, under one integer operation per byte).
-// The ring keeps n_buffers - 1 chunks of those reads in flight behind the
-// scoring of the current one, instead of one dependent load per lane.
+// distinct surviving ids (4W bytes each, under one integer operation per
+// byte). The ring takes those reads off the scoring warps: one thread
+// issues a row's copy with one instruction, the copy engine moves it. At
+// 128-byte rows the copies land at ~8 bytes per cycle per SM, about half
+// the rate of descent_hop.cu's 16-byte loads, so this hop is the slower:
+// 0.035 ms against 0.026 at the main path's first hop (repro_torch.bench.
+// hop_phases; NVIDIA H100 80GB HBM3, 700 W).
 
 #include "hop_common.cuh"
 
 namespace {
 
 using repro::hop::kThreads;
-using repro::hop::SelectScratch;
+using repro::hop::kWarps;
 
-using repro::cp_async_16;
-using repro::cp_async_4;
-using repro::cp_async_commit;
-using repro::cp_async_wait;
+// Producer warps. A bulk copy's operands live in the warp's uniform
+// registers, so a warp issues its lanes' copies one after another; four
+// producers issue four at a time.
+constexpr int kProducers = 4;
+constexpr int kConsumers = kWarps - kProducers;
 
-// At most n_buffers - 1 committed groups may still be pending.
-__device__ __forceinline__ void wait_ring(int n_buffers) {
-  switch (n_buffers) {
-    case 1: cp_async_wait<0>(); break;
-    case 2: cp_async_wait<1>(); break;
-    case 3: cp_async_wait<2>(); break;
-    default: cp_async_wait<3>(); break;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared.b64 st, [%0];\n\t}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-// Byte offsets of the block's dynamic shared memory. The ring comes first,
-// so each 4W-byte row of it is 16-byte aligned whenever W % 4 == 0.
-struct Layout {
-  size_t ring_words;  // uint32 [n_buffers][block_q * chunk][W]
-  size_t ring_card;   // int    [n_buffers][block_q * chunk]
-  size_t ids;         // int    [block_q][L]
-  size_t sims;        // float  [block_q][L]
-  size_t qw;          // uint32 [block_q][W]
-  size_t counts;      // int    [block_q][2]: lanes scored, rows fetched
-  size_t scratch;     // SelectScratch
-  size_t flags;       // uint8  [block_q][C]: lane survives suppression
-  size_t total;
-};
-
-__host__ __device__ inline Layout layout(int W, int kg, int kr, int B,
-                                         int block_q, int chunk,
-                                         int n_buffers) {
-  const size_t C = static_cast<size_t>(B) * (kg + kr);
-  const size_t L = B + C;
-  const size_t rows = static_cast<size_t>(n_buffers) * block_q * chunk;
-  Layout o;
-  o.ring_words = 0;
-  o.ring_card = o.ring_words + rows * W * 4;
-  o.ids = o.ring_card + rows * 4;
-  o.sims = o.ids + block_q * L * 4;
-  o.qw = o.sims + block_q * L * 4;
-  o.counts = o.qw + static_cast<size_t>(block_q) * W * 4;
-  o.scratch = o.counts + static_cast<size_t>(block_q) * 2 * 4;
-  o.flags = o.scratch + sizeof(SelectScratch);
-  o.total = o.flags + block_q * C;
-  return o;
+// One row of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global to shared memory by the copy engine, completing on `bar`.
+__device__ __forceinline__ void bulk_row(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+// An arrive on `bar` once this thread's earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 2)
 descent_hop_dma_kernel(const int* __restrict__ graph,
                        const int* __restrict__ rev,
                        const uint32_t* __restrict__ words,
@@ -103,143 +135,170 @@ descent_hop_dma_kernel(const int* __restrict__ graph,
                        int* __restrict__ bytes_saved, int q, int W, int kg,
                        int kr, int B, int block_q, int chunk, int n_buffers,
                        int vec16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lo = layout(W, kg, kr, B, block_q, chunk, n_buffers);
-  uint32_t* ring_w = reinterpret_cast<uint32_t*>(smem + lo.ring_words);
-  int* ring_c = reinterpret_cast<int*>(smem + lo.ring_card);
-  int* s_id = reinterpret_cast<int*>(smem + lo.ids);
-  float* s_sim = reinterpret_cast<float*>(smem + lo.sims);
-  uint32_t* s_qw = reinterpret_cast<uint32_t*>(smem + lo.qw);
-  int* s_cnt = reinterpret_cast<int*>(smem + lo.counts);
-  SelectScratch* scr = reinterpret_cast<SelectScratch*>(smem + lo.scratch);
-  uint8_t* s_need = smem + lo.flags;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const repro::hop::Layout lo =
+      repro::hop::layout(W, kg, kr, B, n_buffers * chunk);
+  const repro::hop::State s = repro::hop::carve(smem, lo);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + lo.ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lo.bars);
+  uint64_t* empty = full + repro::hop::kMaxBuffers;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long q0 = static_cast<long long>(blockIdx.x) * block_q;
   const int qn = static_cast<int>(min(static_cast<long long>(block_q),
                                       q - q0));
   const int C = B * (kg + kr);
-  const int L = B + C;
-  const float ninf = repro::neg_inf();
+  const unsigned row_bytes = static_cast<unsigned>(W) * 4u;
+  const int G = repro::hop::row_group(vec16 ? W >> 2 : W);
+  const int rpw = 32 / G;
+  const int gw = lane / G, g = lane & (G - 1);
 
-  // (1) beams (dead lanes to PAD / -inf) and query fingerprints.
-  for (int j = 0; j < qn; ++j)
-    repro::hop::stage_beam(beam_ids + (q0 + j) * B, beam_sims + (q0 + j) * B,
-                           tomb, B, s_id + j * L, s_sim + j * L);
-  for (int x = tid; x < qn * W; x += kThreads) s_qw[x] = q_words[q0 * W + x];
-  for (int x = tid; x < 2 * qn; x += kThreads) s_cnt[x] = 0;
-  __syncthreads();
-
-  // (2) candidate ids and suppression flags; no fingerprint is read here.
-  for (int x = tid; x < qn * C; x += kThreads) {
-    const int j = x / C;
-    const int c = x - j * C;
-    const int* beam = s_id + j * L;
-    const int id =
-        repro::hop::candidate_id(graph, rev, tomb, beam, c, B, kg, kr);
-    s_id[j * L + B + c] = id;
-    s_sim[j * L + B + c] = ninf;
-    s_need[x] = repro::hop::survives(id, beam, B);
-  }
-  __syncthreads();
-
-  // (3) chunked scoring through the ring.
-  const int n_chunks = (C + chunk - 1) / chunk;
-  const int pieces = vec16 ? W / 4 : W;  // copies per fingerprint row
-  const int per_lane = pieces + 1;       // and one for the card word
-  const size_t stage_rows = static_cast<size_t>(block_q) * chunk;
-
-  auto issue = [&](int ci) {
-    const int c0 = ci * chunk;
-    const int ch = min(chunk, C - c0);
-    uint32_t* rw = ring_w + (ci % n_buffers) * stage_rows * W;
-    int* rc = ring_c + (ci % n_buffers) * stage_rows;
-    for (int x = tid; x < qn * ch * per_lane; x += kThreads) {
-      const int lane = x / per_lane;
-      const int piece = x - lane * per_lane;
-      const int j = lane / ch;
-      const int l = lane - j * ch;
-      if (!s_need[j * C + c0 + l]) continue;
-      const long long id = s_id[j * L + B + c0 + l];
-      const size_t row = static_cast<size_t>(j) * chunk + l;
-      if (piece == pieces) {
-        cp_async_4(rc + row, card + id);
-        atomicAdd(&s_cnt[2 * j + 1], 1);
-      } else if (vec16) {
-        cp_async_16(rw + row * W + 4 * piece, words + id * W + 4 * piece);
-      } else {
-        cp_async_4(rw + row * W + piece, words + id * W + piece);
-      }
+  if (tid == 0) {
+    for (int i = 0; i < n_buffers; ++i) {
+      mbar_init(full + i, vec16 ? kProducers : 32 * kProducers);
+      mbar_init(empty + i, kConsumers);
     }
-  };
-
-  auto score = [&](int ci) {
-    const int c0 = ci * chunk;
-    const int ch = min(chunk, C - c0);
-    const uint32_t* rw = ring_w + (ci % n_buffers) * stage_rows * W;
-    const int* rc = ring_c + (ci % n_buffers) * stage_rows;
-    for (int lane = tid; lane < qn * ch; lane += kThreads) {
-      const int j = lane / ch;
-      const int l = lane - j * ch;
-      if (!s_need[j * C + c0 + l]) continue;
-      const int row = j * chunk + l;
-      const uint32_t* fp = rw + static_cast<size_t>(row) * W;
-      const uint32_t* qw = s_qw + j * W;
-      // Start each row at its own word, so a warp's reads of consecutive
-      // ring rows fall in different banks; the integer sum is order-free.
-      int w = row % W;
-      int inter = 0;
-      for (int i = 0; i < W; ++i) {
-        inter += __popc(fp[w] & qw[w]);
-        if (++w == W) w = 0;
-      }
-      s_sim[j * L + B + c0 + l] =
-          repro::jaccard_sim(inter, q_card[q0 + j], rc[row]);
-      atomicAdd(&s_cnt[2 * j], 1);
-    }
-  };
-
-  for (int ci = 0; ci < n_buffers - 1; ++ci) {
-    if (ci < n_chunks) issue(ci);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    if (ci + n_buffers - 1 < n_chunks) issue(ci + n_buffers - 1);
-    cp_async_commit();
-    wait_ring(n_buffers);
+  // Stages used so far, the same count in every thread: the k-th use of
+  // stage k % n_buffers waits on phase parity (k / n_buffers) & 1.
+  int used = 0;
+
+  for (int j = 0; j < qn; ++j) {
+    const long long qi = q0 + j;
+    // (1) beam staging (the barrier also publishes the mbarriers' init
+    // and, from the second query on, ends the last one's selection).
     __syncthreads();
-    score(ci);
-    __syncthreads();  // stage ci % n_buffers is free for the next issue
-  }
-  __syncthreads();
+    repro::hop::stage_beam(beam_ids + qi * B, beam_sims + qi * B, tomb,
+                           q_words + qi * W, W, B, s);
+    __syncthreads();
+    // (2) candidate ids, into the hash table.
+    repro::hop::gather_lanes(graph, rev, kg, kr, B, s);
+    __syncthreads();
+    // (3) suppression, tombstones and one owner lane per id.
+    repro::hop::classify_slots(card, tomb, B, s);
+    __syncthreads();
+    if (tid == 0) {
+      const int scored = *s.n_scored;
+      n_scored[qi] = scored;
+      dma_bytes[qi] = scored * W * 4;
+      bytes_saved[qi] = (C - scored) * W * 4;
+    }
 
-  for (int j = tid; j < qn; j += kThreads) {
-    const int fetched = s_cnt[2 * j + 1];
-    n_scored[q0 + j] = s_cnt[2 * j];
-    dma_bytes[q0 + j] = fetched * W * 4;
-    bytes_saved[q0 + j] = (C - fetched) * W * 4;
-  }
+    // (4) the owners' rows through the ring; the keys overwrite the hash
+    // table: the beam's, then the owners'.
+    for (int b = tid; b < B; b += kThreads)
+      s.key[b] = repro::hop::beam_key(s, b);
+    const int n_work = *s.n_work;
+    const int stages = (n_work + chunk - 1) / chunk;
+    if (warp >= kConsumers) {
+      // Producer p copies rows p * 32 + lane + k * 32 * kProducers of each
+      // stage, having armed the stage's barrier with their bytes first.
+      const int first = (warp - kConsumers) * 32 + lane;
+      for (int st = 0; st < stages; ++st, ++used) {
+        const int slot = used % n_buffers;
+        mbar_wait(empty + slot, ((used / n_buffers) & 1) ^ 1);
+        const int r0 = st * chunk;
+        const int nr = min(chunk, n_work - r0);
+        uint32_t* dst = ring + static_cast<size_t>(slot) * chunk * W;
+        if (vec16) {
+          int mine = 0;
+          for (int r = first; r < nr; r += 32 * kProducers) ++mine;
+          mine = __reduce_add_sync(repro::kFullMask, mine);
+          if (lane == 0) mbar_arrive_expect_tx(full + slot, mine * row_bytes);
+          __syncwarp();
+          for (int r = first; r < nr; r += 32 * kProducers)
+            bulk_row(dst + static_cast<size_t>(r) * W,
+                     words + static_cast<long long>(s.wid[r0 + r]) * W,
+                     row_bytes, full + slot);
+        } else {
+          for (int x = first; x < nr * W; x += 32 * kProducers) {
+            const int r = x / W, w = x - r * W;
+            repro::cp_async_4(
+                dst + x,
+                words + static_cast<long long>(s.wid[r0 + r]) * W + w);
+          }
+          cp_async_arrive(full + slot);
+        }
+      }
+    } else {
+      const int qcard = q_card[qi];
+      for (int st = 0; st < stages; ++st, ++used) {
+        const int slot = used % n_buffers;
+        const int r0 = st * chunk;
+        const int nr = min(chunk, n_work - r0);
+        const uint32_t* src = ring + static_cast<size_t>(slot) * chunk * W;
+        mbar_wait(full + slot, (used / n_buffers) & 1);
+        constexpr int U = 3;  // 144 rows a pass of the 12 warps at W = 32
+        const int stride = kConsumers * rpw;
+        for (int base = warp * rpw; base < nr; base += stride * U) {
+          int inter[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int r = base + u * stride + gw;
+            inter[u] = repro::hop::group_sum(
+                r < nr ? repro::hop::row_inter(
+                             src + static_cast<size_t>(r) * W, s.qw, W,
+                             vec16, g, G)
+                       : 0,
+                G);
+          }
+          repro::hop::spread_rows<U>(inter, G, lane, [&](int u, int row,
+                                                         int v) {
+            const int r = base + u * stride + row;
+            if (r < nr)
+              s.key[B + r0 + r] = repro::sim_key(
+                  repro::jaccard_sim(v, qcard, s.wcard[r0 + r]),
+                  s.work[r0 + r]);
+          });
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);
+      }
+    }
+    __syncthreads();
 
-  // (4) the new beams, one query at a time over the whole block.
-  for (int j = 0; j < qn; ++j)
-    repro::hop::select_beam(s_id + j * L, s_sim + j * L, L, B,
-                            out_ids + (q0 + j) * B, out_sims + (q0 + j) * B,
-                            scr);
+    // (5) selection.
+    repro::hop::select_beam<P>(B, s, out_ids + qi * B, out_sims + qi * B);
+  }
+}
+
+using KernelFn = void (*)(const int*, const int*, const uint32_t*,
+                          const int*, const uint8_t*, const uint32_t*,
+                          const int*, const int*, const float*, int*, float*,
+                          int*, int*, int*, int, int, int, int, int, int, int,
+                          int, int);
+
+KernelFn kernel_for(int B) {
+  switch (repro::hop::list_regs(B)) {
+    case 1: return descent_hop_dma_kernel<1>;
+    case 2: return descent_hop_dma_kernel<2>;
+    case 4: return descent_hop_dma_kernel<4>;
+    case 8: return descent_hop_dma_kernel<8>;
+    default: return descent_hop_dma_kernel<16>;
+  }
+}
+
+cudaError_t allow_smem(KernelFn fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;  // the default cap
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
 
-// The block's dynamic shared memory in bytes: the ring,
-// n_buffers * block_q * chunk * (W + 1) * 4, plus per query the staged
-// beam and candidate lanes (ids and sims), the query fingerprint, two
-// counters and a flag per candidate lane, plus the selection scratch.
+// The block's dynamic shared memory in bytes: the ring, n_buffers * chunk
+// rows of W words, and its 2 * 4 mbarriers, then one query's state
+// (hop_common.cuh's Layout). Queries of a block reuse the same state, so
+// block_q does not enter it.
 REPRO_EXPORT size_t repro_descent_hop_dma_smem_bytes(int W, int kg, int kr,
                                                      int B, int block_q,
                                                      int chunk,
                                                      int n_buffers) {
-  return layout(W, kg, kr, B, block_q, chunk, n_buffers).total;
+  (void)block_q;
+  return repro::hop::layout(W, kg, kr, B, n_buffers * chunk).total;
 }
 
 // Blocks of this kernel one SM can hold at these parameters (shared
@@ -248,25 +307,24 @@ REPRO_EXPORT int repro_descent_hop_dma_blocks_per_sm(int W, int kg, int kr,
                                                      int B, int block_q,
                                                      int chunk,
                                                      int n_buffers) {
-  const size_t smem = layout(W, kg, kr, B, block_q, chunk, n_buffers).total;
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024)  // as at launch: the default cap is 48 KB
-    e = cudaFuncSetAttribute(descent_hop_dma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const size_t smem = repro_descent_hop_dma_smem_bytes(W, kg, kr, B, block_q,
+                                                       chunk, n_buffers);
+  const KernelFn fn = kernel_for(B);
+  cudaError_t e = allow_smem(fn, smem);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, descent_hop_dma_kernel, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                      smem);
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 // Tables: graph [n, kg], rev [n, kr], words [n, W] (uint32 bit patterns),
 // card [n], tomb [n] (0 = live). Queries: q_words [q, W], q_card [q],
-// beam_ids / beam_sims [q, B]. Outputs: out_ids / out_sims [q, B],
-// n_scored / dma_bytes / bytes_saved [q]. Ids lie in [-1, n); all
-// contiguous; block_q, chunk >= 1 and 1 <= n_buffers <= 4. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// beam_ids / beam_sims [q, B], B <= 512, no id repeated in a beam row.
+// Outputs: out_ids / out_sims [q, B], n_scored / dma_bytes / bytes_saved
+// [q]. Ids lie in [-1, n); all contiguous; block_q, chunk >= 1 and
+// 1 <= n_buffers <= 4. Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 REPRO_EXPORT int repro_descent_hop_dma(
     const void* graph, const void* rev, const void* words, const void* card,
     const void* tomb, const void* q_words, const void* q_card,
@@ -274,18 +332,16 @@ REPRO_EXPORT int repro_descent_hop_dma(
     void* out_sims, void* n_scored, void* dma_bytes, void* bytes_saved,
     int q, int W, int kg, int kr, int B, int block_q, int chunk,
     int n_buffers, void* stream) {
-  const size_t smem = layout(W, kg, kr, B, block_q, chunk, n_buffers).total;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        descent_hop_dma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = repro_descent_hop_dma_smem_bytes(W, kg, kr, B, block_q,
+                                                       chunk, n_buffers);
+  if (B > repro::hop::kMaxBeam) return cudaErrorInvalidValue;
+  const KernelFn fn = kernel_for(B);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int vec16 =
       W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
   const int grid = (q + block_q - 1) / block_q;
-  descent_hop_dma_kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(graph), static_cast<const int*>(rev),
       static_cast<const uint32_t*>(words), static_cast<const int*>(card),
       static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),

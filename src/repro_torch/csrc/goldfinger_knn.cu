@@ -60,7 +60,7 @@
 // repro::jaccard_sim (IEEE f32, as the reference); slots with no key come
 // out PAD/-inf.
 
-#include "common.cuh"
+#include "keys.cuh"
 
 namespace {
 
@@ -68,7 +68,11 @@ constexpr int kRows = 16;       // query rows per block (mma M)
 constexpr int kTile = 32;       // database rows per warp tile (one per lane)
 constexpr unsigned kFull = 0xffffffffu;
 
-using Key = unsigned long long;
+using repro::bitonic_desc;
+using repro::Key;
+using repro::kmax;
+using repro::kmin;
+using repro::sort_asc;
 
 // Byte offsets of the block's dynamic shared memory.
 struct Layout {
@@ -132,41 +136,6 @@ __device__ __forceinline__ Key make_key(int inter, int qid, int qcard,
   const uint32_t hi = __float_as_uint(sim) | 0x80000000u;
   return (static_cast<Key>(hi) << 32) |
          (0xffffffffu - static_cast<uint32_t>(col));
-}
-
-__device__ __forceinline__ Key kmax(Key a, Key b) { return a > b ? a : b; }
-__device__ __forceinline__ Key kmin(Key a, Key b) { return a < b ? a : b; }
-
-// R bitonic sequences over the warp (element = lane) sorted descending;
-// the R shuffle chains interleave.
-template <int R>
-__device__ __forceinline__ void bitonic_desc(Key (&x)[R], int lane) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    const bool hi = (lane & s) == 0;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const Key y = __shfl_xor_sync(kFull, x[i], s);
-      x[i] = hi ? kmax(x[i], y) : kmin(x[i], y);
-    }
-  }
-}
-
-// R sets of 32 keys over the warp sorted ascending.
-template <int R>
-__device__ __forceinline__ void sort_asc(Key (&x)[R], int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-    for (int s = size >> 1; s > 0; s >>= 1) {
-      const bool lo = ((lane & s) == 0) == ((lane & size) == 0);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const Key y = __shfl_xor_sync(kFull, x[i], s);
-        x[i] = lo ? kmin(x[i], y) : kmax(x[i], y);
-      }
-    }
-  }
 }
 
 // The k-th key of list i of x.

@@ -30,7 +30,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("goldfinger_knn", "descent_hop", "descent_hop_dma", "frh_minhash")
-HEADERS = ("common.cuh", "hop_common.cuh")
+HEADERS = ("common.cuh", "keys.cuh", "hop_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -54,12 +54,15 @@ def _lib_dma():
 def _checked_args(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
                   beam_ids, beam_sims):
     """Contiguous kernel arguments, after checking device, dtype and shape
-    of every input (tomb None → all live)."""
+    of every input (tomb None → all live) and the beam width."""
     n, kg = graph_ids.shape
     kr = rev_ids.shape[1]
     W = words.shape[1]
     q, B = beam_ids.shape
     dev = beam_ids.device
+    if B > tune.MAX_BEAM:
+        raise ValueError(f"the descent hop kernels keep at most "
+                         f"{tune.MAX_BEAM} beam lanes; got beam {B}")
     if tomb is None:
         tomb = torch.zeros(n, dtype=torch.bool, device=dev)
     typed = ((graph_ids, torch.int32, (n, kg)), (rev_ids, torch.int32, (n, kr)),
@@ -93,6 +96,10 @@ def _launch(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
         return out_ids, out_sims, n_scored
     lib = _lib()
     smem = lib.repro_descent_hop_smem_bytes(W, kg, kr, B)
+    if smem != tune.state_bytes(W, kg + kr, B, 0):
+        raise RuntimeError(
+            f"tune.state_bytes disagrees with the hop kernel's layout "
+            f"({smem} B) at W={W} kg+kr={kg + kr} B={B}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"descent hop needs {smem} B of shared memory at "
                          f"B={B}, kg+kr={kg + kr}; the limit is {SMEM_LIMIT}")
@@ -165,17 +172,24 @@ def descent_hop(graph_ids, rev_ids, words, card, q_words, q_card,
     rows must not repeat an id (every merge_topk output satisfies this).
 
     ``dma=True`` selects the DMA hop (``csrc/descent_hop_dma.cu``): the
-    surviving lanes' fingerprint rows are gathered chunk by chunk into a
-    shared-memory ring, with ``(block_q, score_chunk, n_buffers)`` from
+    surviving rows are gathered stage by stage into a shared-memory ring
+    by bulk copies, with ``(block_q, score_chunk, n_buffers)`` from
     :func:`tune.hop_params` unless given. Results are bitwise those of the
-    hop kernel and of the plain version either way.
+    hop kernel and of the plain version either way. The kernels take beams
+    of at most ``tune.MAX_BEAM`` lanes whose per-query state
+    (``tune.state_bytes``) fits one block's shared memory: at kg+kr = 60,
+    beams of up to 102 lanes; a larger beam raises ValueError (the plain
+    version on the CPU takes any).
 
     With ``with_counts`` returns ``(ids, sims, n_scored, dma_bytes,
     bytes_saved)``, each count int32[q]: lanes that survived suppression
     and were scored, fingerprint bytes gathered (``n_scored·W·4`` for the
     DMA hop, 0 for the hop kernel) and fingerprint bytes the suppression
     left unread (``(C − n_scored)·W·4`` with ``C = B·(kg+kr)``; 0 for the
-    hop kernel).
+    hop kernel). The counts keep the reference's meaning, lanes: both CUDA
+    kernels read one row per distinct surviving id, so where lanes repeat
+    an id they read fewer rows than ``n_scored`` (and the DMA hop moves
+    fewer bytes than ``dma_bytes``).
     """
     kind = beam_ids.device.type
     if kind == "cpu":

@@ -2,25 +2,36 @@
 (``csrc/descent_hop_dma.cu``).
 
 The DMA hop has three launch knobs — ``block_q`` (queries per block),
-``score_chunk`` (candidate lanes per query per ring stage) and
-``n_buffers`` (ring depth) — whose good values depend on the index shape
-``(n, W, beam, kg+kr)``, not on the call site. :func:`hop_params`
-resolves them in priority order: in-process memo → on-disk cache (JSON at
-``$REPRO_TORCH_TUNE_CACHE``, if set) → measured table (entries recorded by
-:func:`record`) → the shared-memory heuristic. Every resolution is
-memoized, so a serving plan asks once per index shape. ``stats`` counts
-hits and misses.
+``score_chunk`` (rows per ring stage) and ``n_buffers`` (ring depth) —
+whose good values depend on the index shape ``(n, W, beam, kg+kr)``, not
+on the call site. :func:`hop_params` resolves them in priority order:
+in-process memo → on-disk cache (JSON at ``$REPRO_TORCH_TUNE_CACHE``, if
+set) → measured table (entries recorded by :func:`record`) → the
+shared-memory heuristic. Every resolution is memoized, so a serving plan
+asks once per index shape. ``stats`` counts hits and misses.
+
+How the kernel reads the knobs. A block takes its ``block_q`` queries one
+after another through the same shared memory, so ``block_q`` sets how
+many queries share a block, not how much memory it takes. A query's
+candidate lanes are suppressed and deduplicated before any row moves, and
+only its distinct surviving ids ("owners") are copied: ``score_chunk`` is
+the owner rows of one ring stage (not candidate lanes, as in the
+reference's VMEM tiling), each stage one ``mbarrier`` that its bulk
+copies complete.
 
 The heuristic budgets the block's whole dynamic shared memory,
-:func:`smem_bytes`: the ring, ``n_buffers·block_q·score_chunk·(W+1)·4``
-bytes, plus per query the staged beam and candidate lanes (ids and sims,
-``(B + C)·8`` bytes with ``C = B·(kg+kr)``), a suppression flag per lane,
-the query fingerprint and two counters. An H100 block may use at most
-232,448 bytes; the heuristic aims at half an SM's shared memory so that
-two blocks share each SM, and falls back to the whole limit when even
-one-lane chunks do not fit that. It keeps ``block_q = 1``: a serving hop
-has a few hundred query rows, and more queries per block would leave
-some of the 132 SMs idle.
+:func:`smem_bytes`: the ring, ``n_buffers·score_chunk·W·4`` bytes, and its
+barriers, then one query's state (``csrc/hop_common.cuh`` ``Layout``: a
+hash table of ``1.5·L + 1`` 12-byte slots over the ``L = B + C`` lanes with
+``C = B·(kg+kr)``, each slot an id, its lowest column and its lane count,
+which the lanes' keys overwrite; the warps' top-B lists and buffers, the
+query fingerprint, the lane ids, the beam sims and the owners' columns,
+ids and cards). An H100 block may use at most 232,448 bytes;
+the heuristic aims at half an SM's shared memory so that two blocks share
+each SM, and falls back to the whole limit when even one-row stages do
+not fit that. It keeps ``block_q = 1``: a serving hop has a few hundred
+query rows, and more queries per block would leave some of the 132 SMs
+idle.
 """
 from __future__ import annotations
 
@@ -37,8 +48,8 @@ BLOCK_RESERVED = 1024        # bytes the SM reserves for each resident block
 TWO_PER_SM = SM_SHARED // 2 - BLOCK_RESERVED
 MAX_BUFFERS = 4              # the kernel's deepest ring
 MAX_CHUNK = 256
-_WARPS = 8                   # hop_common.cuh kThreads / 32
-_SELECT_SCRATCH = 8 * _WARPS + 8   # sizeof(SelectScratch)
+MAX_BEAM = 512               # hop_common.cuh kMaxBeam
+_WARPS = 16                  # hop_common.cuh kThreads / 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,16 +68,45 @@ _measured: dict[tuple[int, int, int, int], HopParams] = {}
 _disk_loaded = False
 
 
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def _list_regs(beam: int) -> int:
+    p = 1
+    while 32 * p < beam:
+        p *= 2
+    return p
+
+
+def state_bytes(W: int, kdeg: int, beam: int, ring_rows: int) -> int:
+    """Shared memory of a hop block with ``ring_rows`` ring rows (0 for
+    the fused hop): ``csrc/hop_common.cuh``'s ``Layout``, offset by
+    offset."""
+    C = beam * kdeg
+    L = beam + C
+    slots = L + L // 2 + 1
+    bars = _align(ring_rows * W * 4, 16)
+    tab = bars + (2 * MAX_BUFFERS * 8 if ring_rows > 0 else 0)
+    lists = tab + _align(slots * 12, 8)
+    buf = lists + _WARPS * 32 * _list_regs(beam) * 8
+    qw = _align(buf + _WARPS * 32 * 8, 16)
+    ids = qw + _align(W, 4) * 4
+    bsim = ids + L * 4
+    work = bsim + beam * 4
+    misc = _align(work + 3 * C * 4, 8)  # owners' columns, ids, cards
+    return misc + 16
+
+
 def smem_bytes(W: int, kdeg: int, beam: int, block_q: int, score_chunk: int,
                n_buffers: int) -> int:
     """The DMA hop block's dynamic shared memory in bytes, at kg+kr =
     ``kdeg``. The exported ``repro_descent_hop_dma_smem_bytes`` of
     ``csrc/descent_hop_dma.cu`` computes the same total from the kernel's
-    own layout; the wrapper raises before any launch where they differ."""
-    C = beam * kdeg
-    ring = n_buffers * block_q * score_chunk * (W + 1) * 4
-    per_query = (beam + C) * 8 + W * 4 + 2 * 4 + C
-    return ring + block_q * per_query + _SELECT_SCRATCH
+    own layout; the wrapper raises before any launch where they differ.
+    ``block_q`` does not enter it: a block's queries reuse one state."""
+    del block_q
+    return state_bytes(W, kdeg, beam, n_buffers * score_chunk)
 
 
 def shape_key(n: int, W: int, beam: int, kdeg: int) -> tuple[int, int, int, int]:

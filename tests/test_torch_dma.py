@@ -101,6 +101,11 @@ def test_dma_parity_sweep(W, chunk, n_buffers):
     kw = {"n_buffers": n_buffers}
     if chunk is not None:
         kw["score_chunk"] = chunk
+    # The same launch fits one block on the card (the ring holds
+    # n_buffers · score_chunk rows beside one query's state).
+    p = tune.hop_params(45, W, 5, 9)
+    assert tune.smem_bytes(W, 9, 5, p.block_q, chunk or p.score_chunk,
+                           n_buffers) <= tune.SMEM_LIMIT
     _assert_dma_parity(arrays, tomb=tomb, **kw)
 
 
@@ -175,7 +180,7 @@ def test_tune_memoizes_per_shape():
                                          (32, 64, 64), (1, 4, 8)])
 def test_tune_heuristic_fits_shared_memory(W, beam, kdeg):
     """Every heuristic result fits one H100 block, and two blocks per SM
-    wherever one-lane chunks allow it; (32, 32, 60) is the main path's
+    wherever one-row stages allow it; (32, 32, 60) is the main path's
     ml1M@1.0 hop (k=30 forward and reverse edges, beam 32)."""
     tune.clear()
     try:
@@ -195,15 +200,36 @@ def test_tune_heuristic_fits_shared_memory(W, beam, kdeg):
 
 
 def test_tune_main_path_ring():
-    """At the main path's shapes the ring is two stages of 256 lanes: the
-    reference's VMEM tiling (block_q 16, chunk 128) would need ~540 KB."""
+    """At the main path's shapes the ring is two stages of 128 rows: one
+    query's state (~74 KB: the hash table the keys overwrite, the warps'
+    lists, the lane ids, the owners) leaves room for two 107 KB blocks per
+    SM. The reference's VMEM tiling (block_q 16, chunk 128) fits too, since
+    a block's queries take turns in one state."""
     tune.clear()
     try:
         p = tune.hop_params(6038, 32, 32, 60, q=256)
     finally:
         tune.clear()
-    assert p == tune.HopParams(block_q=1, score_chunk=256, n_buffers=2)
-    assert tune.smem_bytes(32, 60, 32, 16, 128, 2) > tune.SMEM_LIMIT
+    assert p == tune.HopParams(block_q=1, score_chunk=128, n_buffers=2)
+    assert tune.smem_bytes(32, 60, 32, 1, 128, 2) <= tune.TWO_PER_SM
+    assert tune.smem_bytes(32, 60, 32, 1, 256, 2) > tune.TWO_PER_SM
+    assert (tune.smem_bytes(32, 60, 32, 16, 128, 2)
+            == tune.smem_bytes(32, 60, 32, 1, 128, 2) <= tune.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("W", [1, 32, 33, 64])
+def test_tune_knobs_read_as_the_kernel_reads_them(W):
+    """block_q does not enter shared memory (a block's queries take turns
+    in one state); each ring row is one fingerprint row of W words, no card
+    word beside it; and the ring and its 8 mbarriers come on top of the
+    fused hop's state (``state_bytes(..., 0)``)."""
+    base = tune.smem_bytes(W, 60, 32, 1, 64, 2)
+    for bq in (2, 3, 16):
+        assert tune.smem_bytes(W, 60, 32, bq, 64, 2) == base
+    ring = -(-(2 * 64 * W * 4) // 16) * 16
+    assert base == tune.state_bytes(W, 60, 32, 0) + ring + 2 * 4 * 8
+    if W % 4 == 0:
+        assert (tune.smem_bytes(W, 60, 32, 1, 65, 2) - base) == 2 * W * 4
 
 
 def test_tune_disk_cache_roundtrip(tmp_path, monkeypatch):
