@@ -10,9 +10,12 @@ Phases, each fatal on failure:
 2. build — compiles the four CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   bitwise: cluster-KNN (ids, sims) at W 1-64, k 1-64, caps 32-2048, PAD
+   bitwise: cluster-KNN (ids, sims) at W 1-64, k 1-64 (lists in the
+   warps' registers) and k 65, 100, 256 and 2,048 (lists merged in shared
+   and in global memory; k above a cluster's size), caps 32-2048, PAD
    ids at cluster ends and scattered, lone members, equal sims in every
-   database tile, and ``knn`` at 17x1,000 and 1,000x17; the hop (ids,
+   database tile, one call of 70,000 two-member clusters (more than the
+   65,535 of one launch), and ``knn`` at 17x1,000 and 1,000x17; the hop (ids,
    sims, scored lanes) over PAD rows, tombstones, planted equal sims and
    duplicate candidates at W = 32 and 64; the DMA hop against its plain
    version and against the hop kernel, with exact byte counters, at W =
@@ -22,19 +25,29 @@ Phases, each fatal on failure:
    at W = 4, 8, 33, 64 and 65 (every row grouping and both copy paths),
    beams of 1, 64, 128 and 512 lanes, beams that are all PAD, candidates
    that all name one id, and equal sims across ids, where the column
-   decides;
-   FastRandomHash at the reference test's shapes and at ml1M@1.0, where
-   it also equals the host hashing;
+   decides; both hops at beams of 128, 256 and 1,024 lanes over kg+kr =
+   60, W = 32 (their state in global memory; 1,024 lanes through the radix
+   select), with random and with tie-heavy beams (every row equal), and at
+   640 lanes over kg+kr = 2 (the radix select with the state in shared
+   memory), and 1,200 queries at 128 lanes, so that each block walks
+   several queries (the DMA hop also in groups of 3);
+   FastRandomHash's padded entry at the reference test's shapes and its
+   CSR entry over empty, one-item and longest rows, row offsets of every
+   residue mod 4 and an unaligned item array, t = 1, 8 and 32, b = 256,
+   4,096 and 2^31 and items near 2^31 - 1, against its plain version and
+   the padded entry;
 4. main path — ``knn_build`` on ml1M@1.0 with the paper's parameters
    (k=30) into a temporary index, then ``knn_serve`` of 2,048 unseen
    profiles (k=10, beam 32, 3 hops) in waves of 256 with the fused hop,
    then with ``--continuous --slots 256 --kernel --dma`` and with
    ``--kernel --dma`` in waves of 256: both must serve ids and sims
    bitwise equal, rid by rid, to the fused-hop waves, as must the plain
-   hop; then ``dataset_minhash`` of ml1M@1.0. Each path is driven with the
-   launch counts set to 0 just before it and read just after, and each
-   kernel must have launched on its path. A small build on the card must
-   equal the CPU's;
+   hop; 256 of those profiles served with ``--beam 128`` by the plain hop,
+   ``--kernel`` and ``--kernel --dma``, equal rid by rid; then
+   ``dataset_minhash`` of ml1M@1.0 through the CSR entry, equal to the host
+   hashing and the padded entry. Each path is driven with the launch counts
+   set to 0 just before it and read just after, and each kernel must have
+   launched on its path. A small build on the card must equal the CPU's;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -43,7 +56,9 @@ Phases, each fatal on failure:
    (``repro_torch.bench.hop_phases``) and resident warps per SM; the
    Step-2 sweep's device time per capacity group
    beside its host clock; the host clock per phase of a wave and of
-   continuous ticks.
+   continuous ticks; both FastRandomHash entries' device time; where the
+   ml1M@1.0 build's clustering and one wave's routing spend their host
+   clock (item hashes, distinct hashes, splits, the rest).
 
 Prints one ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.
@@ -183,11 +198,13 @@ def same_knn(ki, ks, pi, ps) -> bool:
 def check_cluster_knn(dev) -> tuple[int, float]:
     """The cluster-KNN kernel against its plain version, bitwise: W from 1
     to 64 words (16- and 4-byte copies), k from 1 to 64 (one and two keys
-    per lane), caps 32 to 2048 with a full cap-2048 cluster, PAD ids at the
-    end of clusters and scattered through them (their rows keep garbage
-    words, as ``batch_inputs`` gives them), a batch of lone members, and
-    equal sims planted in every 32-row database tile, so that ties meet
-    across the warps' slices; then ``knn`` with nq != nd."""
+    per lane) and above (65, 100 and 256 merged in shared memory, 2,048 in
+    global memory; k above a cluster's size), caps 32 to 2048 with a full
+    cap-2048 cluster, PAD ids at the end of clusters and scattered through
+    them (their rows keep garbage words, as ``batch_inputs`` gives them), a
+    batch of lone members, and equal sims planted in every 32-row database
+    tile, so that ties meet across the warps' slices; then one call of
+    70,000 two-member clusters (two launches), and ``knn`` with nq != nd."""
     import numpy as np
     import torch
 
@@ -202,7 +219,10 @@ def check_cluster_knn(dev) -> tuple[int, float]:
              (512, 1, 64, 2, "tail"), (1024, 33, 64, 2, "scatter"),
              (1024, 32, 30, 2, "scatter"), (2048, 32, 30, 2, "tail"),
              (2048, 64, 10, 2, "scatter"), (2048, 31, 1, 1, "tail"),
-             (64, 32, 30, 40, "lone"), (2048, 32, 64, 3, "lone")]
+             (64, 32, 30, 40, "lone"), (2048, 32, 64, 3, "lone"),
+             (32, 32, 65, 6, "tail"), (64, 31, 100, 4, "scatter"),
+             (256, 32, 256, 3, "tail"), (1024, 32, 100, 2, "scatter"),
+             (128, 33, 256, 3, "lone"), (2048, 32, 2048, 2, "tail")]
     n_checked, err = 0, 0.0
     for cap, W, k, m, pad in cases:
         rng = np.random.default_rng(cap * 100 + W + k)
@@ -242,8 +262,31 @@ def check_cluster_knn(dev) -> tuple[int, float]:
             fail(f"cluster-KNN cap={cap} W={W} k={k} PAD {pad}: "
                  f"{int(bad.sum())} entries differ from the plain version")
         n_checked += 1
-        log(f"[kernels] cluster_knn cap={cap} W={W} k={k} m={m} PAD {pad}: "
-            f"bitwise ok")
+        log(f"[kernels] cluster_knn cap={cap} W={W} k={k} m={m} PAD {pad} "
+            f"(lists {ops.launch_params(cap, cap, W, k).lists}): bitwise ok")
+    # More clusters than one launch's grid takes (65,535): two launches.
+    m, cap, W, k = 70_000, 32, 32, 30
+    rng = np.random.default_rng(m)
+    words = random_words(rng, (m, cap, W))
+    ids = np.full((m, cap), PAD_ID, np.int32)
+    ids[:, :2] = np.arange(2 * m, dtype=np.int32).reshape(m, 2)
+    words[ids == PAD_ID] = 0
+    card = popcount_rows(words.reshape(-1, W)).reshape(m, cap)
+    w = words_tensor(words, dev)
+    c = torch.from_numpy(card).to(dev)
+    i = torch.from_numpy(ids).to(dev)
+    before = ops.launches
+    ki, ks = ops.cluster_knn(w, c, i, k)
+    pi, ps = ref.cluster_knn_ref(w, c, i, k)
+    torch.cuda.synchronize()
+    if ops.launches - before != 2 or not same_knn(ki, ks, pi, ps):
+        fail(f"cluster-KNN over {m} two-member clusters: "
+             f"{ops.launches - before} launches, bitwise "
+             f"{same_knn(ki, ks, pi, ps)}")
+    err = max(err, max_abs_err(ks, ps))
+    n_checked += 1
+    log(f"[kernels] cluster_knn {m} two-member clusters (cap={cap} W={W} "
+        f"k={k}) in 2 launches: bitwise ok")
     # knn with query and database counts that differ and are not multiples
     # of the tiles.
     for nq, nd, W, k in ((200, 300, 32, 30), (17, 1000, 32, 30),
@@ -457,15 +500,33 @@ def check_dma_hop(dev) -> tuple[int, float]:
         for bq, chunk, nb in ((p.block_q, p.score_chunk, p.n_buffers),
                               (3, 100, 3), (1, 7, 1)):
             got = lib.repro_descent_hop_dma_smem_bytes(W, 30, 30, 32, bq,
-                                                       chunk, nb)
+                                                       chunk, nb, 0)
             if got != tune.smem_bytes(W, 60, 32, bq, chunk, nb):
                 fail(f"tune.smem_bytes differs from the kernel's layout at "
                      f"W={W} ({bq}, {chunk}, {nb})")
         if tune.smem_bytes(W, 60, 32, p.block_q, p.score_chunk,
                            p.n_buffers) > tune.SMEM_LIMIT:
             fail(f"the tuner's DMA hop params at W={W} overflow a block")
+    # Wide beams: the state in global memory, the ring alone in shared.
+    for B in (128, 256, 1024):
+        p = tune._heuristic(6038, 32, B, 60)
+        got = (lib.repro_descent_hop_dma_smem_bytes(
+                   32, 30, 30, B, 1, p.score_chunk, p.n_buffers, 1),
+               lib.repro_descent_hop_dma_workspace_stride(32, 30, 30, B),
+               ops._lib().repro_descent_hop_smem_bytes(32, 30, 30, B, 1),
+               ops._lib().repro_descent_hop_workspace_stride(32, 30, 30, B))
+        want = (tune.smem_bytes(32, 60, B, 1, p.score_chunk, p.n_buffers,
+                                "global"),
+                tune.workspace_stride(32, 60, B),
+                tune.state_bytes(32, 60, B, 0, "global"),
+                tune.workspace_stride(32, 60, B))
+        where = tune.state_placement(32, 60, B, p.score_chunk * p.n_buffers)
+        if where != "global" or got != want:
+            fail(f"wide-beam layout at B={B}: kernel {got}, tune {want} "
+                 f"({where})")
     log("[kernels] DMA hop shared-memory layout: tune.smem_bytes == the "
-        "kernel's at W = 1, 32, 33, 64, 1024")
+        "kernel's at W = 1, 32, 33, 64, 1024; both hops' global-state "
+        "layouts at B = 128, 256, 1024")
 
     n_checked, err = 0, 0.0
     cases = [  # (n, W, tomb_frac, launch params)
@@ -501,19 +562,46 @@ def check_dma_hop(dev) -> tuple[int, float]:
     return n_checked + 2, err
 
 
+def tied_inputs(rng, dev, n, W, kg, q, B):
+    """Hop inputs with one fingerprint for every row: every candidate ties
+    with every other, and a third of the beam lanes carry that same sim."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.scoring import score_lanes
+    from repro_torch.sketch.goldfinger import popcount_rows, words_tensor
+    from repro_torch.types import NEG_INF, PAD_ID
+
+    args = list(hop_inputs(rng, dev, n, W, kg, kg, q, B))
+    words = np.repeat(random_words(rng, (1, W)), n, axis=0)
+    args[2] = words_tensor(words, dev)
+    args[3] = torch.from_numpy(popcount_rows(words)).to(dev)
+    same = score_lanes(args[2], args[3], args[4], args[5],
+                       torch.zeros_like(args[6][:, :1]))
+    sims = args[7].clone()
+    sims[:, 1::3] = torch.where(args[6][:, 1::3] == PAD_ID, NEG_INF, same)
+    args[7] = sims
+    return tuple(args)
+
+
 def check_hop_shapes(dev) -> tuple[int, float]:
     """Both hops at the row groupings and list widths of the redesign, each
     against the plain version and each other with exact counters: W = 4, 8,
     33, 64, 65 (a row per 1, 2, 32, 16, 32 threads; 16-byte bulk copies at
     W % 4 == 0, 4-byte cp.async otherwise), beams of 1, 64, 128 and 512
-    lanes (1, 2, 4 and 16 keys per lane; the wide beams over fewer edges,
-    so their state fits a block), every beam PAD, every candidate naming
-    one id, and every fingerprint equal, so that sims tie across ids and
-    the column decides."""
+    lanes (1, 2, 4 and 16 keys per lane) over few edges, so that their state
+    fits a block, every beam PAD, every candidate naming one id, and every
+    fingerprint equal, so that sims tie across ids and the column decides;
+    then the beams the serving plan reaches over the paper index (kg+kr =
+    60, W = 32): 128, 256 and 1,024 lanes, their state in global memory
+    (1,024 through the radix select), random and tie-heavy; and 640 lanes
+    over kg+kr = 2, the radix select with the state in shared memory;
+    then 1,200 queries at 128 lanes, more than the card holds blocks, so
+    that blocks walk queries (and groups of 3)."""
     import numpy as np
     import torch
 
-    from repro_torch.sketch.goldfinger import popcount_rows, words_tensor
+    from repro_torch.kernels.descent_score import tune
     from repro_torch.types import NEG_INF, PAD_ID
 
     n_checked, err = 0, 0.0
@@ -543,25 +631,44 @@ def check_hop_shapes(dev) -> tuple[int, float]:
     args[7] = torch.where(beam == PAD_ID, NEG_INF, args[7])
     args[8] = torch.zeros_like(args[8])
     err = check_dma_case("every candidate row 7", tuple(args), err)
-    # One fingerprint for every row: every candidate ties with every other,
-    # and a third of the beam lanes carry that same sim.
-    from repro_torch.kernels.scoring import score_lanes
-
     rng = np.random.default_rng(8)
-    args = list(hop_inputs(rng, dev, 6038, 32, 30, 30, 256, 32))
-    words = np.repeat(random_words(rng, (1, 32)), 6038, axis=0)
-    args[2] = words_tensor(words, dev)
-    args[3] = torch.from_numpy(popcount_rows(words)).to(dev)
-    same = score_lanes(args[2], args[3], args[4], args[5],
-                       torch.zeros_like(args[6][:, :1]))
-    sims = args[7].clone()
-    sims[:, 1::3] = torch.where(args[6][:, 1::3] == PAD_ID, NEG_INF, same)
-    args[7] = sims
-    err = check_dma_case("every row equal: ties across ids", tuple(args), err)
-    return n_checked + 3, err
+    err = check_dma_case("every row equal: ties across ids",
+                         tied_inputs(rng, dev, 6038, 32, 30, 256, 32), err)
+    n_checked += 3
+    for B, kg in ((128, 30), (256, 30), (1024, 30), (640, 1)):
+        where = tune.state_placement(32, 2 * kg, B, 0)
+        for tied in (False, True):
+            rng = np.random.default_rng(B * 3 + kg + tied)
+            args = (tied_inputs(rng, dev, 6038, 32, kg, 256, B) if tied
+                    else hop_inputs(rng, dev, 6038, 32, kg, kg, 256, B))
+            err = check_dma_case(
+                f"n=6038 W=32 B={B} kg=kr={kg} ({where} state"
+                + (", every row equal)" if tied else ")"), args, err)
+            n_checked += 1
+        ms = [cuda_ms(lambda: fn(*args), reps=3, inner=5, hold=True)
+              for fn in (hop_kernel, dma_kernel)]
+        log(f"[timing] hops at B={B} kg=kr={kg} ({where} state; every row "
+            f"equal), 256 queries, device time: fused {ms[0]:.4f} ms, DMA "
+            f"{ms[1]:.4f} ms")
+    # More queries than resident blocks: each block walks several queries
+    # (the DMA hop also in groups of 3) through its slice of the workspace.
+    rng = np.random.default_rng(600)
+    args = hop_inputs(rng, dev, 6038, 32, 30, 30, 1200, 128)
+    err = check_dma_case("n=6038 W=32 B=128 kg=kr=30 q=1200 (global state, "
+                         "blocks walk queries)", args, err)
+    err = check_dma_case("n=6038 W=32 B=128 kg=kr=30 q=1200 block_q=3 "
+                         "(global state, blocks walk groups)", args, err,
+                         block_q=3)
+    return n_checked + 2, err
 
 
 def check_minhash(dev) -> tuple[int, float]:
+    """FastRandomHash's padded entry at the reference test's shapes, then
+    its CSR entry against its plain version and the padded entry: empty
+    and one-item users, a user at ml1M@1.0's longest row (981 items), row
+    offsets of every residue mod 4, the item array both 16-byte aligned
+    and not (the 4-byte path), t = 1, 8 and 32, b = 256, 4,096 and 2^31,
+    items near 2^31 - 1."""
     import numpy as np
     import torch
 
@@ -586,9 +693,48 @@ def check_minhash(dev) -> tuple[int, float]:
                     fail(f"minhash n={n} P={P} t={t} b={b}: differs from "
                          f"the plain version")
                 n_checked += 1
-    log(f"[kernels] frh_minhash: {n_checked} shapes (n,P in (8,16), "
+    log(f"[kernels] frh_minhash padded: {n_checked} shapes (n,P in (8,16), "
         f"(100,40), (256,64), (300,7); t 1/8; b 256/4096) bitwise ok")
-    return n_checked, 0.0
+    rng = np.random.default_rng(31)
+    n = 3000
+    sizes = rng.integers(0, 200, size=n)
+    sizes[:6] = (0, 1, 0, 1, 981, 2)  # empty, one-item, the longest row
+    sizes[rng.random(n) < 0.1] = 0
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    items = rng.integers(0, 2**31, size=int(offsets[-1]) + 1).astype(
+        np.int32)
+    near = rng.random(len(items)) < 0.2  # items near 2^31 - 1
+    items[near] = 2**31 - 1 - rng.integers(0, 8, size=int(near.sum()))
+    d_items = torch.from_numpy(items).to(dev)
+    d_off = torch.from_numpy(offsets).to(dev)
+    residues = np.bincount(offsets[:-1] % 4, minlength=4)
+    n_csr = 0
+    for aligned in (True, False):
+        # items[1:] starts 4 bytes into the allocation: no 16-byte loads.
+        it = d_items[:-1] if aligned else d_items[1:]
+        host = items[:-1] if aligned else items[1:]
+        padded = np.full((n, int(sizes.max())), PAD_ID, np.int32)
+        for u in range(n):
+            padded[u, :sizes[u]] = host[offsets[u]:offsets[u + 1]]
+        x = torch.from_numpy(padded).to(dev)
+        for t in (1, 8, 32):
+            for b in (256, 4096, 1 << 31):
+                seeds = (np.arange(t, dtype=np.int64) * 1_000_003 - 5).astype(
+                    np.int32)
+                got = ops.minhash_csr(d_off, it, seeds, b)
+                want = ref.minhash_csr_ref(d_off, it, seeds, b)
+                pad = ops.minhash(x, seeds, b)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(got, pad)):
+                    fail(f"minhash_csr t={t} b={b} aligned={aligned}: "
+                         f"plain {torch.equal(got, want)}, padded entry "
+                         f"{torch.equal(got, pad)}")
+                n_csr += 1
+    log(f"[kernels] frh_minhash CSR: {n_csr} cases (n={n}, rows 0-981 items "
+        f"with offsets = 0/1/2/3 mod 4 in {residues.tolist()} rows; items "
+        f"16-byte aligned and not; t 1/8/32; b 256/4096/2^31) bitwise equal "
+        f"to the plain version and to the padded entry")
+    return n_checked + n_csr, 0.0
 
 
 # -- phase 4: the main path ------------------------------------------------
@@ -599,7 +745,7 @@ def reset_launches() -> None:
     from repro_torch.kernels.goldfinger_knn import ops as gk_ops
 
     gk_ops.launches = ds_ops.launches = ds_ops.launches_dma = 0
-    mh_ops.launches = 0
+    mh_ops.launches = mh_ops.launches_csr = 0
 
 
 def read_launches() -> dict:
@@ -610,7 +756,7 @@ def read_launches() -> dict:
     return {"goldfinger_knn": gk_ops.launches,
             "descent_hop": ds_ops.launches,
             "descent_hop_dma": ds_ops.launches_dma,
-            "frh_minhash": mh_ops.launches}
+            "frh_minhash": mh_ops.launches + mh_ops.launches_csr}
 
 
 def served(engine):
@@ -717,9 +863,48 @@ def main_path(dev, tmp: Path) -> dict:
         if name.startswith("continuous"):
             launches["descent_hop_dma"] = counts["descent_hop_dma"]
             cont_engine = d_engine
+    wide_beam_serves(serve_args)
     launches["frh_minhash"] = minhash_path()
     return {"launches": launches, "built": built, "engine": engine,
             "cont_engine": cont_engine, "serves": serves}
+
+
+def wide_beam_serves(serve_args) -> None:
+    """256 of the main path's profiles served with a beam of 128 lanes
+    (kg+kr = 60: the hops keep each query's state in global memory) by
+    the plain hop, the fused hop and the DMA hop: equal rid by rid."""
+    import numpy as np
+
+    from repro_torch.launch import knn_serve
+
+    args = list(serve_args)
+    args[args.index("--queries") + 1] = "256"
+    args[args.index("--beam") + 1] = "128"
+    reset_launches()
+    _, p_recall, p_engine = knn_serve.main(args)
+    if any(read_launches().values()):
+        fail(f"the plain hop's serve launched {read_launches()}")
+    p_ids, p_sims, p_rids = served(p_engine)
+    if p_rids != list(range(256)) or p_ids.shape != (256, 10):
+        fail(f"beam 128 plain serve: rids {p_rids[:5]}..., {p_ids.shape}")
+    for name, extra, kernel in (("--kernel", ["--kernel"], "descent_hop"),
+                                ("--kernel --dma", ["--kernel", "--dma"],
+                                 "descent_hop_dma")):
+        reset_launches()
+        stats, recall, engine = knn_serve.main(args + extra)
+        counts = read_launches()
+        if counts[kernel] <= 0:
+            fail(f"beam 128 {name} never launched {kernel}: {counts}")
+        ids, sims, rids = served(engine)
+        if rids != p_rids or not (np.array_equal(ids, p_ids)
+                                  and np.array_equal(sims, p_sims)):
+            bad = int((~((ids == p_ids) & (sims == p_sims)).all(1)).sum())
+            fail(f"beam 128 {name} differs from the plain hop in {bad} "
+                 f"requests")
+        log(f"[main] serve 256 queries --beam 128 {name}: launches "
+            f"{counts}; bitwise equal to the plain hop rid by rid "
+            f"(recall@10 {recall:.4f}, plain {p_recall:.4f}; QPS "
+            f"{stats['qps']:.1f})")
 
 
 def ml1m_minhash_inputs():
@@ -733,9 +918,11 @@ def ml1m_minhash_inputs():
 
 
 def minhash_path() -> int:
-    """``dataset_minhash`` of ml1M@1.0 with the paper build's seeds, which
-    must equal the host hashing of build Step 1 bitwise."""
+    """``dataset_minhash`` of ml1M@1.0 with the paper build's seeds: one
+    launch of the CSR entry (no padded matrix), equal bitwise to the host
+    hashing of build Step 1 and to the padded entry."""
     import numpy as np
+    import torch
 
     from repro_torch.core import hashing
     from repro_torch.kernels.frh_minhash import ops
@@ -743,29 +930,87 @@ def minhash_path() -> int:
     ds, seeds, b = ml1m_minhash_inputs()
     reset_launches()
     got = ops.dataset_minhash(ds, seeds, b, device="cuda")
-    count = read_launches()["frh_minhash"]
-    if count <= 0:
-        fail("dataset_minhash never launched the frh_minhash kernel")
+    count, csr = read_launches()["frh_minhash"], ops.launches_csr
+    if count != 1 or csr != 1:
+        fail(f"dataset_minhash launched the kernel {count} times, the CSR "
+             f"entry {csr} times: not once through the CSR entry")
     host = hashing.user_min_hash_np(hashing.item_hashes(ds.items, seeds, b),
                                     ds.offsets)
     if got.shape != (len(seeds), ds.n_users) or not np.array_equal(got, host):
         fail("dataset_minhash of ml1M@1.0 differs from the host hashing")
+    padded, _ = ds.padded_profiles()
+    pad = ops.minhash(torch.from_numpy(padded).cuda(), seeds, b)
+    if not np.array_equal(got, pad.T.cpu().numpy()):
+        fail("dataset_minhash of ml1M@1.0 differs from the padded entry")
     log(f"[main] dataset_minhash ml1M@1.0 (n={ds.n_users}, t={len(seeds)}, "
-        f"b={b}): {count} launch, bitwise equal to user_min_hash_np")
+        f"b={b}): {count} launch of the CSR entry, bitwise equal to "
+        f"user_min_hash_np and to the padded entry")
     return count
 
 
-def build_stages() -> None:
-    """Host clock per C² stage of the ml1M@1.0 paper build on the card."""
+def timed_calls(spent: dict, key: str, fn):
+    """``fn`` wrapped to add its host clock to ``spent[key]``."""
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        spent[key] += time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def build_stages(engine) -> None:
+    """Host clock per C² stage of the ml1M@1.0 paper build on the card,
+    with clustering split into FastRandomHash's item hashes, the users'
+    distinct hashes, ``split_config`` over the t configurations and the
+    rest; then the same split of the router's hashing in one 256-query
+    wave (item hashes, distinct hashes, and the rest: the prefix match
+    and the seed lists)."""
+    from repro_torch.core import clustering, hashing
     from repro_torch.core.params import params_for
     from repro_torch.core.pipeline import cluster_and_conquer
     from repro_torch.data.synthetic import make_dataset
+    from repro_torch.query import router
 
-    ds = make_dataset("ml1M", scale=1.0, seed=0)
-    _, st = cluster_and_conquer(ds, params_for("ml1M", k=30), device="cuda")
+    saved = (hashing.item_hashes, hashing.user_distinct_hashes_np,
+             clustering.split_config)
+    spent = dict.fromkeys(("item_hashes", "user_distinct_hashes_np",
+                           "split_config"), 0.0)
+    hashing.item_hashes = timed_calls(spent, "item_hashes", saved[0])
+    hashing.user_distinct_hashes_np = timed_calls(
+        spent, "user_distinct_hashes_np", saved[1])
+    clustering.split_config = timed_calls(spent, "split_config", saved[2])
+    try:
+        ds = make_dataset("ml1M", scale=1.0, seed=0)
+        _, st = cluster_and_conquer(ds, params_for("ml1M", k=30),
+                                    device="cuda")
+        build = dict(spent)
+        qds = make_dataset("ml1M", scale=1.0, seed=1)
+        items, offsets = router.profiles_to_csr(
+            [qds.profile(u) for u in range(256)])
+        routes = []
+        for _ in range(3):
+            for key in spent:
+                spent[key] = 0.0
+            t0 = time.perf_counter()
+            router.route(engine.index, items, offsets,
+                         engine.plan.spec.seeds_per_config)
+            routes.append((time.perf_counter() - t0, dict(spent)))
+    finally:
+        (hashing.item_hashes, hashing.user_distinct_hashes_np,
+         clustering.split_config) = saved
     log(f"[timing] ml1M@1.0 build stages, host clock: clustering "
         f"{st.t_cluster * 1e3:.1f} ms, Step 2 {st.t_local * 1e3:.1f} ms, "
         f"merge {st.t_merge * 1e3:.1f} ms")
+    log("[timing] ml1M@1.0 clustering, host clock: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in build.items())
+        + f", rest {(st.t_cluster - sum(build.values())) * 1e3:.1f} ms")
+    total, parts = sorted(routes, key=lambda r: r[0])[1]  # the median
+    log("[timing] routing one 256-query wave, host clock (median of 3): "
+        f"{total * 1e3:.2f} ms = item_hashes "
+        f"{parts['item_hashes'] * 1e3:.2f} ms, user_distinct_hashes_np "
+        f"{parts['user_distinct_hashes_np'] * 1e3:.2f} ms, rest (prefix "
+        f"match, seed lists) "
+        f"{(total - parts['item_hashes'] - parts['user_distinct_hashes_np']) * 1e3:.2f} ms")
 
 
 def small_build_matches_cpu() -> None:
@@ -1039,9 +1284,9 @@ def ring_sweep(args, flush) -> None:
     graph, rev, words = args[:3]
     W, kg, kr, B = (words.shape[1], graph.shape[1], rev.shape[1],
                     args[6].shape[1])
-    per_sm = ops._lib().repro_descent_hop_blocks_per_sm(W, kg, kr, B)
+    per_sm = ops._lib().repro_descent_hop_blocks_per_sm(W, kg, kr, B, 0)
     log(f"[timing] fused hop: "
-        f"{ops._lib().repro_descent_hop_smem_bytes(W, kg, kr, B)} B/block, "
+        f"{ops._lib().repro_descent_hop_smem_bytes(W, kg, kr, B, 0)} B/block, "
         f"{per_sm} blocks/SM ({per_sm * HOP_WARPS} warps/SM resident at "
         f"most; a 256-query wave: {256 / 132 * HOP_WARPS:.1f} warps/SM)")
     for chunk, nb in ((32, 2), (64, 2), (64, 3), (128, 1), (128, 2),
@@ -1052,7 +1297,7 @@ def ring_sweep(args, flush) -> None:
                  f"differs from the plain version")
         smem = tune.smem_bytes(W, kg + kr, B, 1, chunk, nb)
         per_sm = ops._lib_dma().repro_descent_hop_dma_blocks_per_sm(
-            W, kg, kr, B, 1, chunk, nb)
+            W, kg, kr, B, 1, chunk, nb, 0)
         warm = cuda_ms(lambda: dma_kernel(*args, **kw), reps=7, inner=20,
                        hold=True)
         cold = cold_ms(lambda: dma_kernel(*args, **kw), 9, flush)
@@ -1085,33 +1330,58 @@ def hops_beyond_l2(dev, flush) -> None:
 
 
 def time_minhash(dev, launches: int) -> tuple[dict, float]:
-    """FastRandomHash of ml1M@1.0 (the main path's call) against its plain
-    version."""
+    """FastRandomHash of ml1M@1.0: the CSR entry (the main path's call)
+    against its plain version, both entries on device time (held) and
+    paced by the host's queueing, each beside its least time."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels.frh_minhash import ops, ref
 
     ds, seeds, b = ml1m_minhash_inputs()
+    offsets = torch.from_numpy(ds.offsets.astype(np.int64)).to(dev)
+    items = torch.from_numpy(ds.items).to(dev)
     padded, mask = ds.padded_profiles()
     x = torch.from_numpy(padded).to(dev)
-    got, want = ops.minhash(x, seeds, b), ref.minhash_ref(x, seeds, b)
-    if not torch.equal(got, want):
-        fail("minhash at ml1M@1.0 differs from the plain version")
-    ms = cuda_ms(lambda: ops.minhash(x, seeds, b), reps=7, inner=20)
-    plain_ms = cuda_ms(lambda: ref.minhash_ref(x, seeds, b), reps=5)
+    got = ops.minhash_csr(offsets, items, seeds, b)
+    if not (torch.equal(got, ref.minhash_csr_ref(offsets, items, seeds, b))
+            and torch.equal(got, ops.minhash(x, seeds, b))):
+        fail("minhash at ml1M@1.0 differs from the plain version or the "
+             "padded entry")
+    csr = lambda: ops.minhash_csr(offsets, items, seeds, b)  # noqa: E731
+    pad = lambda: ops.minhash(x, seeds, b)  # noqa: E731
+    # CSR, padded, padded, CSR: held (device time), then host-paced.
+    held = {"csr": [], "pad": []}
+    for key in ("csr", "pad", "pad", "csr"):
+        held[key].append(cuda_ms(csr if key == "csr" else pad, reps=7,
+                                 inner=20, hold=True))
+    paced = {"csr": cuda_ms(csr, reps=7, inner=20),
+             "pad": cuda_ms(pad, reps=7, inner=20)}
+    plain_ms = cuda_ms(lambda: ref.minhash_csr_ref(offsets, items, seeds, b),
+                       reps=5)
     n, P = padded.shape
-    t = len(seeds)
-    bytes_count = n * P * 4 + t * 4 + n * t * 4
-    ops_count = int(mask.sum()) * t * MINHASH_OPS
-    t_bytes = bytes_count / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_count / CUDA_CORE_OPS_PER_S * 1e3
+    t, nnz = len(seeds), len(ds.items)
+    t_ops = nnz * t * MINHASH_OPS / CUDA_CORE_OPS_PER_S * 1e3
+    bound = {}
+    for key, nbytes in (("csr", nnz * 4 + (n + 1) * 8 + n * t * 4),
+                        ("pad", n * P * 4 + n * t * 4)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound[key] = (max(t_bytes, t_ops),
+                      "operations" if t_ops >= t_bytes else "bytes")
+    log(f"[timing] frh_minhash padded entry (n={n} P={P}, {int(mask.sum())} "
+        f"items, t={t}): device time {held['pad'][0]:.5f} / "
+        f"{held['pad'][1]:.5f} ms held, {paced['pad']:.5f} ms paced; bound "
+        f"{bound['pad'][0]:.5f} ms by {bound['pad'][1]}")
+    log(f"[timing] frh_minhash CSR entry: device time {held['csr'][0]:.5f} / "
+        f"{held['csr'][1]:.5f} ms held, {paced['csr']:.5f} ms paced; bound "
+        f"{bound['csr'][0]:.5f} ms by {bound['csr'][1]}")
     return {"name": "frh_minhash", "route": "cuda", "source": MINHASH_SOURCE,
-            "replaces": MINHASH_REPLACES, "launches": launches, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "replaces": MINHASH_REPLACES, "launches": launches,
+            "ms": statistics.median(held["csr"]), "plain_ms": plain_ms,
+            "bound_ms": bound["csr"][0], "bound_by": bound["csr"][1],
             "library_ms": None,
-            "shape": f"ml1M@1.0 padded profiles n={n} P={P} "
-                     f"({int(mask.sum())} items), t={t}, b={b}"}, 0.0
+            "shape": f"ml1M@1.0 CSR profiles n={n} ({nnz} items), t={t}, "
+                     f"b={b}, device time"}, 0.0
 
 
 def tick_breakdown(engine) -> None:
@@ -1206,7 +1476,7 @@ def main() -> int:
                                                  launches)
         mh_row, err_mh_main = time_minhash(dev, launches["frh_minhash"])
         tick_breakdown(run["cont_engine"])
-    build_stages()
+        build_stages(run["engine"])
     ck_row["max_abs_err"] = max(err_ck, err_ck_main)
     hop_row["max_abs_err"] = max(err_hop, err_shapes, err_hops)
     dma_row["max_abs_err"] = max(err_dma, err_shapes, err_hops)

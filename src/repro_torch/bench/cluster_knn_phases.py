@@ -98,7 +98,7 @@ def main() -> int:
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.repro_goldfinger_knn
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     lib.repro_set_phases.argtypes = [ctypes.c_void_p]
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -121,7 +121,8 @@ def main() -> int:
             phases.zero_()
             build.check(lib, fn(*(x.data_ptr() for x in t + t),
                                 out[0].data_ptr(), out[1].data_ptr(), m, cap,
-                                cap, W, K, p.warps, p.stages, 1, stream),
+                                cap, W, K, p.warps, p.stages, 1, None,
+                                stream),
                         "phases")
             torch.cuda.synchronize()
         v = phases.view(-1, SLOTS).cpu().numpy()

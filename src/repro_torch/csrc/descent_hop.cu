@@ -21,6 +21,14 @@
 // filtered against their B-th key and the beam's lowest key, merged by
 // warp-shuffle bitonic networks, then in a tree across the warps.
 //
+// Wide beams. A query's state grows with B * (kg + kr) lanes (~37 bytes a
+// lane): at kg + kr = 60 it fills a block's shared memory above ~100 beam
+// lanes. Such a state lives in a global workspace instead
+// (repro_descent_hop_global: one block per resident slot, each walking
+// its queries in turn, so the workspace is grid x state, not q x state).
+// Beams above kMaxBeam = 512 lanes outgrow the warps' register lists and
+// are selected by an exact radix select over the block (select_beam<0>).
+//
 // What bounds it: per query ~B*(kg+kr)*4 bytes of adjacency plus one
 // fingerprint row (4W bytes) per distinct surviving id, against ~3W
 // integer operations per row -- under one operation per byte, so the
@@ -75,24 +83,16 @@ __device__ __forceinline__ void rows_inter(const uint32_t* const (&rows)[U],
   }
 }
 
+// One query's hop in the block's state `s` (steps 1-5 of hop_common.cuh).
 template <int P>
-__global__ void __launch_bounds__(kThreads, 2)
-descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
-                   const uint32_t* __restrict__ words,
-                   const int* __restrict__ card,
-                   const uint8_t* __restrict__ tomb,
-                   const uint32_t* __restrict__ q_words,
-                   const int* __restrict__ q_card,
-                   const int* __restrict__ beam_ids,
-                   const float* __restrict__ beam_sims,
-                   int* __restrict__ out_ids, float* __restrict__ out_sims,
-                   int* __restrict__ n_scored, int W, int kg, int kr, int B,
-                   int vec16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const repro::hop::Layout lo = repro::hop::layout(W, kg, kr, B, 0);
-  const repro::hop::State s = repro::hop::carve(smem, lo);
-  const long long q = blockIdx.x;
-
+__device__ __forceinline__ void hop_query(
+    const int* __restrict__ graph, const int* __restrict__ rev,
+    const uint32_t* __restrict__ words, const int* __restrict__ card,
+    const uint8_t* __restrict__ tomb, const uint32_t* __restrict__ q_words,
+    const int* __restrict__ q_card, const int* __restrict__ beam_ids,
+    const float* __restrict__ beam_sims, int* __restrict__ out_ids,
+    float* __restrict__ out_sims, int* __restrict__ n_scored, int W, int kg,
+    int kr, int B, int vec16, const repro::hop::State& s, long long q) {
   // (1) beam staging.
   repro::hop::stage_beam(beam_ids + q * B, beam_sims + q * B, tomb,
                          q_words + q * W, W, B, s);
@@ -145,19 +145,57 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
   repro::hop::select_beam<P>(B, s, out_ids + q * B, out_sims + q * B);
 }
 
+// A block per query with its state in shared memory (kGlobal false, grid
+// = q), or a block per resident slot, its state in the block's slice of
+// `workspace`, walking queries blockIdx.x, blockIdx.x + gridDim.x, ...
+template <int P, bool kGlobal>
+__global__ void __launch_bounds__(kThreads, 2)
+descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
+                   const uint32_t* __restrict__ words,
+                   const int* __restrict__ card,
+                   const uint8_t* __restrict__ tomb,
+                   const uint32_t* __restrict__ q_words,
+                   const int* __restrict__ q_card,
+                   const int* __restrict__ beam_ids,
+                   const float* __restrict__ beam_sims,
+                   int* __restrict__ out_ids, float* __restrict__ out_sims,
+                   int* __restrict__ n_scored, int nq, int W, int kg, int kr,
+                   int B, int vec16, unsigned char* __restrict__ workspace) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const repro::hop::Layout lo = repro::hop::layout(W, kg, kr, B, 0, kGlobal);
+  const repro::hop::State s = repro::hop::carve(
+      kGlobal ? workspace + blockIdx.x * repro::hop::workspace_stride(
+                                             W, kg, kr, B)
+              : smem,
+      lo);
+  for (long long q = blockIdx.x; q < nq; q += gridDim.x) {
+    if (q != blockIdx.x) __syncthreads();  // the last query is done
+    hop_query<P>(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
+                 beam_sims, out_ids, out_sims, n_scored, W, kg, kr, B, vec16,
+                 s, q);
+  }
+}
+
 using KernelFn = void (*)(const int*, const int*, const uint32_t*,
                           const int*, const uint8_t*, const uint32_t*,
                           const int*, const int*, const float*, int*, float*,
-                          int*, int, int, int, int, int);
+                          int*, int, int, int, int, int, int,
+                          unsigned char*);
 
+template <bool kGlobal>
 KernelFn kernel_for(int B) {
   switch (repro::hop::list_regs(B)) {
-    case 1: return descent_hop_kernel<1>;
-    case 2: return descent_hop_kernel<2>;
-    case 4: return descent_hop_kernel<4>;
-    case 8: return descent_hop_kernel<8>;
-    default: return descent_hop_kernel<16>;
+    case 0: return descent_hop_kernel<0, kGlobal>;
+    case 1: return descent_hop_kernel<1, kGlobal>;
+    case 2: return descent_hop_kernel<2, kGlobal>;
+    case 4: return descent_hop_kernel<4, kGlobal>;
+    case 8: return descent_hop_kernel<8, kGlobal>;
+    default: return descent_hop_kernel<16, kGlobal>;
   }
+}
+
+KernelFn kernel_for(int B, int global_state) {
+  return global_state ? kernel_for<true>(B) : kernel_for<false>(B);
 }
 
 cudaError_t allow_smem(KernelFn fn, size_t smem) {
@@ -166,23 +204,55 @@ cudaError_t allow_smem(KernelFn fn, size_t smem) {
                               static_cast<int>(smem));
 }
 
+int launch(const void* graph, const void* rev, const void* words,
+           const void* card, const void* tomb, const void* q_words,
+           const void* q_card, const void* beam_ids, const void* beam_sims,
+           void* out_ids, void* out_sims, void* n_scored, int q, int W,
+           int kg, int kr, int B, void* workspace, int grid, void* stream) {
+  const int global_state = workspace != nullptr;
+  const size_t smem =
+      repro::hop::layout(W, kg, kr, B, 0, global_state).smem;
+  const KernelFn fn = kernel_for(B, global_state);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec16 =
+      W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(graph), static_cast<const int*>(rev),
+      static_cast<const uint32_t*>(words), static_cast<const int*>(card),
+      static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
+      static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
+      static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
+      static_cast<float*>(out_sims), static_cast<int*>(n_scored), q, W, kg,
+      kr, B, vec16, static_cast<unsigned char*>(workspace));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
 
 // The block's dynamic shared memory in bytes (hop_common.cuh's Layout
-// without a ring).
+// without a ring): the state, or nothing when the state is in global
+// memory (global_state != 0).
 REPRO_EXPORT size_t repro_descent_hop_smem_bytes(int W, int kg, int kr,
-                                                 int B) {
-  return repro::hop::layout(W, kg, kr, B, 0).total;
+                                                 int B, int global_state) {
+  return repro::hop::layout(W, kg, kr, B, 0, global_state != 0).smem;
+}
+
+// Bytes of one block's workspace when the state is in global memory.
+REPRO_EXPORT size_t repro_descent_hop_workspace_stride(int W, int kg, int kr,
+                                                       int B) {
+  return repro::hop::workspace_stride(W, kg, kr, B);
 }
 
 // Blocks of this kernel one SM can hold at these parameters (shared
 // memory, registers and threads together), or minus a CUDA error.
 REPRO_EXPORT int repro_descent_hop_blocks_per_sm(int W, int kg, int kr,
-                                                 int B) {
-  const size_t smem = repro_descent_hop_smem_bytes(W, kg, kr, B);
-  const KernelFn fn = kernel_for(B);
+                                                 int B, int global_state) {
+  const size_t smem =
+      repro_descent_hop_smem_bytes(W, kg, kr, B, global_state);
+  const KernelFn fn = kernel_for(B, global_state);
   cudaError_t e = allow_smem(fn, smem);
   int blocks = 0;
   if (e == cudaSuccess)
@@ -193,10 +263,11 @@ REPRO_EXPORT int repro_descent_hop_blocks_per_sm(int W, int kg, int kr,
 
 // Tables: graph [n, kg], rev [n, kr], words [n, W] (uint32 bit patterns),
 // card [n], tomb [n] (0 = live). Queries: q_words [q, W], q_card [q],
-// beam_ids / beam_sims [q, B], B <= 512, no id repeated in a beam row.
-// Outputs: out_ids / out_sims [q, B], n_scored [q]. Adjacency and beam ids
-// lie in [-1, n). All contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// beam_ids / beam_sims [q, B], no id repeated in a beam row. Outputs:
+// out_ids / out_sims [q, B], n_scored [q]. Adjacency and beam ids lie in
+// [-1, n). All contiguous. One block per query, its state in shared
+// memory. Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 REPRO_EXPORT int repro_descent_hop(const void* graph, const void* rev,
                                    const void* words, const void* card,
                                    const void* tomb, const void* q_words,
@@ -205,20 +276,22 @@ REPRO_EXPORT int repro_descent_hop(const void* graph, const void* rev,
                                    void* out_sims, void* n_scored, int q,
                                    int W, int kg, int kr, int B,
                                    void* stream) {
-  const size_t smem = repro_descent_hop_smem_bytes(W, kg, kr, B);
-  if (B > repro::hop::kMaxBeam) return cudaErrorInvalidValue;
-  const KernelFn fn = kernel_for(B);
-  const cudaError_t e = allow_smem(fn, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int vec16 =
-      W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
-  fn<<<q, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(graph), static_cast<const int*>(rev),
-      static_cast<const uint32_t*>(words), static_cast<const int*>(card),
-      static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
-      static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
-      static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
-      static_cast<float*>(out_sims), static_cast<int*>(n_scored), W, kg, kr,
-      B, vec16);
-  return static_cast<int>(cudaGetLastError());
+  return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
+                beam_sims, out_ids, out_sims, n_scored, q, W, kg, kr, B,
+                nullptr, q, stream);
+}
+
+// The same hop with each block's state in `workspace` (grid blocks of
+// repro_descent_hop_workspace_stride bytes, 256-byte aligned): `grid`
+// blocks walk the q queries.
+REPRO_EXPORT int repro_descent_hop_global(
+    const void* graph, const void* rev, const void* words, const void* card,
+    const void* tomb, const void* q_words, const void* q_card,
+    const void* beam_ids, const void* beam_sims, void* out_ids,
+    void* out_sims, void* n_scored, int q, int W, int kg, int kr, int B,
+    void* workspace, int grid, void* stream) {
+  if (workspace == nullptr || grid < 1) return cudaErrorInvalidValue;
+  return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
+                beam_sims, out_ids, out_sims, n_scored, q, W, kg, kr, B,
+                workspace, grid, stream);
 }

@@ -7,7 +7,9 @@
 // the lanes, the suppression and the selection are hop_common.cuh's.
 //
 // Design. One block of 512 threads per `block_q` queries, taken one after
-// another through the same shared memory. Per query, steps 1-3 of
+// another through the same state: in shared memory, or for a state too
+// large for it (wide beams) in a global workspace, one block per resident
+// slot walking its groups of queries in turn (hop_common.cuh). Per query, steps 1-3 of
 // hop_common.cuh stage the beam, gather the candidate ids into a hash
 // table, suppress PAD / tombstoned / in-beam lanes and compact one owner
 // lane per distinct id into a work list. Step 4 then runs a ring of
@@ -119,7 +121,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-template <int P>
+template <int P, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 2)
 descent_hop_dma_kernel(const int* __restrict__ graph,
                        const int* __restrict__ rev,
@@ -134,19 +136,20 @@ descent_hop_dma_kernel(const int* __restrict__ graph,
                        int* __restrict__ n_scored, int* __restrict__ dma_bytes,
                        int* __restrict__ bytes_saved, int q, int W, int kg,
                        int kr, int B, int block_q, int chunk, int n_buffers,
-                       int vec16) {
+                       int vec16, unsigned char* __restrict__ workspace) {
   extern __shared__ __align__(128) unsigned char smem[];
   const repro::hop::Layout lo =
-      repro::hop::layout(W, kg, kr, B, n_buffers * chunk);
-  const repro::hop::State s = repro::hop::carve(smem, lo);
+      repro::hop::layout(W, kg, kr, B, n_buffers * chunk, kGlobal);
+  const repro::hop::State s = repro::hop::carve(
+      kGlobal ? workspace + blockIdx.x * repro::hop::workspace_stride(
+                                             W, kg, kr, B)
+              : smem,
+      lo);
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem + lo.ring);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lo.bars);
   uint64_t* empty = full + repro::hop::kMaxBuffers;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long q0 = static_cast<long long>(blockIdx.x) * block_q;
-  const int qn = static_cast<int>(min(static_cast<long long>(block_q),
-                                      q - q0));
   const int C = B * (kg + kr);
   const unsigned row_bytes = static_cast<unsigned>(W) * 4u;
   const int G = repro::hop::row_group(vec16 ? W >> 2 : W);
@@ -164,8 +167,11 @@ descent_hop_dma_kernel(const int* __restrict__ graph,
   // stage k % n_buffers waits on phase parity (k / n_buffers) & 1.
   int used = 0;
 
-  for (int j = 0; j < qn; ++j) {
-    const long long qi = q0 + j;
+  // The block's groups of block_q queries: blockIdx.x, blockIdx.x +
+  // gridDim.x, ... (one group when the state is in shared memory).
+  for (long long qi = static_cast<long long>(blockIdx.x) * block_q; qi < q;
+       qi = (qi + 1) % block_q ? qi + 1
+                               : qi + 1 + (gridDim.x - 1LL) * block_q) {
     // (1) beam staging (the barrier also publishes the mbarriers' init
     // and, from the second query on, ends the last one's selection).
     __syncthreads();
@@ -267,16 +273,22 @@ using KernelFn = void (*)(const int*, const int*, const uint32_t*,
                           const int*, const uint8_t*, const uint32_t*,
                           const int*, const int*, const float*, int*, float*,
                           int*, int*, int*, int, int, int, int, int, int, int,
-                          int, int);
+                          int, int, unsigned char*);
 
+template <bool kGlobal>
 KernelFn kernel_for(int B) {
   switch (repro::hop::list_regs(B)) {
-    case 1: return descent_hop_dma_kernel<1>;
-    case 2: return descent_hop_dma_kernel<2>;
-    case 4: return descent_hop_dma_kernel<4>;
-    case 8: return descent_hop_dma_kernel<8>;
-    default: return descent_hop_dma_kernel<16>;
+    case 0: return descent_hop_dma_kernel<0, kGlobal>;
+    case 1: return descent_hop_dma_kernel<1, kGlobal>;
+    case 2: return descent_hop_dma_kernel<2, kGlobal>;
+    case 4: return descent_hop_dma_kernel<4, kGlobal>;
+    case 8: return descent_hop_dma_kernel<8, kGlobal>;
+    default: return descent_hop_dma_kernel<16, kGlobal>;
   }
+}
+
+KernelFn kernel_for(int B, int global_state) {
+  return global_state ? kernel_for<true>(B) : kernel_for<false>(B);
 }
 
 cudaError_t allow_smem(KernelFn fn, size_t smem) {
@@ -285,20 +297,57 @@ cudaError_t allow_smem(KernelFn fn, size_t smem) {
                               static_cast<int>(smem));
 }
 
+int launch(const void* graph, const void* rev, const void* words,
+           const void* card, const void* tomb, const void* q_words,
+           const void* q_card, const void* beam_ids, const void* beam_sims,
+           void* out_ids, void* out_sims, void* n_scored, void* dma_bytes,
+           void* bytes_saved, int q, int W, int kg, int kr, int B,
+           int block_q, int chunk, int n_buffers, void* workspace, int grid,
+           void* stream) {
+  const int global_state = workspace != nullptr;
+  const size_t smem =
+      repro::hop::layout(W, kg, kr, B, n_buffers * chunk, global_state).smem;
+  const KernelFn fn = kernel_for(B, global_state);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec16 =
+      W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(graph), static_cast<const int*>(rev),
+      static_cast<const uint32_t*>(words), static_cast<const int*>(card),
+      static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
+      static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
+      static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
+      static_cast<float*>(out_sims), static_cast<int*>(n_scored),
+      static_cast<int*>(dma_bytes), static_cast<int*>(bytes_saved), q, W, kg,
+      kr, B, block_q, chunk, n_buffers, vec16,
+      static_cast<unsigned char*>(workspace));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 REPRO_DEFINE_ERROR_STRING
 
 // The block's dynamic shared memory in bytes: the ring, n_buffers * chunk
 // rows of W words, and its 2 * 4 mbarriers, then one query's state
-// (hop_common.cuh's Layout). Queries of a block reuse the same state, so
-// block_q does not enter it.
+// (hop_common.cuh's Layout) unless it is in global memory (global_state
+// != 0). Queries of a block reuse the same state, so block_q does not
+// enter it.
 REPRO_EXPORT size_t repro_descent_hop_dma_smem_bytes(int W, int kg, int kr,
                                                      int B, int block_q,
                                                      int chunk,
-                                                     int n_buffers) {
+                                                     int n_buffers,
+                                                     int global_state) {
   (void)block_q;
-  return repro::hop::layout(W, kg, kr, B, n_buffers * chunk).total;
+  return repro::hop::layout(W, kg, kr, B, n_buffers * chunk,
+                            global_state != 0).smem;
+}
+
+// Bytes of one block's workspace when the state is in global memory.
+REPRO_EXPORT size_t repro_descent_hop_dma_workspace_stride(int W, int kg,
+                                                           int kr, int B) {
+  return repro::hop::workspace_stride(W, kg, kr, B);
 }
 
 // Blocks of this kernel one SM can hold at these parameters (shared
@@ -306,10 +355,11 @@ REPRO_EXPORT size_t repro_descent_hop_dma_smem_bytes(int W, int kg, int kr,
 REPRO_EXPORT int repro_descent_hop_dma_blocks_per_sm(int W, int kg, int kr,
                                                      int B, int block_q,
                                                      int chunk,
-                                                     int n_buffers) {
-  const size_t smem = repro_descent_hop_dma_smem_bytes(W, kg, kr, B, block_q,
-                                                       chunk, n_buffers);
-  const KernelFn fn = kernel_for(B);
+                                                     int n_buffers,
+                                                     int global_state) {
+  const size_t smem = repro_descent_hop_dma_smem_bytes(
+      W, kg, kr, B, block_q, chunk, n_buffers, global_state);
+  const KernelFn fn = kernel_for(B, global_state);
   cudaError_t e = allow_smem(fn, smem);
   int blocks = 0;
   if (e == cudaSuccess)
@@ -320,11 +370,11 @@ REPRO_EXPORT int repro_descent_hop_dma_blocks_per_sm(int W, int kg, int kr,
 
 // Tables: graph [n, kg], rev [n, kr], words [n, W] (uint32 bit patterns),
 // card [n], tomb [n] (0 = live). Queries: q_words [q, W], q_card [q],
-// beam_ids / beam_sims [q, B], B <= 512, no id repeated in a beam row.
-// Outputs: out_ids / out_sims [q, B], n_scored / dma_bytes / bytes_saved
-// [q]. Ids lie in [-1, n); all contiguous; block_q, chunk >= 1 and
-// 1 <= n_buffers <= 4. Launches on `stream` and returns cudaGetLastError()
-// (0 on success).
+// beam_ids / beam_sims [q, B], no id repeated in a beam row. Outputs:
+// out_ids / out_sims [q, B], n_scored / dma_bytes / bytes_saved [q]. Ids
+// lie in [-1, n); all contiguous; block_q, chunk >= 1 and 1 <= n_buffers
+// <= 4. One block per block_q queries, its state in shared memory.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 REPRO_EXPORT int repro_descent_hop_dma(
     const void* graph, const void* rev, const void* words, const void* card,
     const void* tomb, const void* q_words, const void* q_card,
@@ -332,23 +382,25 @@ REPRO_EXPORT int repro_descent_hop_dma(
     void* out_sims, void* n_scored, void* dma_bytes, void* bytes_saved,
     int q, int W, int kg, int kr, int B, int block_q, int chunk,
     int n_buffers, void* stream) {
-  const size_t smem = repro_descent_hop_dma_smem_bytes(W, kg, kr, B, block_q,
-                                                       chunk, n_buffers);
-  if (B > repro::hop::kMaxBeam) return cudaErrorInvalidValue;
-  const KernelFn fn = kernel_for(B);
-  const cudaError_t e = allow_smem(fn, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int vec16 =
-      W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
-  const int grid = (q + block_q - 1) / block_q;
-  fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(graph), static_cast<const int*>(rev),
-      static_cast<const uint32_t*>(words), static_cast<const int*>(card),
-      static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
-      static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
-      static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
-      static_cast<float*>(out_sims), static_cast<int*>(n_scored),
-      static_cast<int*>(dma_bytes), static_cast<int*>(bytes_saved), q, W, kg,
-      kr, B, block_q, chunk, n_buffers, vec16);
-  return static_cast<int>(cudaGetLastError());
+  return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
+                beam_sims, out_ids, out_sims, n_scored, dma_bytes,
+                bytes_saved, q, W, kg, kr, B, block_q, chunk, n_buffers,
+                nullptr, (q + block_q - 1) / block_q, stream);
+}
+
+// The same hop with each block's state in `workspace` (grid blocks of
+// repro_descent_hop_dma_workspace_stride bytes, 256-byte aligned): `grid`
+// blocks walk the groups of block_q queries.
+REPRO_EXPORT int repro_descent_hop_dma_global(
+    const void* graph, const void* rev, const void* words, const void* card,
+    const void* tomb, const void* q_words, const void* q_card,
+    const void* beam_ids, const void* beam_sims, void* out_ids,
+    void* out_sims, void* n_scored, void* dma_bytes, void* bytes_saved,
+    int q, int W, int kg, int kr, int B, int block_q, int chunk,
+    int n_buffers, void* workspace, int grid, void* stream) {
+  if (workspace == nullptr || grid < 1) return cudaErrorInvalidValue;
+  return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
+                beam_sims, out_ids, out_sims, n_scored, dma_bytes,
+                bytes_saved, q, W, kg, kr, B, block_q, chunk, n_buffers,
+                workspace, grid, stream);
 }

@@ -47,7 +47,13 @@
 //      overflow, it is bitonic-sorted across the lanes and merged into its
 //      list (half-cleaner against the reversed buffer, then a bitonic
 //      merge, all by warp shuffles; a warp's rows two or four at a time, so
-//      their shuffle chains interleave), which raises the k-th key.
+//      their shuffle chains interleave), which raises the k-th key. For
+//      k > 64 a row's list (KP = k rounded up to 32 keys) is merged where
+//      it lies, in shared memory or, when 16 of them do not fit there
+//      beside the tiles, in a global workspace (flush_row_mem: each key
+//      moves to its rank in the merged list, found by binary search).
+// Calls of more than 65,535 clusters, the grid's y limit, are split into
+// launches by the wrapper; where a cluster lands does not enter its result.
 // At the end each warp flushes its rows' buffers and writes the rows out.
 // The order is total (no two candidates share a column), so the top-k does
 // not depend on the order in which candidates arrive or on the filtering
@@ -84,6 +90,7 @@ struct Layout {
   size_t live;         // int [2][warps]: the step's tile of warp w has ids
   size_t keys;         // Key [2][16][ks]: the step's candidates, by column
   size_t list;         // Key [16][KP]: each row's best keys, descending
+                       // (none here when the lists are in global memory)
   size_t buf;          // Key [16][32]: each row's buffered candidates
   size_t ring0;        // first warp's ring
   size_t ring_bytes;   // bytes per warp's ring
@@ -92,14 +99,17 @@ struct Layout {
   size_t total;
 };
 
+// Keys of a row's list: k rounded up to a warp's 32.
+__host__ __device__ inline int list_width(int k) { return (k + 31) & ~31; }
+
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
 __host__ __device__ inline Layout layout(int W, int k, int warps,
-                                         int stages) {
+                                         int stages, bool lists_global) {
   Layout o;
-  const int kp = k > 32 ? 64 : 32;
+  const int kp = list_width(k);
   o.ws = ((W + 7) & ~7) + 4;
   o.ks = warps * kTile + 8;
   o.q_words = 0;
@@ -108,7 +118,7 @@ __host__ __device__ inline Layout layout(int W, int k, int warps,
   o.live = o.q_card + sizeof(int) * kRows;
   o.keys = align16(o.live + sizeof(int) * 2 * warps);
   o.list = o.keys + sizeof(Key) * 2 * kRows * o.ks;
-  o.buf = o.list + sizeof(Key) * kRows * kp;
+  o.buf = o.list + (lists_global ? 0 : sizeof(Key) * kRows * kp);
   o.ring0 = o.buf + sizeof(Key) * kRows * kTile;
   o.ring_id = sizeof(uint32_t) * stages * kTile * o.ws;
   o.ring_card = o.ring_id + sizeof(int) * stages * kTile;
@@ -145,45 +155,103 @@ __device__ __forceinline__ Key kth(const Key (&x)[R * L], int i, int k) {
                      (k - 1) & 31);
 }
 
+// Merge one row's buffer (cnt keys, in any order) into its list of kp
+// keys in memory (descending, zeros after its keys; at most k kept) and
+// return the list's k-th key, 0 while it holds fewer. Every key present is
+// distinct, so each one's place in the merged list is its rank in its own
+// list plus the keys of the other above it: the buffer is sorted across
+// the lanes and each of its keys finds its place by a binary search of the
+// list; then the list's keys move up by the buffered keys above them, the
+// last 32 first, so that none is overwritten before it is read.
+__device__ __forceinline__ Key flush_row_mem(Key* list, Key* buf, int cnt,
+                                             int k, int lane) {
+  __syncwarp();
+  Key b[1] = {lane < cnt ? buf[lane] : 0};
+  sort_asc<1>(b, lane);  // the cnt keys in lanes 32 - cnt .. 31
+  const int j = 31 - lane;  // b's place in the buffer, descending
+  int len = 0, hi = k;  // the list's keys: the nonzero prefix
+  while (len < hi) {
+    const int mid = (len + hi) >> 1;
+    if (list[mid] != 0) len = mid + 1; else hi = mid;
+  }
+  int at = k;
+  if (j < cnt) {
+    int lo = 0;
+    hi = len;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (list[mid] > b[0]) lo = mid + 1; else hi = mid;
+    }
+    at = j + lo;
+  }
+  __syncwarp();
+  buf[j] = b[0];
+  __syncwarp();
+  for (int c0 = len > 0 ? (len - 1) & ~31 : -32; c0 >= 0; c0 -= 32) {
+    const int i = c0 + lane;
+    const Key x = i < len ? list[i] : 0;
+    int lo = 0;
+    hi = cnt;  // buffered keys above x
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (buf[mid] > x) lo = mid + 1; else hi = mid;
+    }
+    __syncwarp();
+    if (i < len && i + lo < k) list[i + lo] = x;
+    __syncwarp();
+  }
+  if (at < k) list[at] = b[0];
+  __syncwarp();
+  return list[k - 1];
+}
+
 // Merge the buffers of R rows (cnt[i] keys each) into their lists (list
-// i's element j * 32 + lane in x[i * L + j], descending); the rows' new
-// k-th keys go to thr.
+// i's element j * 32 + lane in x[i * L + j], descending; for L = 0 the
+// lists stay in memory, flush_row_mem); the rows' new k-th keys go to thr.
 template <int L, int R>
-__device__ __forceinline__ void flush_rows(Key* list, const Key* buf,
+__device__ __forceinline__ void flush_rows(Key* list, Key* buf,
                                            const int (&row)[R],
                                            const int (&cnt)[R], int k,
                                            int lane, Key (&thr)[R]) {
-  constexpr int KP = 32 * L;
-  __syncwarp();
-  Key x[R * L], b[R];
+  if constexpr (L == 0) {
+    const int kp = list_width(k);
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
+    for (int i = 0; i < R; ++i)
+      thr[i] = flush_row_mem(list + static_cast<size_t>(row[i]) * kp,
+                             buf + row[i] * kTile, cnt[i], k, lane);
+  } else {
+    constexpr int KP = 32 * L;
+    __syncwarp();
+    Key x[R * L], b[R];
 #pragma unroll
-    for (int j = 0; j < L; ++j) x[i * L + j] = list[row[i] * KP + j * 32 + lane];
-    b[i] = lane < cnt[i] ? buf[row[i] * kTile + lane] : 0;
-  }
-  sort_asc<R>(b, lane);
-  // Half-cleaner of each list against its buffer reversed (ascending, with
-  // zeros below it when L = 2): the top 32 L of both, bitonic; then a
-  // bitonic merge sorts them.
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if (L == 1) {
-      x[i] = kmax(x[i], b[i]);
-    } else {
-      const Key m1 = kmax(x[2 * i + 1], b[i]);
-      x[2 * i + 1] = kmin(x[2 * i], m1);
-      x[2 * i] = kmax(x[2 * i], m1);
+      for (int j = 0; j < L; ++j) x[i * L + j] = list[row[i] * KP + j * 32 + lane];
+      b[i] = lane < cnt[i] ? buf[row[i] * kTile + lane] : 0;
     }
-  }
-  bitonic_desc<R * L>(x, lane);
+    sort_asc<R>(b, lane);
+    // Half-cleaner of each list against its buffer reversed (ascending, with
+    // zeros below it when L = 2): the top 32 L of both, bitonic; then a
+    // bitonic merge sorts them.
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
+    for (int i = 0; i < R; ++i) {
+      if (L == 1) {
+        x[i] = kmax(x[i], b[i]);
+      } else {
+        const Key m1 = kmax(x[2 * i + 1], b[i]);
+        x[2 * i + 1] = kmin(x[2 * i], m1);
+        x[2 * i] = kmax(x[2 * i], m1);
+      }
+    }
+    bitonic_desc<R * L>(x, lane);
 #pragma unroll
-    for (int j = 0; j < L; ++j) list[row[i] * KP + j * 32 + lane] = x[i * L + j];
-    thr[i] = kth<L, R>(x, i, k);
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < L; ++j) list[row[i] * KP + j * 32 + lane] = x[i * L + j];
+      thr[i] = kth<L, R>(x, i, k);
+    }
+    __syncwarp();
   }
-  __syncwarp();
 }
 
 template <int L, int NW>
@@ -195,12 +263,13 @@ goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
                       const int* __restrict__ d_card,
                       const int* __restrict__ d_ids,
                       int* __restrict__ out_ids, float* __restrict__ out_sims,
-                      int nq, int nd, int W, int k, int stages, int vec16) {
+                      int nq, int nd, int W, int k, int stages, int vec16,
+                      Key* __restrict__ g_lists) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int KP = 32 * L;
+  const int KP = L ? 32 * L : list_width(k);
   constexpr int R = kRows / NW;     // rows whose top-k this warp keeps
   constexpr int G = R < 4 ? R : 4;  // rows flushed together
-  const Layout lo = layout(W, k, NW, stages);
+  const Layout lo = layout(W, k, NW, stages, L == 0 && g_lists != nullptr);
   const int ws = lo.ws, ks = lo.ks;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -213,7 +282,12 @@ goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
   int* s_qcard = reinterpret_cast<int*>(smem + lo.q_card);
   int* s_live = reinterpret_cast<int*>(smem + lo.live);
   Key* keys = reinterpret_cast<Key*>(smem + lo.keys);
-  Key* list = reinterpret_cast<Key*>(smem + lo.list);
+  // The lists of L = 0 are in global memory when g_lists is given: the
+  // block's 16 rows of KP keys.
+  Key* list = L == 0 && g_lists != nullptr
+                  ? g_lists + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                               blockIdx.x) * kRows * KP
+                  : reinterpret_cast<Key*>(smem + lo.list);
   Key* buf = reinterpret_cast<Key*>(smem + lo.buf);
   unsigned char* mine = smem + lo.ring0 + lo.ring_bytes * warp;
   uint32_t* ring = reinterpret_cast<uint32_t*>(mine);
@@ -421,10 +495,7 @@ goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
     for (int i = 0; i < G; ++i) {
       const int row_out = row0 + row[i];
       if (row_out >= nq) continue;
-#pragma unroll
-      for (int j = 0; j < L; ++j) {
-        const int e = j * 32 + lane;
-        if (e >= k) continue;
+      for (int e = lane; e < k; e += 32) {
         const long long o = (qbase + row_out) * k + e;
         const Key key = list[row[i] * KP + e];
         if (key == 0) {
@@ -447,37 +518,46 @@ REPRO_DEFINE_ERROR_STRING
 
 // Dynamic shared memory of one block (kernels/goldfinger_knn/ops.py
 // smem_bytes computes the same total; the wrapper checks that they agree).
+// lists_global != 0: the rows' lists (k > 64 only) are in global memory.
 REPRO_EXPORT size_t repro_goldfinger_knn_smem_bytes(int W, int k, int warps,
-                                                    int stages) {
-  return layout(W, k, warps, stages).total;
+                                                    int stages,
+                                                    int lists_global) {
+  return layout(W, k, warps, stages, lists_global != 0).total;
 }
 
 // q_* are [batches, nq, ...] and d_* are [batches, nd, ...], row-major and
 // contiguous (words as uint32 bit patterns); outputs are [batches, nq, k].
 // `warps` warps per block (1, 2, 4 or 8), a `stages`-deep cp.async ring
 // per warp (1 or 2); vec16 != 0 allows 16-byte copies (W % 4 == 0, q_words
-// and d_words 16-byte aligned). Launches on `stream` and returns
-// cudaGetLastError().
+// and d_words 16-byte aligned). k >= 1: up to 64, each row's list lives in
+// its warp's registers while it merges (one or two keys a lane); above 64
+// it is merged in memory, in shared memory or, given `lists` (a workspace
+// of 16 * ((k + 31) & ~31) keys for each of the ceil(nq / 16) * batches
+// blocks), in global memory. batches <= 65535 (the grid's y). Launches on
+// `stream` and returns cudaGetLastError().
 REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
                                       const void* q_ids, const void* d_words,
                                       const void* d_card, const void* d_ids,
                                       void* out_ids, void* out_sims,
                                       int batches, int nq, int nd, int W,
                                       int k, int warps, int stages, int vec16,
-                                      void* stream) {
-  if (stages < 1 || stages > 2 || k < 1 || k > 64)
+                                      void* lists, void* stream) {
+  if (stages < 1 || stages > 2 || k < 1 || batches > 65535 ||
+      (lists != nullptr && k <= 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  // One instance per (keys per lane, warps); the largest dynamic shared
+  // One instance per (list kind, warps); the largest dynamic shared
   // memory each was allowed so far.
-  static void (*const kernels[2][4])(const uint32_t*, const int*, const int*,
+  static void (*const kernels[3][4])(const uint32_t*, const int*, const int*,
                                      const uint32_t*, const int*, const int*,
                                      int*, float*, int, int, int, int, int,
-                                     int) = {
+                                     int, Key*) = {
       {goldfinger_knn_kernel<1, 1>, goldfinger_knn_kernel<1, 2>,
        goldfinger_knn_kernel<1, 4>, goldfinger_knn_kernel<1, 8>},
       {goldfinger_knn_kernel<2, 1>, goldfinger_knn_kernel<2, 2>,
-       goldfinger_knn_kernel<2, 4>, goldfinger_knn_kernel<2, 8>}};
-  static size_t allowed[2][4] = {};
+       goldfinger_knn_kernel<2, 4>, goldfinger_knn_kernel<2, 8>},
+      {goldfinger_knn_kernel<0, 1>, goldfinger_knn_kernel<0, 2>,
+       goldfinger_knn_kernel<0, 4>, goldfinger_knn_kernel<0, 8>}};
+  static size_t allowed[3][4] = {};
   int wi;
   switch (warps) {
     case 1: wi = 0; break;
@@ -486,8 +566,8 @@ REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
     case 8: wi = 3; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int li = k > 32;
-  const size_t smem = layout(W, k, warps, stages).total;
+  const int li = k <= 32 ? 0 : k <= 64 ? 1 : 2;
+  const size_t smem = layout(W, k, warps, stages, lists != nullptr).total;
   if (smem > 48 * 1024 && smem > allowed[li][wi]) {
     cudaError_t e = cudaFuncSetAttribute(
         kernels[li][wi], cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -502,6 +582,6 @@ REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
       static_cast<const int*>(q_ids), static_cast<const uint32_t*>(d_words),
       static_cast<const int*>(d_card), static_cast<const int*>(d_ids),
       static_cast<int*>(out_ids), static_cast<float*>(out_sims), nq, nd, W, k,
-      stages, vec16);
+      stages, vec16, static_cast<Key*>(lists));
   return static_cast<int>(cudaGetLastError());
 }

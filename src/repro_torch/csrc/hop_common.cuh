@@ -23,7 +23,15 @@
 //      counts. Owners go to a work list with their ids and card words;
 //   4. (the kernel's own) score each owner; the keys of the B beam lanes
 //      and of the owners, in that order, overwrite the hash table;
-//   5. select_beam: the top B of those B + n_work keys.
+//   5. select_beam: the top B of those B + n_work keys: the warps' lists
+//      of 32 P keys (P a power of 2 up to 16, so B <= kMaxBeam), or for a
+//      wider beam (P = 0) a radix select of the B-th key over the block.
+// Where the state lives. A query's state (Layout below) sits in the
+// block's shared memory where it fits (kGlobal false); a wider one is
+// carved from a per-block workspace in global memory that the wrapper
+// allocates (kGlobal true), one block per resident slot walking its
+// queries in turn. The table's atomics and the barriers work the same on
+// either; the DMA hop's ring stays in shared memory.
 // Why step 3 keeps the selection exact: all lanes that name one id carry
 // the same sim (same row, same query, same epilogue), beam ids do not
 // repeat, and a candidate naming a beam id is suppressed; so keeping each
@@ -40,14 +48,23 @@ namespace hop {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBuffers = 4;  // the DMA hop's deepest ring
-constexpr int kMaxBeam = 512;   // 32 * 16: a list of 16 keys per lane
+constexpr int kMaxBeam = 512;   // 32 * 16: the warps' lists of 16 keys a lane
 constexpr Key kTopKey = ~0ull;  // above every key: a min's identity
 
-// Keys per lane of a list that holds the top B: a power of 2, 1 to 16.
+// Keys per lane of a list that holds the top B: a power of 2, 1 to 16;
+// 0 for a beam wider than kMaxBeam (select_beam's radix select).
 __host__ __device__ inline int list_regs(int B) {
+  if (B > kMaxBeam) return 0;
   int p = 1;
   while (32 * p < B) p <<= 1;
   return p;
+}
+
+// Keys of the state's `list`: the warps' lists, or the B selected keys of
+// the radix select.
+__host__ __device__ inline size_t list_keys(int B) {
+  const int p = list_regs(B);
+  return p ? static_cast<size_t>(kWarps) * 32 * p : static_cast<size_t>(B);
 }
 
 // Hash slots for L lanes: 1.5 L + 1 (load at most 2/3, one slot always
@@ -58,17 +75,21 @@ __host__ __device__ inline size_t align_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
 }
 
-// Byte offsets of a block's dynamic shared memory. `ring_rows` rows of W
-// words and 2 * kMaxBuffers mbarriers come first for the DMA hop (0 for
-// the fused hop); then one query's state.
+// Byte offsets of one query's state and of a block's dynamic shared
+// memory. `ring_rows` rows of W words and 2 * kMaxBuffers mbarriers come
+// first in shared memory for the DMA hop (0 for the fused hop); the state
+// follows them there, or (global_state) starts at 0 in the block's
+// workspace and shared memory holds the ring alone.
 struct Layout {
   int slots;
   size_t ring;   // uint32 [ring_rows][W]
   size_t bars;   // uint64 [2][kMaxBuffers]: full, empty
   size_t tab;    // int [3][slots]: id (PAD if free), lowest column,
                  // candidate lanes; after step 3 the keys: Key [B + n_work]
-  size_t list;   // Key [kWarps][32 P]: each warp's top keys
-  size_t buf;    // Key [kWarps][32]: each warp's buffered keys
+  size_t list;   // Key [list_keys(B)]: each warp's top keys, or the
+                 // selected keys of the radix select
+  size_t buf;    // Key [kWarps][32]: each warp's buffered keys, or the
+                 // radix select's histogram
   size_t qw;     // uint32 [W rounded up to 4], 16-byte aligned
   size_t id;     // int [L]
   size_t bsim;   // float [B]
@@ -76,20 +97,22 @@ struct Layout {
   size_t wid;    // int [C]: their ids
   size_t wcard;  // int [C]: their rows' card words
   size_t misc;   // Key thr0; int n_work, n_scored
-  size_t total;
+  size_t total;  // the state's end
+  size_t smem;   // the block's dynamic shared memory
 };
 
 __host__ __device__ inline Layout layout(int W, int kg, int kr, int B,
-                                         int ring_rows) {
+                                         int ring_rows, bool global_state) {
   const size_t C = static_cast<size_t>(B) * (kg + kr);
   const size_t L = B + C;
   Layout o;
   o.slots = hash_slots(static_cast<int>(L));
   o.ring = 0;
   o.bars = align_up(static_cast<size_t>(ring_rows) * W * 4, 16);
-  o.tab = o.bars + (ring_rows > 0 ? 2 * kMaxBuffers * 8 : 0);
+  const size_t head = o.bars + (ring_rows > 0 ? 2 * kMaxBuffers * 8 : 0);
+  o.tab = global_state ? 0 : head;
   o.list = o.tab + align_up(static_cast<size_t>(o.slots) * 12, 8);
-  o.buf = o.list + static_cast<size_t>(kWarps) * 32 * list_regs(B) * 8;
+  o.buf = o.list + list_keys(B) * 8;
   o.qw = align_up(o.buf + static_cast<size_t>(kWarps) * 32 * 8, 16);
   o.id = o.qw + align_up(static_cast<size_t>(W), 4) * 4;
   o.bsim = o.id + L * 4;
@@ -98,7 +121,15 @@ __host__ __device__ inline Layout layout(int W, int kg, int kr, int B,
   o.wcard = o.wid + C * 4;
   o.misc = align_up(o.wcard + C * 4, 8);
   o.total = o.misc + 16;
+  o.smem = global_state ? head : o.total;
   return o;
+}
+
+// Bytes of one block's workspace in global memory: the state, rounded up
+// so that every block's starts 256-byte aligned.
+__host__ __device__ inline size_t workspace_stride(int W, int kg, int kr,
+                                                   int B) {
+  return align_up(layout(W, kg, kr, B, 0, true).total, 256);
 }
 
 // Pointers into one query's state.
@@ -121,6 +152,8 @@ struct State {
   int* n_scored;
 };
 
+// The state at `smem`: the block's shared memory, or (global_state) the
+// block's workspace.
 __device__ inline State carve(unsigned char* smem, const Layout& lo) {
   State s;
   s.slots = lo.slots;
@@ -456,6 +489,72 @@ __device__ inline void select_beam(int B, const State& s, int* out_ids,
         out_sims[e] = x[j] ? key_sim(x[j]) : neg_inf();
       }
     }
+  }
+}
+
+// Step 5 for a beam wider than the warps' lists (B > kMaxBeam): the B-th
+// largest of the n_keys = B + n_work keys by a radix select, 8 bits a
+// pass from the top (a histogram of the keys that match the digits found
+// so far; warps aggregate their lanes' equal digits into one shared
+// atomic), then the keys at or above it -- distinct, as every nonzero key
+// is -- gathered into `list` and each placed at its rank, the count of
+// gathered keys above it. Exact on the 64-bit keys, so the same top B as
+// the lists'. Every thread of the block must call it.
+template <>
+__device__ inline void select_beam<0>(int B, const State& s, int* out_ids,
+                                      float* out_sims) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n_keys = B + *s.n_work;
+  int* hist = reinterpret_cast<int*>(s.buf);  // [256]
+  int* found = hist + 256;                    // digit, rank left, n_sel
+  Key prefix = 0, mask = 0;
+  int need = B;  // the rank sought among the keys matching the prefix
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += kThreads) hist[i] = 0;
+    __syncthreads();
+    for (int base = tid - lane; base < n_keys; base += kThreads) {
+      const int i = base + lane;
+      const Key k = i < n_keys ? s.key[i] : 0;
+      const bool in = i < n_keys && (k & mask) == prefix;
+      const int digit = in ? static_cast<int>((k >> shift) & 255) : 256;
+      const unsigned peers = __match_any_sync(kFullMask, digit);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      // The digit holding the need-th largest: the counts of the digits
+      // above it sum to less than need. (Digit 0 if all of them do.)
+      int above = 0, d = 255;
+      for (; d > 0; --d) {
+        if (above + hist[d] >= need) break;
+        above += hist[d];
+      }
+      found[0] = d;
+      found[1] = need - above;
+      found[2] = 0;
+    }
+    __syncthreads();
+    prefix |= static_cast<Key>(found[0]) << shift;
+    mask |= static_cast<Key>(255) << shift;
+    need = found[1];
+  }
+  // prefix is now the B-th largest key; the zero keys (absent) stay out.
+  for (int i = tid; i < n_keys; i += kThreads) {
+    const Key k = s.key[i];
+    if (k != 0 && k >= prefix) s.list[atomicAdd(&found[2], 1)] = k;
+  }
+  __syncthreads();
+  const int n_sel = found[2];  // min(B, nonzero keys)
+  for (int j = tid; j < n_sel; j += kThreads) {
+    const Key k = s.list[j];
+    int rank = 0;
+    for (int i = 0; i < n_sel; ++i) rank += s.list[i] > k;
+    out_ids[rank] = s.id[key_col(k)];
+    out_sims[rank] = key_sim(k);
+  }
+  for (int e = n_sel + tid; e < B; e += kThreads) {
+    out_ids[e] = kPadId;
+    out_sims[e] = neg_inf();
   }
 }
 

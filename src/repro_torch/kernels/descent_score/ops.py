@@ -9,6 +9,7 @@ raises. ``launches`` counts launches of the hop kernel and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,6 +22,7 @@ SMEM_LIMIT = tune.SMEM_LIMIT
 
 launches = 0
 launches_dma = 0
+_PREFIX = {False: "repro_descent_hop", True: "repro_descent_hop_dma"}
 
 
 def _lib():
@@ -30,9 +32,15 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.repro_descent_hop_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.repro_descent_hop_global.argtypes = [ctypes.c_void_p] * 12 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p]
+        lib.repro_descent_hop_global.restype = ctypes.c_int
+        lib.repro_descent_hop_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.repro_descent_hop_smem_bytes.restype = ctypes.c_size_t
-        lib.repro_descent_hop_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.repro_descent_hop_workspace_stride.argtypes = [ctypes.c_int] * 4
+        lib.repro_descent_hop_workspace_stride.restype = ctypes.c_size_t
+        lib.repro_descent_hop_blocks_per_sm.argtypes = [ctypes.c_int] * 5
         lib.repro_descent_hop_blocks_per_sm.restype = ctypes.c_int
     return lib
 
@@ -44,25 +52,59 @@ def _lib_dma():
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.repro_descent_hop_dma_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.repro_descent_hop_dma_global.argtypes = [ctypes.c_void_p] * 14 \
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p]
+        lib.repro_descent_hop_dma_global.restype = ctypes.c_int
+        lib.repro_descent_hop_dma_smem_bytes.argtypes = [ctypes.c_int] * 8
         lib.repro_descent_hop_dma_smem_bytes.restype = ctypes.c_size_t
-        lib.repro_descent_hop_dma_blocks_per_sm.argtypes = [ctypes.c_int] * 7
+        lib.repro_descent_hop_dma_workspace_stride.argtypes = \
+            [ctypes.c_int] * 4
+        lib.repro_descent_hop_dma_workspace_stride.restype = ctypes.c_size_t
+        lib.repro_descent_hop_dma_blocks_per_sm.argtypes = [ctypes.c_int] * 8
         lib.repro_descent_hop_dma_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(dma: bool, dev_index: int, *shape) -> int:
+    """Blocks the card holds at once of a hop whose state is in global
+    memory: the kernel's blocks per SM at ``shape`` (the arguments of its
+    ``*_blocks_per_sm`` but the placement) times the SMs."""
+    lib = _lib_dma() if dma else _lib()
+    per_sm = getattr(lib, f"{_PREFIX[dma]}_blocks_per_sm")(*shape, 1)
+    if per_sm <= 0:
+        raise RuntimeError(f"{_PREFIX[dma]} fits no block on an SM at "
+                           f"{shape} (occupancy query returned {per_sm})")
+    return per_sm * torch.cuda.get_device_properties(
+        dev_index).multi_processor_count
+
+
+def _workspace(dma: bool, dev, q: int, block_q: int, W: int, kg: int,
+               kr: int, B: int, *ring):
+    """(workspace, grid) of a hop whose state is in global memory: one
+    block per resident slot (at most one per group of ``block_q``
+    queries), each with its state's bytes of the workspace."""
+    lib = _lib_dma() if dma else _lib()
+    stride = getattr(lib, f"{_PREFIX[dma]}_workspace_stride")(W, kg, kr, B)
+    if stride != tune.workspace_stride(W, kg + kr, B):
+        raise RuntimeError(
+            f"tune.workspace_stride disagrees with the hop kernel's layout "
+            f"({stride} B) at W={W} kg+kr={kg + kr} B={B}")
+    grid = min(-(-q // block_q),
+               _resident_blocks(dma, dev.index, W, kg, kr, B, *ring))
+    return torch.empty(grid * stride, dtype=torch.uint8, device=dev), grid
 
 
 def _checked_args(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
                   beam_ids, beam_sims):
     """Contiguous kernel arguments, after checking device, dtype and shape
-    of every input (tomb None → all live) and the beam width."""
+    of every input (tomb None → all live)."""
     n, kg = graph_ids.shape
     kr = rev_ids.shape[1]
     W = words.shape[1]
     q, B = beam_ids.shape
     dev = beam_ids.device
-    if B > tune.MAX_BEAM:
-        raise ValueError(f"the descent hop kernels keep at most "
-                         f"{tune.MAX_BEAM} beam lanes; got beam {B}")
     if tomb is None:
         tomb = torch.zeros(n, dtype=torch.bool, device=dev)
     typed = ((graph_ids, torch.int32, (n, kg)), (rev_ids, torch.int32, (n, kr)),
@@ -95,19 +137,23 @@ def _launch(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
     if q == 0:
         return out_ids, out_sims, n_scored
     lib = _lib()
-    smem = lib.repro_descent_hop_smem_bytes(W, kg, kr, B)
-    if smem != tune.state_bytes(W, kg + kr, B, 0):
+    placement = tune.state_placement(W, kg + kr, B, 0)
+    glob = placement == "global"
+    smem = lib.repro_descent_hop_smem_bytes(W, kg, kr, B, int(glob))
+    if smem != tune.state_bytes(W, kg + kr, B, 0, placement):
         raise RuntimeError(
             f"tune.state_bytes disagrees with the hop kernel's layout "
-            f"({smem} B) at W={W} kg+kr={kg + kr} B={B}")
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"descent hop needs {smem} B of shared memory at "
-                         f"B={B}, kg+kr={kg + kr}; the limit is {SMEM_LIMIT}")
+            f"({smem} B) at W={W} kg+kr={kg + kr} B={B} ({placement})")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [a.data_ptr() for a in args] + [
+        out_ids.data_ptr(), out_sims.data_ptr(), n_scored.data_ptr()]
     with torch.cuda.device(dev):
-        err = lib.repro_descent_hop(
-            *(a.data_ptr() for a in args), out_ids.data_ptr(),
-            out_sims.data_ptr(), n_scored.data_ptr(), q, W, kg, kr, B,
-            torch.cuda.current_stream(dev).cuda_stream)
+        if glob:
+            ws, grid = _workspace(False, dev, q, 1, W, kg, kr, B)
+            err = lib.repro_descent_hop_global(
+                *ptrs, q, W, kg, kr, B, ws.data_ptr(), grid, stream)
+        else:
+            err = lib.repro_descent_hop(*ptrs, q, W, kg, kr, B, stream)
     build.check(lib, err, KERNEL)
     launches += 1
     return out_ids, out_sims, n_scored
@@ -139,23 +185,33 @@ def _launch_dma(graph_ids, rev_ids, words, card, tomb, q_words, q_card,
     chunk = max(1, min(chunk, C))
     n_buffers = max(1, min(n_buffers, -(-C // chunk)))
     lib = _lib_dma()
+    placement = tune.state_placement(W, kg + kr, B, chunk * n_buffers)
+    glob = placement == "global"
     smem = lib.repro_descent_hop_dma_smem_bytes(W, kg, kr, B, block_q, chunk,
-                                                n_buffers)
-    if smem != tune.smem_bytes(W, kg + kr, B, block_q, chunk, n_buffers):
+                                                n_buffers, int(glob))
+    if smem != tune.smem_bytes(W, kg + kr, B, block_q, chunk, n_buffers,
+                               placement):
         raise RuntimeError(
             f"tune.smem_bytes disagrees with the kernel's layout ({smem} B) "
             f"at W={W} kg+kr={kg + kr} B={B} block_q={block_q} "
-            f"chunk={chunk} n_buffers={n_buffers}")
-    if smem > SMEM_LIMIT:
+            f"chunk={chunk} n_buffers={n_buffers} ({placement})")
+    if smem > SMEM_LIMIT:  # the ring alone overflows a block
         raise ValueError(
-            f"DMA hop needs {smem} B of shared memory at W={W}, B={B}, "
-            f"kg+kr={kg + kr}, block_q={block_q}, score_chunk={chunk}, "
-            f"n_buffers={n_buffers}; the limit is {SMEM_LIMIT}")
+            f"DMA hop needs {smem} B of shared memory for its ring at "
+            f"W={W}, score_chunk={chunk}, n_buffers={n_buffers}; the limit "
+            f"is {SMEM_LIMIT}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in outs]
     with torch.cuda.device(dev):
-        err = lib.repro_descent_hop_dma(
-            *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
-            q, W, kg, kr, B, block_q, chunk, n_buffers,
-            torch.cuda.current_stream(dev).cuda_stream)
+        if glob:
+            ws, grid = _workspace(True, dev, q, block_q, W, kg, kr, B,
+                                  block_q, chunk, n_buffers)
+            err = lib.repro_descent_hop_dma_global(
+                *ptrs, q, W, kg, kr, B, block_q, chunk, n_buffers,
+                ws.data_ptr(), grid, stream)
+        else:
+            err = lib.repro_descent_hop_dma(
+                *ptrs, q, W, kg, kr, B, block_q, chunk, n_buffers, stream)
     build.check(lib, err, KERNEL_DMA)
     launches_dma += 1
     return tuple(outs)
@@ -175,11 +231,12 @@ def descent_hop(graph_ids, rev_ids, words, card, q_words, q_card,
     surviving rows are gathered stage by stage into a shared-memory ring
     by bulk copies, with ``(block_q, score_chunk, n_buffers)`` from
     :func:`tune.hop_params` unless given. Results are bitwise those of the
-    hop kernel and of the plain version either way. The kernels take beams
-    of at most ``tune.MAX_BEAM`` lanes whose per-query state
-    (``tune.state_bytes``) fits one block's shared memory: at kg+kr = 60,
-    beams of up to 102 lanes; a larger beam raises ValueError (the plain
-    version on the CPU takes any).
+    hop kernel and of the plain version either way. Both kernels take any
+    beam: a query's state (``tune.state_bytes``) sits in a block's shared
+    memory where it fits and otherwise in a workspace in global memory
+    (``tune.state_placement``: at kg+kr = 60, beams above ~100 lanes),
+    and beams above ``tune.MAX_BEAM`` lanes are selected by a radix
+    select. Only a DMA ring that overflows a block raises ValueError.
 
     With ``with_counts`` returns ``(ids, sims, n_scored, dma_bytes,
     bytes_saved)``, each count int32[q]: lanes that survived suppression

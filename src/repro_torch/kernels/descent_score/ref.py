@@ -65,8 +65,15 @@ def descent_hop_ref(graph_ids, rev_ids, words, card, q_words, q_card,
 
 
 def survivors(cand, beam_ids):
-    """bool[q, C]: lanes the kernel scores — not PAD, not in the beam."""
-    in_beam = (cand[:, :, None] == beam_ids[:, None, :]).any(dim=-1)
+    """bool[q, C]: lanes the kernel scores — not PAD, not in the beam.
+    Membership by a search of each sorted beam row, so a wide beam costs
+    q·C·log B, not a [q, C, B] comparison."""
+    if beam_ids.shape[1] == 0:
+        return cand != PAD_ID
+    beam = torch.sort(beam_ids, dim=1).values.contiguous()
+    at = torch.searchsorted(beam, cand.contiguous())
+    at = at.clamp(max=beam.shape[1] - 1)
+    in_beam = torch.gather(beam, 1, at) == cand
     return (cand != PAD_ID) & ~in_beam
 
 

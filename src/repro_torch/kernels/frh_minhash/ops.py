@@ -1,10 +1,14 @@
-"""Wrapper for the FastRandomHash kernel (``csrc/frh_minhash.cu``).
+"""Wrappers for the FastRandomHash kernel's two entries
+(``csrc/frh_minhash.cu``): :func:`minhash` over padded profiles and
+:func:`minhash_csr` over CSR profiles.
 
 The tensor's device selects the implementation: CPU tensors run the plain
 version (:mod:`.ref`), CUDA tensors launch the kernel, and anything else
-raises. ``launches`` counts kernel launches (plain calls do not count).
+raises. ``launches`` counts launches of the padded entry and
+``launches_csr`` those of the CSR entry (plain calls count in neither).
 Build Step 1 (``core/clustering``) hashes on the host, as the reference
-does; :func:`dataset_minhash` is this kernel's entry point.
+does; :func:`dataset_minhash` is this kernel's entry point, through the CSR
+entry. Seeds go to the kernel by value: no call copies them to the card.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from repro_torch.types import Dataset
 KERNEL = "frh_minhash"
 
 launches = 0
+launches_csr = 0
 
 
 def _lib():
@@ -30,33 +35,79 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
             + [ctypes.c_uint, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.repro_frh_minhash_csr.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint, ctypes.c_void_p]
+        lib.repro_frh_minhash_csr.restype = ctypes.c_int
         lib.repro_frh_max_seeds.argtypes = []
         lib.repro_frh_max_seeds.restype = ctypes.c_int
     return lib
 
 
-def _launch(padded_items: torch.Tensor, seeds: torch.Tensor, b: int):
+def _check_b(b: int) -> None:
+    if b < 1 or b & (b - 1) or b > 2**31:
+        raise ValueError(f"b must be a power of two in [1, 2^31], got {b}")
+
+
+def _host_seeds(lib, seeds):
+    """The seeds as a host int32 array for the kernel's parameters."""
+    if isinstance(seeds, torch.Tensor):
+        seeds = seeds.cpu().numpy()
+    arr = np.asarray(seeds, dtype=np.int64).reshape(-1).astype(np.int32)
+    if not 1 <= len(arr) <= lib.repro_frh_max_seeds():
+        raise ValueError(f"the minhash kernel takes 1 to "
+                         f"{lib.repro_frh_max_seeds()} seeds, got {len(arr)}")
+    return (ctypes.c_int * len(arr))(*arr.tolist())
+
+
+def _launch(padded_items: torch.Tensor, seeds, b: int):
     global launches
     if padded_items.dtype != torch.int32 or padded_items.dim() != 2:
         raise ValueError(f"minhash takes int32[n, P] padded profiles, got "
                          f"{padded_items.dtype}{list(padded_items.shape)}")
     n, P = padded_items.shape
-    t = seeds.numel()
+    lib = _lib()
+    host = _host_seeds(lib, seeds)
     dev = padded_items.device
     items = padded_items.contiguous()
-    out = torch.empty((n, t), dtype=torch.int32, device=dev)
-    if n == 0 or t == 0:
+    out = torch.empty((n, len(host)), dtype=torch.int32, device=dev)
+    if n == 0:
         return out
-    lib = _lib()
-    if t > lib.repro_frh_max_seeds():
-        raise ValueError(f"the minhash kernel takes at most "
-                         f"{lib.repro_frh_max_seeds()} seeds, got {t}")
     with torch.cuda.device(dev):
         err = lib.repro_frh_minhash(
-            items.data_ptr(), seeds.data_ptr(), out.data_ptr(), n, P, t, b - 1,
+            items.data_ptr(), host, out.data_ptr(), n, P, len(host), b - 1,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, KERNEL)
     launches += 1
+    return out
+
+
+def _launch_csr(offsets: torch.Tensor, items: torch.Tensor, seeds, b: int):
+    global launches_csr
+    dev = items.device
+    if (offsets.dtype != torch.int64 or offsets.dim() != 1
+            or items.dtype != torch.int32 or items.dim() != 1
+            or offsets.device != dev or offsets.numel() < 1):
+        raise ValueError(f"minhash_csr takes int64[n + 1] offsets and "
+                         f"int32[nnz] items on one device, got "
+                         f"{offsets.dtype}{list(offsets.shape)} on "
+                         f"{offsets.device}, {items.dtype}"
+                         f"{list(items.shape)} on {dev}")
+    n = offsets.numel() - 1
+    lib = _lib()
+    host = _host_seeds(lib, seeds)
+    offsets, items = offsets.contiguous(), items.contiguous()
+    out = torch.empty((n, len(host)), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.repro_frh_minhash_csr(
+            offsets.data_ptr(), items.data_ptr(), items.numel(), host,
+            out.data_ptr(), n, len(host), b - 1,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, KERNEL)
+    launches_csr += 1
     return out
 
 
@@ -66,22 +117,39 @@ def minhash(padded_items: torch.Tensor, seeds, b: int) -> torch.Tensor:
     ``b`` must be a power of two (the kernel masks where the plain version
     takes the modulo); ``seeds`` is int32[t], a tensor or a sequence.
     """
-    if b < 1 or b & (b - 1) or b > 2**31:
-        raise ValueError(f"b must be a power of two in [1, 2^31], got {b}")
+    _check_b(b)
     kind = padded_items.device.type
     if kind == "cpu":
         return ref.minhash_ref(padded_items, seeds, b)
     if kind != "cuda":
         raise ValueError(f"unsupported device {padded_items.device}")
-    seeds = torch.as_tensor(seeds, dtype=torch.int32,
-                            device=padded_items.device).reshape(-1)
-    return _launch(padded_items, seeds.contiguous(), b)
+    return _launch(padded_items, seeds, b)
+
+
+def minhash_csr(offsets: torch.Tensor, items: torch.Tensor, seeds,
+                b: int) -> torch.Tensor:
+    """CSR profiles (offsets int64[n + 1], items int32[nnz], no PAD) →
+    int32[n, t] FastRandomHash values; empty profiles give NO_HASH.
+
+    Same ``seeds`` and ``b`` as :func:`minhash`; the items' device picks
+    the implementation.
+    """
+    _check_b(b)
+    kind = items.device.type
+    if kind == "cpu":
+        return ref.minhash_csr_ref(offsets, items, seeds, b)
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {items.device}")
+    return _launch_csr(offsets, items, seeds, b)
 
 
 def dataset_minhash(ds: Dataset, seeds, b: int,
                     device="cuda") -> np.ndarray:
-    """Host entry: int32[t, n], like ``core.hashing.user_min_hash_np``."""
+    """Host entry: int32[t, n], like ``core.hashing.user_min_hash_np``;
+    the dataset's CSR arrays go to ``device`` as they are (no padded
+    matrix is built)."""
     dev = resolve_device(device)
-    padded, _ = ds.padded_profiles()
-    out = minhash(torch.from_numpy(padded).to(dev), seeds, b)
+    offsets = torch.from_numpy(np.asarray(ds.offsets, np.int64)).to(dev)
+    items = torch.from_numpy(np.asarray(ds.items, np.int32)).to(dev)
+    out = minhash_csr(offsets, items, seeds, b)
     return out.T.contiguous().cpu().numpy()

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the FastRandomHash kernel
-(``csrc/frh_minhash.cu``), the counterpart of
-``repro.kernels.frh_minhash.ref``.
+"""Plain PyTorch versions of the FastRandomHash kernel's two entries
+(``csrc/frh_minhash.cu``): :func:`minhash_ref` over padded profiles, the
+counterpart of ``repro.kernels.frh_minhash.ref``, and
+:func:`minhash_csr_ref` over CSR profiles.
 
 torch's uint32 has no ``>>`` or ``min`` on the CPU, so the murmur3
 finalizer runs in int64 holding uint32 values: every shift and xor stays
@@ -51,3 +52,25 @@ def minhash_ref(padded_items: torch.Tensor, seeds, b: int) -> torch.Tensor:
         h = torch.where(pad, int(NO_HASH), h)
         out[:, i] = h.min(dim=1).values.to(torch.int32)
     return out
+
+
+def minhash_csr_ref(offsets: torch.Tensor, items: torch.Tensor, seeds,
+                    b: int) -> torch.Tensor:
+    """H_i(u) for every (user, seed) of CSR profiles: int32[n, t].
+
+    offsets int64[n + 1], items int32[nnz] (user u's items are
+    ``items[offsets[u]:offsets[u + 1]]``, no PAD); seeds int32[t]; b the
+    hash space size. Empty profiles yield NO_HASH.
+    """
+    dev = items.device
+    n = offsets.numel() - 1
+    x = items.to(torch.int64) & _M32
+    user = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   torch.diff(offsets.to(torch.int64)))
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev).reshape(-1)
+    mixes = _mul32(((seeds & _M32) + 1) & _M32, 0x9E37_79B9)
+    out = torch.full((n, len(mixes)), int(NO_HASH), dtype=torch.int64,
+                     device=dev)
+    for i, mix in enumerate(mixes):  # one pass over the items per seed
+        out[:, i].scatter_reduce_(0, user, fmix32(x ^ mix) % b, "amin")
+    return out.to(torch.int32)

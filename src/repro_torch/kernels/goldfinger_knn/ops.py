@@ -17,8 +17,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.goldfinger_knn import ref
 
 KERNEL = "goldfinger_knn"
-MAX_K = 64
-MAX_BATCHES = 65535  # CUDA grid y limit
+REG_K = 64           # the widest top-k merged in registers (2 keys a lane)
+MAX_BATCHES = 65535  # CUDA grid y limit: clusters per launch
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 ROWS = 16            # query rows per block: one mma M
 TILE = 32            # database rows per warp tile: one per lane
@@ -34,11 +34,14 @@ class LaunchParams:
     """One launch's shape: ``rows`` query rows per block, ``warps`` warps
     each taking every ``warps``-th database tile and keeping the top-k of
     every ``warps``-th row, a ``stages``-deep copy ring per warp, and
-    ``smem`` bytes of dynamic shared memory."""
+    ``smem`` bytes of dynamic shared memory; ``lists`` says where the rows'
+    top-k lists lie ("shared", or "global" for k > 64 lists that do not
+    fit a block beside its tiles)."""
     rows: int
     warps: int
     stages: int
     smem: int
+    lists: str = "shared"
 
     def blocks(self, m: int, nq: int) -> int:
         """Blocks of a launch over ``m`` batches of ``nq`` query rows."""
@@ -49,17 +52,24 @@ def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
-def smem_bytes(W: int, k: int, warps: int, stages: int) -> int:
+def list_width(k: int) -> int:
+    """Keys of a row's top-k list: k rounded up to 32."""
+    return -(-k // 32) * 32
+
+
+def smem_bytes(W: int, k: int, warps: int, stages: int,
+               lists: str = "shared") -> int:
     """The block's dynamic shared memory, from the kernel's layout: the
     query tile (W padded to 8 words, plus 4, per row; ids and cards) and a
     flag per warp and step; two key tiles of 16 rows × (32 per warp + 8)
-    keys; per query row a sorted list of 32 or 64 keys (k ≤ 32 or not) and
-    a 32-key buffer, keys 8 bytes; then per warp its copy ring of
-    ``stages`` database tiles of 32 rows (words, ids and cards).
-    ``repro_goldfinger_knn_smem_bytes`` in the kernel computes the same."""
+    keys; per query row a sorted list of k rounded up to 32 keys (unless
+    ``lists`` is "global") and a 32-key buffer, keys 8 bytes; then per warp
+    its copy ring of ``stages`` database tiles of 32 rows (words, ids and
+    cards). ``repro_goldfinger_knn_smem_bytes`` in the kernel computes the
+    same."""
     ws = ((W + 7) & ~7) + 4
     ks = warps * TILE + 8
-    kp = 64 if k > 32 else 32
+    kp = 0 if lists == "global" else list_width(k)
     head = _align16(ROWS * ws * 4 + 2 * ROWS * 4 + 2 * warps * 4)
     tiles = 2 * ROWS * ks * 8 + ROWS * (kp + TILE) * 8
     ring = _align16(stages * TILE * (ws + 2) * 4)
@@ -73,23 +83,28 @@ def launch_params(nq: int, nd: int, W: int, k: int) -> LaunchParams:
     power of two from ``MIN_WARPS`` to ``MAX_WARPS`` (the warps also share
     the 16 rows' top-k, so a block has at least ``MIN_WARPS``), two ring
     stages; then fewer warps, and one stage, until the block fits
-    ``SMEM_LIMIT``. Raises ValueError if nothing fits."""
+    ``SMEM_LIMIT``. Above k = 64, where even that does not fit, the rows'
+    lists move to global memory and the search starts again. Raises
+    ValueError if nothing fits."""
     del nq  # every shape takes 16-row query tiles
     tiles = -(-nd // TILE)
-    warps = MIN_WARPS
-    while warps < MAX_WARPS and warps < tiles:
-        warps *= 2
-    stages = STAGES
-    while smem_bytes(W, k, warps, stages) > SMEM_LIMIT:
-        if warps > 1:
-            warps //= 2
-        elif stages > 1:
-            stages -= 1
-        else:
-            raise ValueError(f"cluster-KNN needs "
-                             f"{smem_bytes(W, k, 1, 1)} B of shared memory "
-                             f"at W={W}, k={k}; the limit is {SMEM_LIMIT}")
-    return LaunchParams(ROWS, warps, stages, smem_bytes(W, k, warps, stages))
+    start = MIN_WARPS
+    while start < MAX_WARPS and start < tiles:
+        start *= 2
+    for lists in ("shared", "global") if k > REG_K else ("shared",):
+        warps, stages = start, STAGES
+        while smem_bytes(W, k, warps, stages, lists) > SMEM_LIMIT:
+            if warps > 1:
+                warps //= 2
+            elif stages > 1:
+                stages -= 1
+            else:
+                break
+        smem = smem_bytes(W, k, warps, stages, lists)
+        if smem <= SMEM_LIMIT:
+            return LaunchParams(ROWS, warps, stages, smem, lists)
+    raise ValueError(f"cluster-KNN needs {smem} B of shared memory at W={W}, "
+                     f"k={k}; the limit is {SMEM_LIMIT}")
 
 
 def _lib():
@@ -97,9 +112,9 @@ def _lib():
     fn = lib.repro_goldfinger_knn
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
-        lib.repro_goldfinger_knn_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.repro_goldfinger_knn_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.repro_goldfinger_knn_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -119,11 +134,8 @@ def _launch(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
             or d_words.shape != (m, nd, W) or d_card.shape != (m, nd)
             or d_ids.shape != (m, nd)):
         raise ValueError("cluster-KNN shape mismatch")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"cluster-KNN supports 1 <= k <= {MAX_K}, got {k}")
-    if m > MAX_BATCHES:
-        raise ValueError(f"cluster-KNN takes at most {MAX_BATCHES} clusters "
-                         f"per call, got {m}")
+    if k < 1:
+        raise ValueError(f"cluster-KNN needs k >= 1, got {k}")
     tensors = tuple(t.contiguous() for t in tensors)
     # One allocation for both outputs: ids, then the sims' bit patterns.
     out = torch.empty((2, m, nq, k), dtype=torch.int32, device=dev)
@@ -132,24 +144,34 @@ def _launch(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
         return out_ids, out_sims
     lib = _lib()
     p = launch_params(nq, nd, W, k)
-    smem = lib.repro_goldfinger_knn_smem_bytes(W, k, p.warps, p.stages)
+    glob = p.lists == "global"
+    smem = lib.repro_goldfinger_knn_smem_bytes(W, k, p.warps, p.stages,
+                                               int(glob))
     if smem != p.smem:
         raise RuntimeError(f"cluster-KNN layout mismatch at W={W}, k={k}: "
                            f"the kernel needs {smem} B, smem_bytes says "
                            f"{p.smem}")
-    vec16 = int(W % 4 == 0 and tensors[0].data_ptr() % 16 == 0
-                and tensors[3].data_ptr() % 16 == 0)
-    args = ([t.data_ptr() for t in tensors]
-            + [out_ids.data_ptr(), out_sims.data_ptr(), m, nq, nd, W, k,
-               p.warps, p.stages, vec16,
-               torch._C._cuda_getCurrentRawStream(dev.index)])
-    if dev.index == torch.cuda.current_device():
-        err = lib.repro_goldfinger_knn(*args)
-    else:
-        with torch.cuda.device(dev):
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    # At most MAX_BATCHES clusters a launch; the rows of a cluster never
+    # meet another's, so the split does not enter any result.
+    for b0 in range(0, m, MAX_BATCHES):
+        part = [t[b0:b0 + MAX_BATCHES] for t in tensors]
+        mb = part[0].shape[0]
+        lists = (torch.empty(p.blocks(mb, nq) * ROWS * list_width(k),
+                             dtype=torch.int64, device=dev) if glob else None)
+        vec16 = int(W % 4 == 0 and part[0].data_ptr() % 16 == 0
+                    and part[3].data_ptr() % 16 == 0)
+        args = ([t.data_ptr() for t in part]
+                + [out_ids[b0:].data_ptr(), out_sims[b0:].data_ptr(), mb, nq,
+                   nd, W, k, p.warps, p.stages, vec16,
+                   None if lists is None else lists.data_ptr(), stream])
+        if dev.index == torch.cuda.current_device():
             err = lib.repro_goldfinger_knn(*args)
-    build.check(lib, err, KERNEL)
-    launches += 1
+        else:
+            with torch.cuda.device(dev):
+                err = lib.repro_goldfinger_knn(*args)
+        build.check(lib, err, KERNEL)
+        launches += 1
     return out_ids, out_sims
 
 

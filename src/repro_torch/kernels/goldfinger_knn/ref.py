@@ -20,13 +20,19 @@ def knn_ref(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
 
     q_words int32[..., nq, W] bit-views, q_card / q_ids int32[..., nq]
     (PAD_ID = dead row); d_* likewise. Self pairs (q_id == d_id) and PAD
-    rows are excluded. Returns (ids int32[..., nq, k], sims f32[..., nq, k]).
+    rows are excluded. Returns (ids int32[..., nq, k], sims f32[..., nq, k]);
+    past the nd database rows (k > nd) the slots are PAD/−inf, as the
+    kernels' (``knn_pallas`` and ``csrc/goldfinger_knn.cu``).
     """
     sims = jaccard_pairwise(q_words, q_card, d_words, d_card)
     valid = ((d_ids[..., None, :] != PAD_ID)
              & (q_ids[..., :, None] != PAD_ID)
              & (q_ids[..., :, None] != d_ids[..., None, :]))
     sims = torch.where(valid, sims, NEG_INF)
+    nd = sims.shape[-1]
+    if k > nd:  # empty database columns past the last: PAD/-inf
+        sims = torch.nn.functional.pad(sims, (0, k - nd), value=NEG_INF)
+        d_ids = torch.nn.functional.pad(d_ids, (0, k - nd), value=PAD_ID)
     top_sims, pos = topk_desc(sims, k)
     nbr = torch.gather(d_ids[..., None, :].expand(sims.shape), -1, pos)
     top_ids = torch.where(top_sims == NEG_INF, PAD_ID, nbr)

@@ -39,17 +39,38 @@ def pack_keys(sims: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("W", [1, 31, 32, 33, 64])
 def test_launch_params_fit_a_block(W):
     for cap in (32, 64, 128, 256, 512, 1024, 2048):
-        for k in (1, 10, 30, 32, 33, 64):
+        for k in (1, 10, 30, 32, 33, 64, 65, 100, 256):
             p = ops.launch_params(cap, cap, W, k)
-            assert p.smem == ops.smem_bytes(W, k, p.warps, p.stages)
+            assert p.smem == ops.smem_bytes(W, k, p.warps, p.stages, p.lists)
             assert p.smem <= ops.SMEM_LIMIT
             assert p.warps in (1, 2, 4, 8) and p.stages in (1, 2)
             assert p.rows == 16
-            # Warps divide the 16 rows, and a list holds k keys.
+            # Warps divide the 16 rows, and a list holds k keys: in the
+            # warps' registers up to k = 64 (one or two keys a lane).
             assert 16 % p.warps == 0
-            assert k <= (64 if k > 32 else 32) <= ops.MAX_K
+            assert k <= ops.list_width(k) == (64 if k > 32 else 32) \
+                or k > ops.REG_K
+            assert p.lists == "shared"
             assert p.blocks(3, cap) == 3 * (cap // 16)
     assert ops.launch_params(17, 1000, W, 10).blocks(1, 17) == 2
+
+
+@pytest.mark.parametrize("k,lists,warps", [(100, "shared", 8),
+                                           (256, "shared", 8),
+                                           (1000, "shared", 4),
+                                           (2048, "global", 8)])
+def test_launch_params_wide_k(k, lists, warps):
+    """Above k = 64 a row's list is k rounded up to 32 keys, merged in
+    memory: in shared memory beside the tiles where 16 of them fit (with
+    fewer warps if need be), else in global memory. k = 30, the main
+    path's, keeps its layout."""
+    p = ops.launch_params(2048, 2048, 32, k)
+    assert (p.lists, p.warps) == (lists, warps)
+    assert p.smem == ops.smem_bytes(32, k, p.warps, p.stages, lists)
+    assert p.smem <= ops.SMEM_LIMIT
+    assert ops.list_width(k) == -(-k // 32) * 32
+    assert ops.launch_params(2048, 2048, 32, 30) == ops.LaunchParams(
+        16, 8, 2, ops.smem_bytes(32, 30, 8, 2))
 
 
 def test_launch_params_raise_when_nothing_fits():
@@ -140,6 +161,85 @@ def _merged_slices(args, k, cuts):
     return torch.where(empty, PAD_ID, cols), sims
 
 
+def flush_in_memory(lst: list, buf: list, k: int) -> list:
+    """``flush_row_mem`` of the kernel on packed keys: the list (descending,
+    its keys only) and the buffer (any order, distinct keys) merged by
+    placing every key at its rank, its index in its own sorted list plus
+    the keys of the other above it; ranks from k on are dropped."""
+    buf = sorted(buf, reverse=True)
+    out = [None] * k
+    for i, x in enumerate(lst):
+        at = i + sum(b > x for b in buf)
+        if at < k:
+            out[at] = x
+    for j, x in enumerate(buf):
+        at = j + sum(y > x for y in lst)
+        if at < k:
+            out[at] = x
+    return [x for x in out if x is not None]
+
+
+def test_merge_in_memory_is_the_top_k():
+    """Above k = 64 the kernel filters each 32-key tile against its row's
+    k-th key, buffers the survivors and merges a full buffer into the list
+    in memory by rank: the result is the top-k of the whole row, in
+    order."""
+    rng = np.random.default_rng(5)
+    for _ in range(60):
+        n, k = int(rng.integers(1, 700)), int(rng.integers(65, 300))
+        sims = torch.from_numpy(rng.choice(
+            np.float32([0.0, 0.125, 0.5, 1 / 3, 0.9, 1.0, NEG_INF]), size=n))
+        keys = pack_keys(sims, torch.arange(n))
+        keys = [int(x) for x, s in zip(keys, sims) if s != NEG_INF]
+        lst, buf = [], []
+        for t in range(0, len(keys), 32):
+            thr = lst[k - 1] if len(lst) >= k else None
+            keep = [x for x in keys[t:t + 32] if thr is None or x > thr]
+            if len(buf) + len(keep) > 32:
+                lst, buf = flush_in_memory(lst, buf, k), []
+                thr = lst[k - 1] if len(lst) >= k else None
+                keep = [x for x in keep if thr is None or x > thr]
+            buf += keep
+        lst = flush_in_memory(lst, buf, k)
+        assert lst == sorted(keys, reverse=True)[:k]
+
+
+@pytest.mark.parametrize("k", [65, 100])
+def test_plain_cluster_knn_wide_k_matches_pallas(k):
+    """k above 64 and above a cluster's size: the plain version (what the
+    kernel is held to on the card) equals repro's Pallas kernel in
+    interpret mode, slots past the cluster's members PAD/-inf."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import config as r_kernel_config
+    from repro.kernels.goldfinger_knn import ops as r_gk_ops
+
+    rng = np.random.default_rng(k)
+    m, cap, W = 3, 64, 8
+    w = rng.integers(0, 2**32, size=(m, cap, W), dtype=np.uint64)
+    w = (w & rng.integers(0, 2**32, size=w.shape, dtype=np.uint64)).astype(
+        np.uint32)
+    w[:, 1::5] = w[:, :1]  # equal sims
+    ids = rng.permutation(m * cap * 2)[: m * cap].astype(np.int32).reshape(
+        m, cap)
+    ids[1, 40:] = PAD_ID
+    ids[2, 1:] = PAD_ID  # a lone member
+    w[ids == PAD_ID] = 0
+    card = popcount_rows(w.reshape(-1, W)).reshape(m, cap)
+    r_kernel_config.set_interpret(True)
+    try:
+        r_ids, r_sims = r_gk_ops.cluster_knn(jnp.asarray(w), jnp.asarray(card),
+                                             jnp.asarray(ids), k)
+    finally:
+        r_kernel_config.set_interpret(None)
+    args = (words_tensor(w, "cpu"), torch.from_numpy(card),
+            torch.from_numpy(ids))
+    p_ids, p_sims = ops.cluster_knn(*args, k)  # CPU tensors: plain path
+    assert p_ids.shape == (m, cap, k)
+    np.testing.assert_array_equal(np.asarray(r_ids), p_ids.numpy())
+    np.testing.assert_array_equal(np.asarray(r_sims), p_sims.numpy())
+    assert (p_ids[:, :, cap - 1:] == PAD_ID).all()
+
+
 def test_split_database_merges_to_the_whole():
     pytest.importorskip("hypothesis")
     from hypothesis import given, settings
@@ -147,7 +247,7 @@ def test_split_database_merges_to_the_whole():
 
     @settings(max_examples=60, deadline=None, database=None)
     @given(seed=st.integers(0, 2**31 - 1), nq=st.integers(1, 20),
-           nd=st.integers(1, 120), W=st.integers(1, 4), k=st.integers(1, 40),
+           nd=st.integers(1, 300), W=st.integers(1, 4), k=st.integers(1, 130),
            slices=st.integers(1, 8), pad=st.sampled_from([0.0, 0.2, 0.6]))
     def battery(seed, nq, nd, W, k, slices, pad):
         rng = np.random.default_rng(seed)

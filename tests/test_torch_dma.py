@@ -140,6 +140,16 @@ def test_dma_tombstone_heavy():
     assert dead_saved.sum() > 0
 
 
+def test_dma_parity_wide_beam():
+    """A beam of 128 lanes over kg+kr = 60 edges, the shape whose state
+    the CUDA hops keep in global memory: the port's plain hops equal
+    repro's Pallas hops, counters included."""
+    rng = np.random.default_rng(128)
+    arrays, tomb = _hop_inputs(rng, 400, 30, 30, 32, 2, 128, tomb_frac=0.1)
+    assert tune.state_placement(32, 60, 128, 0) == "global"
+    _assert_dma_parity(arrays, tomb=tomb)
+
+
 @pytest.mark.parametrize("kernel,dma", [(False, False), (True, False),
                                         (True, True)])
 def test_descent_step_stats_match_reference(kernel, dma):
@@ -175,25 +185,45 @@ def test_tune_memoizes_per_shape():
         tune.clear()
 
 
+# Shapes whose state overflows a block's shared memory beside any ring:
+# the paper index (kg+kr = 60) served with beams of 128 and 1,024 lanes.
+GLOBAL_STATE = {(32, 128, 60), (32, 1024, 60)}
+
+
 @pytest.mark.parametrize("W,beam,kdeg", [(1, 32, 60), (32, 32, 60),
                                          (64, 32, 60), (1024, 32, 60),
-                                         (32, 64, 64), (1, 4, 8)])
+                                         (32, 64, 64), (1, 4, 8),
+                                         (32, 128, 60), (32, 1024, 60)])
 def test_tune_heuristic_fits_shared_memory(W, beam, kdeg):
     """Every heuristic result fits one H100 block, and two blocks per SM
     wherever one-row stages allow it; (32, 32, 60) is the main path's
-    ml1M@1.0 hop (k=30 forward and reverse edges, beam 32)."""
+    ml1M@1.0 hop (k=30 forward and reverse edges, beam 32). A state that
+    fits no block beside a ring goes to global memory, and the ring alone
+    is budgeted; the fused hop (no ring) places its state by the same
+    rule."""
     tune.clear()
     try:
         p = tune.hop_params(6038, W, beam, kdeg)
     finally:
         tune.clear()
+    want = "global" if (W, beam, kdeg) in GLOBAL_STATE else "shared"
+    placement = tune.state_placement(W, kdeg, beam,
+                                     p.score_chunk * p.n_buffers)
+    assert placement == want
+    assert tune.state_placement(W, kdeg, beam, 0) == want
     assert p.block_q >= 1 and p.score_chunk >= 1
     assert 1 <= p.n_buffers <= tune.MAX_BUFFERS
     total = tune.smem_bytes(W, kdeg, beam, p.block_q, p.score_chunk,
-                            p.n_buffers)
+                            p.n_buffers, placement)
     assert total <= tune.SMEM_LIMIT
-    if tune.smem_bytes(W, kdeg, beam, 1, 1, 1) <= tune.TWO_PER_SM:
+    if tune.smem_bytes(W, kdeg, beam, 1, 1, 1, placement) <= tune.TWO_PER_SM:
         assert total <= tune.TWO_PER_SM
+    if want == "global":  # the block holds the ring and its barriers alone
+        assert total == (p.score_chunk * p.n_buffers * W * 4
+                         + 2 * tune.MAX_BUFFERS * 8)
+        assert tune.workspace_stride(W, kdeg, beam) % 256 == 0
+        assert (tune.workspace_stride(W, kdeg, beam)
+                >= tune.state_bytes(W, kdeg, beam, 0) > tune.SMEM_LIMIT)
     C = beam * kdeg
     assert p.score_chunk <= C
     assert p.n_buffers == (1 if C <= p.score_chunk else 2)

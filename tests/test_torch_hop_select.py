@@ -28,6 +28,7 @@ from repro_torch.knn.topk import merge_topk, select_topk  # noqa: E402
 from repro_torch.types import NEG_INF, PAD_ID  # noqa: E402
 
 WARPS = 16
+MAX_LIST_BEAM = 512  # wider beams take the radix select (hop_common.cuh)
 ABSENT = -(2 ** 63)  # the kernels' key 0, as a signed int64
 SIMS = np.float32([0.0, -0.0, 0.125, 0.5, 1 / 3, 0.9, 1.0, NEG_INF])
 
@@ -99,6 +100,37 @@ def warp_top(keys: list, B: int, KP: int, low: int) -> list:
     return topk_keys(lst + buf, KP) if buf else lst
 
 
+def radix_select(keys: list, B: int) -> list:
+    """``select_beam<0>``, the kernels' selection for beams above 512
+    lanes: the B-th largest key by 8 passes of 8 bits from the top (a
+    histogram of the keys matching the digits found so far; the digit
+    holding the rank sought), then the nonzero keys at or above it, each
+    placed at its rank (the count of those above it); PAD slots after.
+    Keys are the kernels' unsigned 64-bit keys, here as signed int64
+    (ABSENT is unsigned 0)."""
+    u = [k + 2 ** 63 for k in keys]  # unsigned order
+    prefix = mask = 0
+    need = B
+    for shift in range(56, -1, -8):
+        hist = [0] * 256
+        for x in u:
+            if x & mask == prefix:
+                hist[(x >> shift) & 255] += 1
+        above, d = 0, 255
+        while d > 0 and above + hist[d] < need:
+            above += hist[d]
+            d -= 1
+        prefix |= d << shift
+        mask |= 255 << shift
+        need -= above
+    chosen = [x for x in u if x != 0 and x >= prefix]
+    assert len(chosen) <= B
+    out = [ABSENT] * B
+    for x in chosen:
+        out[sum(y > x for y in chosen)] = x - 2 ** 63
+    return out
+
+
 def kernel_select(beam_ids, beam_sims, cand_ids, cand_sims, B, rng,
                   dead=frozenset()):
     """The kernels' hop for one query from its beam (live ids or PAD) and
@@ -121,18 +153,21 @@ def kernel_select(beam_ids, beam_sims, cand_ids, cand_sims, B, rng,
     keys = keys.tolist()
     thr0 = min(keys[:B])
     low = thr0 - 1 if thr0 != ABSENT else ABSENT
-    KP = 32
-    while KP < B:
-        KP *= 2
-    tiles = -(-len(keys) // 32)
-    per = -(-tiles // WARPS)
-    lists = [warp_top(keys[w * per * 32:(w + 1) * per * 32], B, KP, low)
-             for w in range(WARPS)]
-    while len(lists) > 1:  # the tree: warp w merges warp w + half's list
-        half = len(lists) // 2
-        lists = [topk_keys(lists[w] + lists[w + half], KP)
-                 for w in range(half)]
-    top = torch.tensor(lists[0][:B], dtype=torch.int64)
+    if B > MAX_LIST_BEAM:
+        top = torch.tensor(radix_select(keys, B), dtype=torch.int64)
+    else:
+        KP = 32
+        while KP < B:
+            KP *= 2
+        tiles = -(-len(keys) // 32)
+        per = -(-tiles // WARPS)
+        lists = [warp_top(keys[w * per * 32:(w + 1) * per * 32], B, KP, low)
+                 for w in range(WARPS)]
+        while len(lists) > 1:  # the tree: warp w merges warp w + half's
+            half = len(lists) // 2
+            lists = [topk_keys(lists[w] + lists[w + half], KP)
+                     for w in range(half)]
+        top = torch.tensor(lists[0][:B], dtype=torch.int64)
     col, sim = key_parts(top)
     ids = torch.where(col >= 0, torch.from_numpy(lane_ids)[col.clamp(min=0)
                                                            .long()], PAD_ID)
@@ -230,7 +265,7 @@ def test_hash_table_keeps_each_ids_lowest_column():
 
 
 @pytest.mark.parametrize("B,C", [(1, 60), (5, 300), (32, 1920), (33, 200),
-                                 (64, 1000)])
+                                 (64, 1000), (513, 1500), (1024, 3000)])
 def test_selection_matches_merge_topk(B, C):
     rng = np.random.default_rng(B * 1000 + C)
     for _ in range(6):
@@ -250,6 +285,29 @@ def test_selection_property():
     def battery(seed, B, C, n, pad_beam, pad_cand):
         check(np.random.default_rng(seed), n, B, C, pad_beam=pad_beam,
               pad_cand=pad_cand)
+
+    battery()
+
+
+def test_radix_select_property():
+    """The radix select keeps exactly the top B keys in order, over keys
+    with shared high digits, absent (zero) keys and fewer present keys
+    than B."""
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    @settings(max_examples=80, deadline=None, database=None)
+    @given(seed=st.integers(0, 2**31 - 1), n=st.integers(1, 300),
+           B=st.integers(1, 300), absent=st.sampled_from([0.0, 0.3, 1.0]))
+    def battery(seed, n, B, absent):
+        rng = np.random.default_rng(seed)
+        sims = torch.from_numpy(rng.choice(SIMS, size=n))
+        sims[torch.from_numpy(rng.random(n) < absent)] = NEG_INF
+        keys = sim_keys(sims, torch.from_numpy(rng.permutation(n))).tolist()
+        B = min(B, n)  # the kernels select B of B + n_work >= B keys
+        assert radix_select(keys, B) == topk_keys(
+            [k for k in keys if k != ABSENT], B)
 
     battery()
 

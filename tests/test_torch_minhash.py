@@ -1,10 +1,11 @@
 """The port's FastRandomHash held bitwise against the JAX reference.
 
-The plain version (what the CUDA kernel is checked against on the card)
-and the CPU dispatch of ``ops.minhash`` against ``repro``'s ``minhash_ref``
-and its Pallas kernel in interpret mode; ``dataset_minhash`` against the
-host CSR segment-min; ``user_min_hash_torch`` against
-``user_min_hash_jnp``.
+The plain versions (what the CUDA kernel's two entries are checked against
+on the card) and the CPU dispatch of ``ops.minhash`` against ``repro``'s
+``minhash_ref`` and its Pallas kernel in interpret mode;
+``dataset_minhash`` (the CSR entry) against the host CSR segment-min and
+``repro``'s ``dataset_minhash``; the CSR entry's plain version against the
+padded one's; ``user_min_hash_torch`` against ``user_min_hash_jnp``.
 """
 import pytest
 
@@ -68,15 +69,61 @@ def test_minhash_wraps_uint32_seeds_and_items():
 
 
 def test_dataset_minhash_matches_host_csr():
+    _check_dataset_minhash(4, 1024)
+
+
+@pytest.mark.parametrize("t,b", [(1, 256), (32, 1 << 31)])
+def test_dataset_minhash_seeds_and_widths(t, b):
+    _check_dataset_minhash(t, b)
+
+
+def _check_dataset_minhash(t, b):
+    """``dataset_minhash`` (the CSR entry's plain version on the CPU)
+    against the host CSR segment-min of both packages and against
+    ``repro``'s ``dataset_minhash`` (its Pallas kernel in interpret mode
+    over the padded profiles), with empty users among them."""
     ds = make_dataset("ml1M", scale=0.08, seed=7)
-    seeds = np.arange(4, dtype=np.int32)
-    host = hashing.user_min_hash_np(hashing.item_hashes(ds.items, seeds, 1024),
+    keep = np.ones(ds.n_users, bool)
+    keep[[0, 5, ds.n_users - 1]] = False  # empty profiles: NO_HASH
+    sizes = np.where(keep, np.diff(ds.offsets), 0)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    items = ds.items[np.repeat(keep, np.diff(ds.offsets))]
+    ds = type(ds)(name=ds.name, n_users=ds.n_users, n_items=ds.n_items,
+                  items=items, offsets=offsets)
+    seeds = np.arange(t, dtype=np.int32) * 3 - 1
+    host = hashing.user_min_hash_np(hashing.item_hashes(ds.items, seeds, b),
                                     ds.offsets)
-    got = mh_ops.dataset_minhash(ds, seeds, 1024, device="cpu")
-    assert got.dtype == np.int32 and got.shape == (4, ds.n_users)
+    got = mh_ops.dataset_minhash(ds, seeds, b, device="cpu")
+    assert got.dtype == np.int32 and got.shape == (t, ds.n_users)
     np.testing.assert_array_equal(got, host)
     np.testing.assert_array_equal(got, r_hashing.user_min_hash_np(
-        r_hashing.item_hashes(ds.items, seeds, 1024), ds.offsets))
+        r_hashing.item_hashes(ds.items, seeds, b), ds.offsets))
+    np.testing.assert_array_equal(got, r_mh_ops.dataset_minhash(ds, seeds, b))
+    assert (got[:, [0, 5, ds.n_users - 1]] == int(hashing.NO_HASH)).all()
+
+
+def test_minhash_csr_ref_matches_padded():
+    """The two entries' plain versions agree on CSR rows and their padded
+    copies: items near 2^31 - 1, one-item and empty users, offsets of
+    every residue mod 4."""
+    rng = np.random.default_rng(12)
+    sizes = rng.integers(0, 9, size=50)
+    sizes[:4] = (0, 1, 1, 0)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    items = rng.integers(2**31 - 40, 2**31, size=int(offsets[-1])).astype(
+        np.int32)
+    padded = np.full((50, int(sizes.max())), PAD_ID, np.int32)
+    for u in range(50):
+        padded[u, :sizes[u]] = items[offsets[u]:offsets[u + 1]]
+    for t, b in ((1, 256), (8, 4096), (32, 1 << 31)):
+        seeds = np.arange(t, dtype=np.int32) + 7
+        got = mh_ops.minhash_csr(torch.from_numpy(offsets),
+                                 torch.from_numpy(items), seeds, b)
+        want = mh_ref.minhash_ref(torch.from_numpy(padded), seeds, b)
+        assert got.dtype == torch.int32 and got.shape == (50, t)
+        assert torch.equal(got, want)
+        assert torch.equal(got, mh_ref.minhash_csr_ref(
+            torch.from_numpy(offsets), torch.from_numpy(items), seeds, b))
 
 
 def test_user_min_hash_torch_matches_jnp():
