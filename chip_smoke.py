@@ -48,6 +48,23 @@ Phases, each fatal on failure:
    hashing and the padded entry. Each path is driven with the launch counts
    set to 0 just before it and read just after, and each kernel must have
    launched on its path. A small build on the card must equal the CPU's;
+4b. mutable index — over the same paper index, ``knn_serve --insert 256
+   --churn 128 --repair-every 1`` of the 2,048 profiles five ways (plain,
+   fused and DMA hop in waves; DMA and plain hop through 256 continuous
+   slots): equal served ids and sims rid by rid, equal mutated index
+   (rows, cluster tables, version); ``--continuous --slots 256 --ttl 8``,
+   plain against DMA hop, with rows expiring mid-serve; inserts past
+   ``capacity_of(n, 64)`` on ml1M@0.05, in waves and between continuous
+   ticks, plain against DMA hop. On every path the plan's journal-synced
+   device tables equal a fresh upload, no request is served an id that
+   was tombstoned when it was served, and each kernel path launched its
+   hop. Then the scrub comparator through the plain, fused and DMA hops;
+   the host clock of one insert, delete, update and repair pass; and the
+   build's quality: ``brute_force_knn`` of ml1M@1.0 at k=30 through the
+   cluster-KNN kernel, bitwise against its plain version and timed, the
+   exact-Jaccard ``avg_sim`` of the C² and brute-force graphs (equal on
+   the card and the CPU) and their ratio (paper Eq. 2), which must lie in
+   (0, 1.05], beside the C² build's time;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -65,6 +82,7 @@ Prints one ``{"kernels": [...]}`` JSON line, then as the last line
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -866,7 +884,8 @@ def main_path(dev, tmp: Path) -> dict:
     wide_beam_serves(serve_args)
     launches["frh_minhash"] = minhash_path()
     return {"launches": launches, "built": built, "engine": engine,
-            "cont_engine": cont_engine, "serves": serves}
+            "cont_engine": cont_engine, "serves": serves,
+            "serve_args": serve_args, "index_path": index_path}
 
 
 def wide_beam_serves(serve_args) -> None:
@@ -1030,6 +1049,504 @@ def small_build_matches_cpu() -> None:
     log("[main] ml1M@0.05 graph: card == CPU plain path, bitwise")
 
 
+# -- phase 4b: the mutable index -------------------------------------------
+
+MUTATION_FLAGS = ["--insert", "256", "--churn", "128", "--repair-every", "1"]
+# (name, knn_serve flags, the hop kernel the path must launch)
+MUTATION_PATHS = (
+    ("wave x jnp", [], None),
+    ("wave x pallas", ["--kernel"], "descent_hop"),
+    ("wave x pallas_dma", ["--kernel", "--dma"], "descent_hop_dma"),
+    ("continuous x pallas_dma",
+     ["--continuous", "--slots", "256", "--kernel", "--dma"],
+     "descent_hop_dma"),
+    ("continuous x jnp", ["--continuous", "--slots", "256"], None),
+)
+STATE = ("graph_ids", "graph_sims", "rev_ids", "words", "card", "tombstone",
+         "cluster_paths", "cluster_config", "cluster_members",
+         "cluster_offsets")
+
+
+@contextlib.contextmanager
+def served_watch(counter: dict):
+    """Within the block, every request the plans' ``step`` completes is
+    checked against its index's tombstone mask of that moment (the
+    engine's between-step maintenance runs after the step): no served id
+    may be dead when served. Adds the requests checked to
+    ``counter["checked"]``."""
+    from repro_torch.query import plan as plan_mod
+    from repro_torch.types import PAD_ID
+
+    plain_step = plan_mod.DescentPlan.step
+
+    def step(plan, queue, done):
+        before = len(done)
+        n = plain_step(plan, queue, done)
+        tomb = plan.index.tombstone
+        for r in done[before:]:
+            if tomb[r.ids[r.ids != PAD_ID]].any():
+                fail(f"request {r.rid} was served an id tombstoned at the "
+                     f"time it was served")
+            counter["checked"] += 1
+        return n
+
+    plan_mod.DescentPlan.step = step
+    try:
+        yield
+    finally:
+        plan_mod.DescentPlan.step = plain_step
+
+
+def index_state(index) -> dict:
+    """The mutated index's rows, cluster tables (online members folded
+    in) and version."""
+    index.consolidate()
+    state = {name: getattr(index, name).copy() for name in STATE}
+    state["version"] = index.version
+    return state
+
+
+def same_state(a: dict, b: dict) -> list:
+    """Names of the entries that differ."""
+    import numpy as np
+
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+def check_tables_fresh(engine, label: str) -> None:
+    """The plan's journal-synced device tables equal a fresh padded upload
+    of the same (mutated) index."""
+    import torch
+
+    from repro_torch.query.plan import DescentPlan
+
+    synced = engine.plan.sync()
+    fresh = DescentPlan(engine.index, engine.plan.spec,
+                        device=engine.plan.device).sync()
+    for name, a, b in zip(("graph_ids", "rev_ids", "words", "card",
+                           "tombstone"), synced, fresh):
+        if a.shape != b.shape or not torch.equal(a, b):
+            fail(f"{label}: synced {name} differs from a fresh upload")
+
+
+def check_path_launches(label: str, counts: dict, kernel) -> None:
+    hops = ("descent_hop", "descent_hop_dma")
+    if kernel is None:
+        if any(counts[h] for h in hops):
+            fail(f"{label} (plain hop) launched {counts}")
+    elif counts[kernel] <= 0 or any(counts[h] for h in hops if h != kernel):
+        fail(f"{label} launched {counts}: not the {kernel} kernel alone")
+
+
+def mutation_serves(serve_args) -> dict:
+    """``knn_serve --insert 256 --churn 128 --repair-every 1`` over the
+    paper index, five ways: plain, fused and DMA hop in waves, DMA and
+    plain hop under continuous batching (256 slots). All serve the same
+    ids and sims rid by rid and leave the same mutated index; each plan's
+    synced tables equal a fresh upload; no request is served an id dead
+    when it was served; each kernel path launched its hop."""
+    import numpy as np
+
+    from repro_torch.launch import knn_serve
+
+    base, engines, watched = None, {}, {"checked": 0}
+    for name, extra, kernel in MUTATION_PATHS:
+        reset_launches()
+        t0 = time.perf_counter()
+        with served_watch(watched):
+            stats, recall, engine = knn_serve.main(
+                serve_args + MUTATION_FLAGS + extra)
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        check_path_launches(name, counts, kernel)
+        check_tables_fresh(engine, name)
+        ids, sims, rids = served(engine)
+        state = index_state(engine.index)
+        if base is None:
+            if rids != list(range(2048)) or ids.shape != (2048, 10):
+                fail(f"mutation serve {name}: rids {rids[:5]}..., "
+                     f"{ids.shape}")
+            lc = stats["lifecycle"]
+            if (stats["inserted"] != 256 or lc["removed"] != 128
+                    or lc["updated"] != 128 or lc["repairs"] < 1
+                    or stats["refreshes"] != 4):
+                fail(f"mutation serve {name}: inserted "
+                     f"{stats['inserted']}, refreshes {stats['refreshes']}, "
+                     f"lifecycle {lc}")
+            if not 0.5 <= recall <= 1.0:
+                fail(f"mutation serve recall@10 {recall:.3f} outside "
+                     f"[0.5, 1]")
+            base = (ids, sims, state, name)
+        else:
+            if not (np.array_equal(ids, base[0])
+                    and np.array_equal(sims, base[1])):
+                bad = int((~((ids == base[0])
+                             & (sims == base[1])).all(1)).sum())
+                fail(f"mutation serve {name} differs from {base[3]} in "
+                     f"{bad} requests")
+            diff = same_state(state, base[2])
+            if diff:
+                fail(f"mutation serve {name}: mutated index differs from "
+                     f"{base[3]} in {diff}")
+        engines[name] = engine
+        log(f"[mutable] {name}: {serve_line('serve', stats, recall)}; "
+            f"launches {counts}; sync {engine.plan.sync_stats}; "
+            f"{seconds:.1f} s in all"
+            + ("" if base[3] == name else f"; bitwise equal to {base[3]} "
+               f"(served ids, sims, index rows, cluster tables, version "
+               f"{state['version']})"))
+    nearest_sims(engines["wave x jnp"], serve_args)
+    log(f"[mutable] lifecycle after the churn: "
+        f"{engines['wave x jnp'].lifecycle.stats()}; "
+        f"{watched['checked']} served requests checked against the "
+        f"tombstones of their moment, synced tables equal a fresh upload "
+        f"on every path")
+    return engines
+
+
+def nearest_sims(engine, serve_args) -> None:
+    """Why the mutated index serves a higher recall: the mean exact top-1
+    and top-10 GoldFinger sims of the 2,048 queries (the query set,
+    ml1M@1.0 seed 1) over the paper index (seed 0) and over the mutated
+    index, whose inserts and updates carry query-set profiles."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.query.index import KNNIndex
+    from repro_torch.query.router import fingerprint_profiles, profiles_to_csr
+    from repro_torch.query.search import exact_knn
+
+    qds = make_dataset("ml1M", scale=1.0, seed=1)
+    items, offsets = profiles_to_csr([qds.profile(u) for u in range(2048)])
+    line = []
+    for name, ix in (("paper index", KNNIndex.load(
+            serve_args[serve_args.index("--index") + 1])),
+                     ("mutated index", engine.index)):
+        qgf = fingerprint_profiles(items, offsets, ix.n_bits, ix.fp_seed)
+        _, sims = exact_knn(ix.words, ix.card, qgf.words, qgf.card, 10,
+                            tomb=ix.tombstone, device=engine.plan.device)
+        line.append(f"{name} {np.mean(sims[:, 0]):.4f} / "
+                    f"{np.mean(sims[:, 9]):.4f}")
+    log("[mutable] mean exact top-1 / top-10 sim of the 2,048 queries: "
+        + ", ".join(line))
+
+
+def ttl_serves(serve_args) -> None:
+    """``--continuous --slots 256 --ttl 8``: rows untouched for 8 steps
+    expire between ticks while requests are in flight; the plain hop and
+    the DMA hop serve the same ids and sims and expire the same rows."""
+    import numpy as np
+
+    from repro_torch.launch import knn_serve
+
+    extra = ["--continuous", "--slots", "256", "--ttl", "8"]
+    runs, watched = [], {"checked": 0}
+    for name, kernel_flags, kernel in (
+            ("continuous x jnp", [], None),
+            ("continuous x pallas_dma", ["--kernel", "--dma"],
+             "descent_hop_dma")):
+        reset_launches()
+        with served_watch(watched):
+            stats, _, engine = knn_serve.main(serve_args + extra
+                                              + kernel_flags)
+        counts = read_launches()
+        check_path_launches(f"TTL {name}", counts, kernel)
+        check_tables_fresh(engine, f"TTL {name}")
+        runs.append((served(engine), index_state(engine.index),
+                     stats["lifecycle"], name, counts))
+    (a, sa, la, name_a, _), (b, sb, lb, name_b, counts) = runs
+    if la["expired"] <= 0 or la != lb:
+        fail(f"TTL serves expired {la['expired']} / {lb['expired']} rows")
+    if a[2] != b[2] or not (np.array_equal(a[0], b[0])
+                            and np.array_equal(a[1], b[1])):
+        fail(f"TTL {name_b} serves differently from {name_a}")
+    if same_state(sa, sb):
+        fail(f"TTL {name_b} leaves another index: {same_state(sa, sb)}")
+    log(f"[mutable] TTL 8 under continuous batching: {la['expired']} rows "
+        f"expired mid-serve, {name_b} (launches {counts}) bitwise equal to "
+        f"{name_a}, rid by rid, and the same expired index; "
+        f"{watched['checked']} requests checked against the tombstones of "
+        f"their moment")
+
+
+def capacity_crossing(dev, tmp: Path) -> None:
+    """Inserts that take a small index (ml1M@0.05, 302 users, k=10) past
+    ``capacity_of(n, 64)`` = 512 rows: in waves (all inserts, then 256
+    queries) and under continuous batching (64 slots, 40 inserts between
+    ticks, so the crossing lands while slots are in flight), plain against
+    DMA hop. The plan re-uploads in full at the crossing and its tables
+    then equal a fresh upload; the answers after it agree bitwise."""
+    import numpy as np
+
+    from repro_torch.core.local_knn import capacity_of
+    from repro_torch.core.params import params_for
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.query.engine import QueryConfig, QueryEngine, QueryRequest
+    from repro_torch.query.index import KNNIndex, build_index
+
+    path = tmp / "small.npz"
+    build_index(make_dataset("ml1M", scale=0.05, seed=0),
+                params_for("ml1M", k=10), device=dev).save(path)
+    qds = make_dataset("ml1M", scale=1.0, seed=2)
+    n0 = KNNIndex.load(path).n
+    cap = capacity_of(n0, minimum=64)
+    n_ins = cap - n0 + 8
+    for batching, kw in (("wave", {}),
+                         ("continuous", dict(continuous=True, slots=64))):
+        out = []
+        for scorer, skw in (("jnp", {}), ("pallas_dma",
+                                          dict(kernel=True, dma=True))):
+            eng = QueryEngine(KNNIndex.load(path),
+                              QueryConfig(k=10, beam=32, hops=3, **kw,
+                                          **skw), device=dev)
+            crossed = []
+            done_ins = [0]
+
+            def insert_some(engine, tick, many=40):
+                for _ in range(min(many, n_ins - done_ins[0])):
+                    engine.insert(qds.profile(6000 - done_ins[0]))
+                    done_ins[0] += 1
+                    if engine.index.n > cap and not crossed:
+                        crossed.append(engine.plan.busy())
+
+            if batching == "wave":
+                insert_some(eng, 0, many=n_ins)
+            for rid in range(256):
+                eng.submit(QueryRequest(rid=rid, profile=qds.profile(rid)))
+            eng.run(on_tick=insert_some)
+            if done_ins[0] != n_ins or eng.index.n != n0 + n_ins:
+                fail(f"capacity crossing ({batching}): {done_ins[0]} "
+                     f"inserts, n {eng.index.n}")
+            if batching == "continuous" and crossed != [True]:
+                fail("capacity crossing landed with no slot in flight")
+            sync = eng.plan.sync_stats
+            tables = eng.plan.sync()
+            if sync["full_uploads"] < 2 or tables[0].shape[0] != 2 * cap:
+                fail(f"capacity crossing ({batching} x {scorer}): sync "
+                     f"{sync}, table rows {tables[0].shape[0]}")
+            check_tables_fresh(eng, f"capacity crossing ({batching})")
+            ids, sims, rids = served(eng)
+            out.append((ids, sims, rids, index_state(eng.index), sync))
+        (a_ids, a_sims, a_rids, a_st, a_sync), (b_ids, b_sims, b_rids, b_st,
+                                                b_sync) = out
+        if (a_rids != b_rids or not np.array_equal(a_ids, b_ids)
+                or not np.array_equal(a_sims, b_sims) or same_state(a_st,
+                                                                     b_st)):
+            fail(f"capacity crossing ({batching}): the DMA hop serves or "
+                 f"mutates differently from the plain hop")
+        log(f"[mutable] capacity crossing ({batching}): {n_ins} inserts "
+            f"take n {n0} -> {n0 + n_ins} past {cap} rows; sync plain "
+            f"{a_sync}, DMA {b_sync}; tables {2 * cap} rows, equal to a "
+            f"fresh upload; 256 queries bitwise equal, plain and DMA hop")
+
+
+def time_mutations(engine) -> dict:
+    """Host clock of one insert, one delete, one update and one repair
+    pass on the paper index (``--kernel`` engine, after its serve), and
+    the hop launches each makes."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_dataset
+
+    qds = make_dataset("ml1M", scale=1.0, seed=3)
+    ix = engine.index
+    spent, launched = {}, {}
+
+    def timed(key, calls):
+        reset_launches()
+        times = []
+        for call in calls:
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+        spent[key] = statistics.median(times) * 1e3
+        launched[key] = read_launches()["descent_hop"] / len(calls)
+
+    # The inserts' host clock split by part: the module functions the
+    # engine and the plan call, and the plan's and the index's methods.
+    from repro_torch.query import engine as engine_mod
+    from repro_torch.query import plan as plan_mod
+
+    parts = dict.fromkeys(("fingerprint_profiles", "placements", "route",
+                           "descend_rows", "append_user"), 0.0)
+    saved = (engine_mod.fingerprint_profiles, engine_mod.placements,
+             plan_mod.route)
+    engine_mod.fingerprint_profiles = timed_calls(
+        parts, "fingerprint_profiles", saved[0])
+    engine_mod.placements = timed_calls(parts, "placements", saved[1])
+    plan_mod.route = timed_calls(parts, "route", saved[2])
+    engine.plan.descend_rows = timed_calls(parts, "descend_rows",
+                                           engine.plan.descend_rows)
+    ix.append_user = timed_calls(parts, "append_user", ix.append_user)
+    try:
+        t0 = time.perf_counter()
+        timed("insert", [lambda m=m: engine.insert(qds.profile(m))
+                         for m in range(17)])
+        total = time.perf_counter() - t0
+    finally:
+        (engine_mod.fingerprint_profiles, engine_mod.placements,
+         plan_mod.route) = saved
+        del engine.plan.descend_rows, ix.append_user
+    log("[mutable] 17 inserts, host clock per insert by part: "
+        + ", ".join(f"{k} {v / 17 * 1e3:.2f} ms" for k, v in parts.items())
+        + f", rest {(total - sum(parts.values())) / 17 * 1e3:.2f} ms")
+    alive = ix.alive_ids()
+    victims = alive[np.linspace(0, len(alive) - 1, 34, dtype=np.int64)]
+    timed("delete", [lambda u=u: engine.remove_user(int(u))
+                     for u in victims[0::2]])
+    timed("update", [lambda m=m, u=u: engine.update_user(
+        int(u), qds.profile(100 + m)) for m, u in enumerate(victims[1::2])])
+    n_cohort = len(engine.lifecycle._touched)
+    relinked = engine.lifecycle.n_relinked
+    timed("repair", [engine.lifecycle.repair])
+    log("[mutable] host clock on the ml1M@1.0 index (x pallas), median: "
+        + ", ".join(f"{k} {v:.2f} ms ({launched[k]:.1f} hop launches)"
+                    for k, v in spent.items())
+        + f"; the repair pass re-linked "
+        f"{engine.lifecycle.n_relinked - relinked} of the {n_cohort} rows "
+        f"its cohort of 17 inserts, deletes and updates touched")
+    return spent
+
+
+def scrub_comparator(engine) -> None:
+    """Descending 256 queries over ``scrub_dead_references(copy)`` with no
+    mask equals descending the churned index under its tombstone mask:
+    plain, fused and DMA hop."""
+    import copy
+
+    import torch
+
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.lifecycle import scrub_dead_references
+    from repro_torch.query.plan import DescentPlan
+    from repro_torch.query.router import (fingerprint_profiles,
+                                          profiles_to_csr, route)
+    from repro_torch.query.search import batched_descent
+    from repro_torch.sketch.goldfinger import words_tensor
+
+    ix = engine.index
+    scrubbed = copy.deepcopy(ix)
+    lanes = scrub_dead_references(scrubbed)
+    qds = make_dataset("ml1M", scale=1.0, seed=1)
+    items, offsets = profiles_to_csr([qds.profile(u) for u in range(256)])
+    qgf = fingerprint_profiles(items, offsets, ix.n_bits, ix.fp_seed)
+    dev = engine.plan.device
+    seeds = torch.from_numpy(route(ix, items, offsets, 16)).to(dev)
+    qw = words_tensor(qgf.words, dev)
+    qc = torch.from_numpy(qgf.card).to(dev)
+    masked = engine.plan.sync()
+    clean = DescentPlan(scrubbed, engine.plan.spec, device=dev).sync()
+    for name, kw, kernel in (("plain", {}, None),
+                             ("fused", {"kernel": True}, "descent_hop"),
+                             ("DMA", {"kernel": True, "dma": True},
+                              "descent_hop_dma")):
+        reset_launches()
+        a = batched_descent(*masked[:4], qw, qc, seeds, k=10, beam=32,
+                            hops=3, tomb=masked[4], **kw)
+        b = batched_descent(*clean[:4], qw, qc, seeds, k=10, beam=32,
+                            hops=3, tomb=None, **kw)
+        check_path_launches(f"scrub comparator ({name})", read_launches(),
+                            kernel)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"scrub comparator ({name} hop): masked descent differs "
+                 f"from descent over the scrubbed copy")
+    log(f"[mutable] scrub comparator: {int(ix.tombstone.sum())} dead rows, "
+        f"{lanes} lanes scrubbed; 256 queries descend bitwise equal, masked "
+        f"against scrubbed, through the plain, fused and DMA hops")
+
+
+def brute_force_quality(dev, built, index_path: str) -> dict:
+    """The ml1M@1.0 brute-force graph at k=30 through the cluster-KNN
+    kernel (``knn/brute_force``), bitwise against its plain version on the
+    card, with its launches counted and timed; then the exact-Jaccard
+    ``avg_sim`` of the C² graph and of the brute-force graph, and the
+    quality ratio (paper Eq. 2)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.eval.metrics import exact_avg_sim, quality
+    from repro_torch.kernels.goldfinger_knn import ops, ref
+    from repro_torch.knn.brute_force import brute_force_knn, n_similarities
+    from repro_torch.query.index import KNNIndex
+    from repro_torch.sketch.goldfinger import GoldFinger, words_tensor
+
+    index = KNNIndex.load(index_path)
+    gf = GoldFinger(words=index.words, card=index.card)
+    k, n, block = 30, index.n, 512
+    brute_force_knn(gf, k, device=dev)  # warm
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf = brute_force_knn(gf, k, block=block, device=dev)
+    host_s = time.perf_counter() - t0
+    launches = read_launches()["goldfinger_knn"]
+    if launches != -(-n // block):
+        fail(f"brute force launched cluster-KNN {launches} times, expected "
+             f"{-(-n // block)}")
+    words = words_tensor(gf.words, dev)
+    card = torch.from_numpy(gf.card).to(dev)
+    all_ids = torch.arange(n, dtype=torch.int32, device=dev)
+    blocks = [(words[s:s + block], card[s:s + block], all_ids[s:s + block])
+              for s in range(0, n, block)]
+    plain = [ref.knn_ref(w, c, i, words, card, all_ids, k)
+             for w, c, i in blocks]
+    p_ids = torch.cat([p[0] for p in plain]).cpu().numpy()
+    p_sims = torch.cat([p[1] for p in plain]).cpu().numpy()
+    if not (np.array_equal(bf.ids, p_ids) and np.array_equal(bf.sims,
+                                                             p_sims)):
+        fail("brute force through the cluster-KNN kernel differs from the "
+             "plain version")
+    err = max_abs_err(torch.from_numpy(bf.sims), torch.from_numpy(p_sims))
+    dev_ms = cuda_ms(lambda: [ops.knn(w, c, i, words, card, all_ids, k)
+                              for w, c, i in blocks], reps=5, hold=True)
+    plain_ms = cuda_ms(lambda: [ref.knn_ref(w, c, i, words, card, all_ids, k)
+                                for w, c, i in blocks], reps=3)
+    ds = make_dataset("ml1M", scale=1.0, seed=0)
+    c2 = built["graph"]
+    t0 = time.perf_counter()
+    a_c2 = exact_avg_sim(ds, c2, device=dev)
+    avg_s = time.perf_counter() - t0
+    a_bf = exact_avg_sim(ds, bf, device=dev)
+    q = quality(ds, c2, bf, device=dev)
+    if not (math.isfinite(q) and 0 < q <= 1.05):
+        fail(f"quality {q} is not finite in (0, 1.05]")
+    if exact_avg_sim(ds, c2, device="cpu") != a_c2:
+        fail("exact avg_sim of the C2 graph on the card differs from the "
+             "CPU's")
+    log(f"[quality] brute force ml1M@1.0 k={k}: {launches} cluster-KNN "
+        f"launches (blocks of {block} rows x {n}), bitwise equal to the "
+        f"plain version; {dev_ms:.4f} ms of device time (plain "
+        f"{plain_ms:.4f} ms), {host_s * 1e3:.1f} ms host clock in all; "
+        f"{n_similarities(n)} similarities against the C2 build's "
+        f"{built['plan'].brute_force_sims()}")
+    log(f"[quality] exact avg_sim: C2 {a_c2!r}, brute force {a_bf!r}, "
+        f"quality (Eq. 2) {q!r} (GoldFinger estimate of C2's "
+        f"{c2.avg_sim():.4f}); one exact avg_sim {avg_s * 1e3:.1f} ms, "
+        f"equal on the card and the CPU")
+    log(f"[quality] speed-up of C2 over brute force: the C2 build "
+        f"{built['seconds']:.3f} s (clustering, Step 2, merge), brute force "
+        f"{host_s:.4f} s: {host_s / built['seconds']:.4f}x")
+    return {"launches": launches, "ms": dev_ms, "err": err}
+
+
+def mutable_index(dev, run: dict, tmp: Path) -> dict:
+    """Phase 4b: the mutable index and the build's quality, on the paper
+    index of phase 4."""
+    t0 = time.perf_counter()
+    serve_args = run["serve_args"]
+    engines = mutation_serves(serve_args)
+    ttl_serves(serve_args)
+    capacity_crossing(dev, tmp)
+    scrub_comparator(engines["wave x pallas_dma"])
+    time_mutations(engines["wave x pallas"])
+    out = brute_force_quality(dev, run["built"], run["index_path"])
+    log(f"[mutable] phase 4b: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -- phase 5: timing at the main path's shapes -----------------------------
 
 def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
@@ -1184,7 +1701,7 @@ def time_hops(dev, engine, launches: dict) -> tuple[list, float]:
     from repro_torch.sketch.goldfinger import words_tensor
 
     plan = engine.plan
-    graph, rev, words, card, tomb = plan.tables()
+    graph, rev, words, card, tomb = plan.sync()
     qds = make_dataset("ml1M", scale=1.0, seed=1)
     profiles = [qds.profile(u) for u in range(plan.spec.max_wave)]
     # Where one wave's time goes: host fingerprinting and routing, then
@@ -1257,7 +1774,7 @@ def time_hops(dev, engine, launches: dict) -> tuple[list, float]:
 
     n_scored = int(k_out[2].sum())
     kg, W = graph.shape[1], words.shape[1]
-    shape = (f"first hop of a 256-query ml1M@1.0 wave: n={graph.shape[0]} "
+    shape = (f"first hop of a 256-query ml1M@1.0 wave: n={engine.index.n} "
              f"W={W} B={beam_ids.shape[1]} kg=kr={kg}, {n_scored} lanes "
              f"scored")
     rows = []
@@ -1469,6 +1986,7 @@ def main() -> int:
     small_build_matches_cpu()
     with tempfile.TemporaryDirectory() as tmp:
         run = main_path(dev, Path(tmp))
+        bf = mutable_index(dev, run, Path(tmp))
         launches = run["launches"]
         ck_row, err_ck_main = time_cluster_knn(
             dev, run["built"], run["engine"].index, launches["goldfinger_knn"])
@@ -1477,7 +1995,7 @@ def main() -> int:
         mh_row, err_mh_main = time_minhash(dev, launches["frh_minhash"])
         tick_breakdown(run["cont_engine"])
         build_stages(run["engine"])
-    ck_row["max_abs_err"] = max(err_ck, err_ck_main)
+    ck_row["max_abs_err"] = max(err_ck, err_ck_main, bf["err"])
     hop_row["max_abs_err"] = max(err_hop, err_shapes, err_hops)
     dma_row["max_abs_err"] = max(err_dma, err_shapes, err_hops)
     mh_row["max_abs_err"] = max(err_mh, err_mh_main)

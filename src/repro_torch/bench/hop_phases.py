@@ -339,7 +339,7 @@ def first_hop_args(engine, dev):
     from repro_torch.sketch.goldfinger import words_tensor
 
     plan = engine.plan
-    graph, rev, words, card, tomb = plan.tables()
+    graph, rev, words, card, tomb = plan.sync()
     qds = make_dataset("ml1M", scale=1.0, seed=1)
     profiles = [qds.profile(u) for u in range(plan.spec.max_wave)]
     items, offsets = profiles_to_csr(profiles)

@@ -9,9 +9,11 @@ selection therefore goes through a *stable* descending sort
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.types import NEG_INF, PAD_ID
+from repro_torch.device import resolve_device
+from repro_torch.types import NEG_INF, PAD_ID, KNNGraph
 
 
 def topk_desc(x: torch.Tensor, k: int):
@@ -84,3 +86,19 @@ def merge_topk(ids: torch.Tensor, sims: torch.Tensor, k: int,
     top_ids = torch.gather(ids, 1, pos)
     top_ids = torch.where(top_sims == NEG_INF, PAD_ID, top_ids)
     return top_ids, top_sims
+
+
+def union_graphs(a: KNNGraph, b: KNNGraph, k: int | None = None, *,
+                 device="cuda") -> KNNGraph:
+    """Merge two KNN graphs per user through :func:`merge_topk` on
+    ``device`` (self edges, PAD lanes and repeated ids dropped; equal sims
+    keep a's lanes first)."""
+    k = k or a.k
+    dev = resolve_device(device)
+    ids = torch.from_numpy(np.concatenate(
+        [np.asarray(a.ids), np.asarray(b.ids)], axis=1)).to(dev)
+    sims = torch.from_numpy(np.concatenate(
+        [np.asarray(a.sims), np.asarray(b.sims)], axis=1)).to(dev)
+    self_ids = torch.arange(a.n, dtype=ids.dtype, device=dev)
+    out_ids, out_sims = merge_topk(ids, sims, k, self_ids)
+    return KNNGraph(ids=out_ids.cpu().numpy(), sims=out_sims.cpu().numpy())

@@ -16,6 +16,15 @@ in-flight slots instead of closed waves of ``--max-wave`` (identical
 results). Everything runs on ``--device`` (default ``cuda``; without a
 card that raises at once).
 
+Mutation flags, driven as the reference drives them: ``--insert M``
+inserts the last M profiles of the query dataset online before the
+serve; ``--churn M`` then deletes M users and profile-updates M more,
+picked id-strided over the live rows (the update profiles are the first
+M query profiles), with one repair pass when ``--repair-every`` is set;
+``--ttl T`` expires rows untouched for T scheduler steps and
+``--repair-every R`` re-links delete-damaged rows every R steps, both
+during the serve.
+
 This port serves the single placement. The reference's other flags are
 accepted by name and raise NotImplementedError naming the ROADMAP item
 that ports them when set to anything but their default.
@@ -24,6 +33,8 @@ from __future__ import annotations
 
 import argparse
 import time
+
+import numpy as np
 
 from repro_torch.core.params import params_for
 from repro_torch.data.synthetic import make_dataset
@@ -34,10 +45,6 @@ from repro_torch.query.index import KNNIndex, build_index
 # Reference flags outside this slice: (flag, type, default, ROADMAP item).
 _LATER = (
     ("--shards", int, 1, "queue 1 item 5 (sharded placement)"),
-    ("--insert", int, 0, "queue 1 item 3 (online insert)"),
-    ("--churn", int, 0, "queue 1 item 6 (lifecycle)"),
-    ("--ttl", int, 0, "queue 1 item 6 (lifecycle)"),
-    ("--repair-every", int, 0, "queue 1 item 6 (lifecycle)"),
     ("--admission", str, "fifo", "queue 1 item 7 (SLO admission)"),
     ("--max-pending", int, 0, "queue 1 item 7 (SLO admission)"),
     ("--priority-split", float, 0.0, "queue 1 item 7 (SLO admission)"),
@@ -74,6 +81,17 @@ def _parser() -> argparse.ArgumentParser:
                     help="with --kernel: the DMA hop (fingerprint rows "
                          "gathered through a shared-memory ring; identical "
                          "results, reports bytes moved/skipped)")
+    ap.add_argument("--insert", type=int, default=0,
+                    help="insert this many users online before querying")
+    ap.add_argument("--churn", type=int, default=0,
+                    help="delete this many users AND profile-update as "
+                         "many more online before querying")
+    ap.add_argument("--ttl", type=int, default=0,
+                    help="expire rows untouched for this many scheduler "
+                         "steps (0 = never)")
+    ap.add_argument("--repair-every", type=int, default=0,
+                    help="re-link churn-damaged rows every this many "
+                         "scheduler steps (0 = off)")
     ap.add_argument("--index", default=None, help="load a saved index")
     ap.add_argument("--save-index", default=None, help="save the built index")
     ap.add_argument("--seed", type=int, default=0)
@@ -99,7 +117,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     qc = QueryConfig(k=args.k, beam=args.beam, hops=args.hops,
                      max_wave=args.max_wave, continuous=args.continuous,
-                     slots=args.slots, kernel=args.kernel, dma=args.dma)
+                     slots=args.slots, kernel=args.kernel, dma=args.dma,
+                     ttl=args.ttl, repair_every=args.repair_every)
     qc.spec()  # --dma without --kernel fails before any work
 
     if args.index:
@@ -123,10 +142,39 @@ def main(argv=None):
     engine = QueryEngine(index, qc, device=dev)
     print(f"[serve] plan: {engine.plan.describe()} on {dev}")
 
-    # Unseen profiles from the same distribution (different seed).
+    # Unseen profiles: the dataset's generator with the next seed. That
+    # draw has its own topics, so its users are far closer to each other
+    # than to the index's: inserts and updates taken from it become the
+    # queries' nearest neighbours.
     qds = make_dataset(args.dataset, scale=args.scale, seed=args.seed + 1)
     n_q = min(args.queries, qds.n_users)
     profiles = [qds.profile(u) for u in range(n_q)]
+
+    for m in range(args.insert):
+        engine.insert(qds.profile(qds.n_users - 1 - m))
+    if args.insert:
+        print(f"[serve] inserted {args.insert} users online "
+              f"(index now {index.n} users)")
+
+    if args.churn:
+        # Id-strided picks over the live rows: deterministic across
+        # reruns, and the delete and update sets never overlap.
+        alive = index.alive_ids()
+        take = np.linspace(0, len(alive) - 1,
+                           num=min(2 * args.churn, len(alive)),
+                           dtype=np.int64)
+        victims = alive[take]
+        for u in victims[0::2]:
+            engine.remove_user(int(u))
+        for m, u in enumerate(victims[1::2]):
+            engine.update_user(int(u), qds.profile(m % qds.n_users))
+        if args.repair_every:
+            engine.lifecycle.repair()  # serve the wave on a healed graph
+        print(f"[serve] churned: {len(victims[0::2])} deletes, "
+              f"{len(victims[1::2])} updates "
+              f"(index now {index.n_live} live rows) | "
+              f"lifecycle {engine.lifecycle.stats()}")
+
     if not profiles:
         print("[serve] no queries requested")
         return {"requests": 0}, 0.0, engine

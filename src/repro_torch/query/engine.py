@@ -9,9 +9,18 @@ latency percentiles with the reference's stats keys.
 :meth:`QueryEngine.recall_vs_brute_force` scores served results against
 the exact KNN over the index.
 
-Online mutation (insert, delete, update), SLO admission, result caching,
-re-balancing and faults are later slices (ROADMAP queue 1 items 3 and
-6–9).
+Online mutation: :meth:`QueryEngine.insert` searches for the new profile's
+neighbours through the engine's own plan, appends its row to the index,
+registers it with the router in each configuration's deepest matching
+cluster, and adds it to a cohort that is re-clustered every
+``QueryConfig.refresh_every`` inserts (:meth:`KNNIndex.refresh_cohort`).
+Deletes, profile updates, TTL expiry and churn repair go through
+:class:`~repro_torch.lifecycle.LifecycleManager`, whose ``maintain`` runs
+after every step. The plan follows each mutation by a journal-driven row
+scatter into its device tables.
+
+SLO admission, result caching, re-balancing and faults are later slices
+(ROADMAP queue 1 items 7–9).
 """
 from __future__ import annotations
 
@@ -23,9 +32,11 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.eval.metrics import knn_recall
+from repro_torch.lifecycle import LifecycleConfig, LifecycleManager
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.plan import DescentPlan, PlanSpec
-from repro_torch.query.router import fingerprint_profiles, profiles_to_csr
+from repro_torch.query.router import (fingerprint_profiles, placements,
+                                      profiles_to_csr)
 from repro_torch.query.search import exact_knn
 
 
@@ -57,6 +68,7 @@ class QueryConfig:
     hops: int = 3              # descent depth
     max_wave: int = 256        # queries per wave
     seeds_per_config: int = 16 # routed seed candidates per hash config
+    refresh_every: int = 64    # cohort size triggering re-clustering
     continuous: bool = False   # slot-based streaming admission (sched/)
     slots: int = 32            # in-flight capacity in continuous mode
     kernel: bool = False       # fused descent hop (scorer "pallas"):
@@ -65,6 +77,10 @@ class QueryConfig:
     dma: bool = False          # with kernel: the DMA hop (scorer
                                # "pallas_dma"); identical results, and
                                # reports fingerprint bytes moved/skipped
+    ttl: int = 0               # lifecycle: ticks before an untouched row
+                               # expires (0 = never)
+    repair_every: int = 0      # lifecycle: churn-repair cadence in ticks
+                               # (0 = off)
 
     def spec(self) -> PlanSpec:
         """Map the flags onto a validated plan on the three axes."""
@@ -90,6 +106,12 @@ class QueryEngine:
         self.device = self.plan.device
         self.queue: deque[QueryRequest] = deque()
         self.done: list[QueryRequest] = []
+        self.n_inserted = 0
+        self.n_refreshes = 0
+        self._cohort: list[tuple[int, np.ndarray]] = []  # (uid, profile)
+        self.lifecycle = LifecycleManager(
+            self, LifecycleConfig(ttl=self.qc.ttl,
+                                  repair_every=self.qc.repair_every))
 
     def submit(self, req: QueryRequest):
         req.t_submit = time.perf_counter()
@@ -104,10 +126,19 @@ class QueryEngine:
         """True while requests are queued or (continuous) in flight."""
         return bool(self.queue) or self.plan.busy()
 
+    def query_batch(self, profiles, k: int | None = None,
+                    hops: int | None = None):
+        """Answer a batch of raw profiles: (ids int32[q, k], sims f32[q, k])."""
+        return self.plan.query_batch(profiles, k=k, hops=hops)
+
     def step(self) -> int:
         """Serve one step, a wave or a continuous tick; returns requests
-        completed."""
-        return self.plan.step(self.queue, self.done)
+        completed. Lifecycle maintenance (TTL expiry, churn repair) runs
+        after it, between steps, so in-flight slots never see a
+        half-applied mutation."""
+        n = self.plan.step(self.queue, self.done)
+        self.lifecycle.maintain()
+        return n
 
     def tick(self) -> int:
         """One continuous tick (the step of a slot plan)."""
@@ -146,13 +177,73 @@ class QueryEngine:
             "mean_latency_s": float(np.mean(lats)) if lats else 0.0,
             "p50_latency_s": float(np.percentile(lats, 50)) if lats else 0.0,
             "p95_latency_s": float(np.percentile(lats, 95)) if lats else 0.0,
-            "inserted": 0,
+            "inserted": self.n_inserted,
             "shards": 1,
-            "refreshes": 0,
+            "refreshes": self.n_refreshes,
+            "lifecycle": self.lifecycle.stats(),
         }
         if self.plan.spec.kernel:
             stats["descent"] = dict(self.plan.descent_stats)
         return stats
+
+    # -- online insertion --------------------------------------------------
+
+    def insert(self, profile) -> int:
+        """Add a new user online; returns its id in the index.
+
+        Links the user through its own search result (k neighbours,
+        searched through this engine's plan), then registers it in each
+        configuration's deepest matching cluster so later queries seed
+        from it.
+        """
+        ix = self.index
+        items, offsets = profiles_to_csr([profile])
+        qgf = fingerprint_profiles(items, offsets, ix.n_bits, ix.fp_seed)
+        placed = placements(ix, items, offsets)
+        ids, sims = self.plan.search(items, offsets, qgf, ix.k,
+                                     placed=placed)
+        u = ix.append_user(np.asarray(qgf.words)[0], int(qgf.card[0]),
+                           ids[0], sims[0])
+        for matched in placed[0]:
+            if matched:  # deepest matching cluster of this configuration
+                ix.add_cluster_member(matched[0], u)
+        self.n_inserted += 1
+        self._cohort.append((u, items[offsets[0]:offsets[1]].copy()))
+        self.lifecycle.note_insert(u)
+        if len(self._cohort) >= self.qc.refresh_every:
+            self.flush_cohort()
+        return u
+
+    def flush_cohort(self) -> int:
+        """Re-run C² clustering on the accumulated insert cohort (see
+        :meth:`KNNIndex.refresh_cohort`); returns new clusters registered."""
+        if not self._cohort:
+            return 0
+        uids = np.array([u for u, _ in self._cohort], dtype=np.int32)
+        items, offsets = profiles_to_csr([p for _, p in self._cohort])
+        n_new = self.index.refresh_cohort(items, offsets, uids)
+        self._cohort = []  # drained only after the refresh succeeded
+        self.n_refreshes += 1
+        return n_new
+
+    # -- lifecycle (deletes / updates / TTL — repro_torch/lifecycle) -------
+
+    def remove_user(self, u: int):
+        """Delete user ``u`` online: tombstone, patch incident edges,
+        deregister from routing. Queries in flight and later never see it
+        (the tombstone mask is threaded through every hop)."""
+        self.lifecycle.remove(u)
+
+    def update_user(self, u: int, profile):
+        """Replace ``u``'s profile online: re-sketch, re-score incident
+        edges, and re-link through a neighbourhood descent."""
+        return self.lifecycle.update(u, profile)
+
+    def touch(self, u: int):
+        """Record activity on ``u`` (resets its TTL window)."""
+        self.lifecycle.touch(u)
+
+    # -- quality -----------------------------------------------------------
 
     def recall_vs_brute_force(self, requests: list[QueryRequest] | None = None,
                               ) -> float:

@@ -11,10 +11,13 @@ a fixed placement, batching and scorer never change a result: every
 combination gives bitwise-identical ids and sims. The sharded placement
 raises NotImplementedError naming the ROADMAP item that ports it.
 
-A :class:`DescentPlan` owns its device state (the index tables uploaded
-once to the plan's device and, for continuous plans, the slot arrays) and
-serves through ``step(queue, done)``: one closed wave, or one continuous
-tick.
+A :class:`DescentPlan` owns its device state — padded copies of the
+index tables on the plan's device, kept current by :meth:`DescentPlan.sync`
+from the index's row journal, and for continuous plans the slot arrays —
+and serves through ``step(queue, done)``: one closed wave, or one
+continuous tick. Every wave, seeded descent and tick syncs first, so an
+index mutation between two steps reaches in-flight slots as the tombstone
+mask of their next hop.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.local_knn import capacity_of
 from repro_torch.device import resolve_device
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.router import fingerprint_profiles, profiles_to_csr, route
@@ -117,7 +121,7 @@ class DescentPlan:
         self.spec = spec
         self.device = resolve_device(device)
         self.beam = max(spec.beam, spec.k)
-        self._tables = None     # device copies of the index, built once
+        self._single = None     # (version, capacity, device tables)
         self._slots: Optional[_SlotState] = None
         self.n_ticks = 0
         # Hop accounting over every hop this plan ran, real query rows
@@ -128,6 +132,10 @@ class DescentPlan:
         # reference counts them.
         self.descent_stats = {"scored_lanes": 0, "dma_bytes": 0,
                               "bytes_saved": 0, "hop_queries": 0}
+        # Device syncs: full uploads, journal scatters and the rows they
+        # scattered.
+        self.sync_stats = {"full_uploads": 0, "scatters": 0,
+                           "rows_scattered": 0}
 
     def describe(self) -> str:
         return self.spec.describe()
@@ -143,42 +151,85 @@ class DescentPlan:
         self.descent_stats["bytes_saved"] += int(s[:, 2].sum())
         self.descent_stats["hop_queries"] += int(s.shape[0])
 
-    def tables(self):
-        """The index uploaded to the plan's device: (graph_ids, rev_ids,
-        words bit-views, card, tombstone). The port's index is read-only
-        (online mutation is a later slice), so one upload serves every
-        wave and tick."""
-        if self._tables is None:
-            ix, dev = self.index, self.device
-            self._tables = (
-                torch.from_numpy(ix.graph_ids).to(dev),
-                torch.from_numpy(ix.rev_ids).to(dev),
-                words_tensor(ix.words, dev),
-                torch.from_numpy(ix.card).to(dev),
-                torch.from_numpy(ix.tombstone).to(dev),
-            )
-        return self._tables
+    def sync(self):
+        """The index on the plan's device, current to its version:
+        (graph_ids, rev_ids, words bit-views, card, tombstone), padded to
+        ``capacity_of(n, minimum=64)`` rows (PAD adjacency, zero words and
+        cards, live flags past n; no id names them).
+
+        A stale copy is repaired in place when it can be: the rows the
+        index journalled since the copy's version
+        (:meth:`KNNIndex.rows_changed_since`) are scattered into the
+        resident tensors. The whole index is uploaded on first use, when
+        n crosses the padded capacity, when the journal no longer reaches
+        back, or when more than ``max(64, n // 8)`` rows changed."""
+        ix = self.index
+        if self._single is not None and self._single[0] == ix.version:
+            return self._single[2]
+        n, cap = ix.n, capacity_of(ix.n, minimum=64)
+        dev = self.device
+        if self._single is not None and self._single[1] == cap:
+            changed = ix.rows_changed_since(self._single[0])
+            if changed is not None and len(changed) <= max(64, n // 8):
+                tables = self._single[2]
+                if changed:
+                    rows = np.fromiter(sorted(changed), dtype=np.int64,
+                                       count=len(changed))
+                    idx = torch.from_numpy(rows).to(dev)
+                    g, r, w, c, t = tables
+                    g.index_copy_(0, idx, torch.from_numpy(
+                        ix.graph_ids[rows]).to(dev))
+                    r.index_copy_(0, idx, torch.from_numpy(
+                        ix.rev_ids[rows]).to(dev))
+                    w.index_copy_(0, idx, words_tensor(ix.words[rows], dev))
+                    c.index_copy_(0, idx, torch.from_numpy(
+                        ix.card[rows]).to(dev))
+                    t.index_copy_(0, idx, torch.from_numpy(
+                        ix.tombstone[rows]).to(dev))
+                    self.sync_stats["scatters"] += 1
+                    self.sync_stats["rows_scattered"] += len(rows)
+                self._single = (ix.version, cap, tables)
+                return tables
+        pad = cap - n
+        tables = (
+            torch.from_numpy(np.pad(ix.graph_ids, ((0, pad), (0, 0)),
+                                    constant_values=PAD_ID)).to(dev),
+            torch.from_numpy(np.pad(ix.rev_ids, ((0, pad), (0, 0)),
+                                    constant_values=PAD_ID)).to(dev),
+            words_tensor(np.pad(ix.words, ((0, pad), (0, 0))), dev),
+            torch.from_numpy(np.pad(ix.card, (0, pad))).to(dev),
+            torch.from_numpy(np.pad(ix.tombstone, (0, pad))).to(dev),
+        )
+        self._single = (ix.version, cap, tables)
+        self.sync_stats["full_uploads"] += 1
+        return tables
 
     # -- one closed wave -----------------------------------------------------
 
     def search(self, items, offsets, qgf, k: int, *,
-               hops: int | None = None):
-        """Route + beam-descend already-fingerprinted query profiles."""
-        seeds = route(self.index, items, offsets, self.spec.seeds_per_config)
+               hops: int | None = None, placed=None):
+        """Route + beam-descend already-fingerprinted query profiles (one
+        closed wave, whatever the plan's batching; inserts search through
+        it). ``placed`` reuses :func:`router.placements` already computed."""
+        seeds = route(self.index, items, offsets, self.spec.seeds_per_config,
+                      placed=placed)
         return self.descend_rows(qgf.words, qgf.card, seeds, k, hops=hops)
 
     def descend_rows(self, q_words, q_card, seeds, k: int, *,
-                     hops: int | None = None):
-        """Beam-descend from explicit seed rows; host arrays in and out."""
+                     hops: int | None = None, beam: int | None = None):
+        """Beam-descend from explicit seed rows, with no routing; host
+        arrays in and out. The lifecycle's updates and repairs seed it
+        from a user's graph neighbourhood, with their own ``beam``."""
         spec = self.spec
+        beam = max(self.beam if beam is None else beam, k)
         hops = spec.hops if hops is None else hops
         dev = self.device
-        graph_ids, rev_ids, words, card, tomb = self.tables()
+        graph_ids, rev_ids, words, card, tomb = self.sync()
         ids, sims, stats = batched_descent(
             graph_ids, rev_ids, words, card, words_tensor(q_words, dev),
             torch.from_numpy(np.asarray(q_card, dtype=np.int32)).to(dev),
             torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(dev),
-            k=k, beam=max(self.beam, k), hops=hops, kernel=spec.kernel,
+            k=k, beam=beam, hops=hops, kernel=spec.kernel,
             dma=spec.dma, tomb=tomb)
         self._note_stats(stats)
         return ids.cpu().numpy(), sims.cpu().numpy()
@@ -259,7 +310,7 @@ class DescentPlan:
         for slot, req in admitted:
             st.hops_done[slot] = 0
             st.budget[slot] = req.hops if req.hops is not None else spec.hops
-        words, card, tomb = self.tables()[2:5]
+        words, card, tomb = self.sync()[2:5]
         slot_admit(words, card, words_tensor(qgf.words, dev),
                    torch.from_numpy(np.asarray(qgf.card, np.int32)).to(dev),
                    torch.from_numpy(np.asarray(seeds, np.int32)).to(dev),
@@ -274,6 +325,7 @@ class DescentPlan:
         mid-flight: rows freed by an earlier tick take fresh requests
         while the others keep descending, with no wave barrier."""
         spec = self.spec
+        self.sync()  # mutations since the last tick reach this one's hop
         st = self._slot_state()
         sched = st.sched
         while queue:
@@ -289,7 +341,7 @@ class DescentPlan:
         hop_active = active & (st.hops_done < st.budget)
         changed = np.zeros(active.shape[0], bool)
         if hop_active.any():
-            graph_ids, rev_ids, words, card, tomb = self.tables()
+            graph_ids, rev_ids, words, card, tomb = self.sync()
             mask = torch.from_numpy(hop_active).to(self.device)
             st.beam_ids, st.beam_sims, changed_t, stats = slot_hop(
                 graph_ids, rev_ids, words, card, st.q_words, st.q_card,

@@ -1,2 +1,3 @@
-"""Continuous-batching slot scheduler (``scheduler.SlotScheduler``)."""
-from repro_torch.sched.scheduler import SlotScheduler  # noqa: F401
+"""Continuous-batching slot scheduler (``scheduler.SlotScheduler``) and
+the maintenance trigger (``scheduler.Cadence``)."""
+from repro_torch.sched.scheduler import Cadence, SlotScheduler  # noqa: F401

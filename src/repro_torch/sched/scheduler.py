@@ -1,5 +1,5 @@
 """Slot-based continuous-batching scheduler (the FIFO policy of
-``repro.sched.scheduler``).
+``repro.sched.scheduler``) and the maintenance :class:`Cadence`.
 
 Wave batching closes a batch before admitting new requests, so one slow
 request stalls everything queued behind it. Continuous batching bounds
@@ -33,6 +33,32 @@ ADMISSION_POLICIES = ("fifo",)
 
 _NOT_PORTED = ("SLO admission (policy='slo', max_pending) is ROADMAP queue 1 "
                "item 7")
+
+
+class Cadence:
+    """Deterministic periodic trigger for between-step maintenance.
+
+    Serving loops call :meth:`tick` once per scheduler step; it returns
+    True every ``every``-th call, so the lifecycle's repair passes land
+    between steps and fire as a pure function of the step count.
+    ``every <= 0`` disables the trigger.
+    """
+
+    def __init__(self, every: int):
+        self.every = every
+        self._count = 0
+        self.n_fired = 0
+
+    def tick(self) -> bool:
+        """Advance one step; True when this step is a fire boundary."""
+        if self.every <= 0:
+            return False
+        self._count += 1
+        if self._count < self.every:
+            return False
+        self._count = 0
+        self.n_fired += 1
+        return True
 
 
 class SlotScheduler:

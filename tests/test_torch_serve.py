@@ -205,7 +205,8 @@ def test_knn_serve_cli_on_cpu(indexes, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--shards", "2"], ["--adaptive", "2"],
-                                  ["--churn", "3"], ["--insert", "3"],
+                                  ["--rebalance-every", "3"],
+                                  ["--fault-plan", "crash@3"],
                                   ["--cache", "8"]])
 def test_knn_serve_flags_outside_slice_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
