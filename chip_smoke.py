@@ -30,7 +30,12 @@ Phases, each fatal on failure:
    select), with random and with tie-heavy beams (every row equal), and at
    640 lanes over kg+kr = 2 (the radix select with the state in shared
    memory), and 1,200 queries at 128 lanes, so that each block walks
-   several queries (the DMA hop also in groups of 3);
+   several queries (the DMA hop also in groups of 3); both hops' shard
+   grid axis (``ops.descent_hop_sharded``: S shards in one launch) at 2-5
+   shards, W = 32 and 33, one to 256 queries, shard beams of 12-192 lanes
+   (state in shared and in global memory) and a DMA ring of 3 queries a
+   block, against the plain sharded hop and against S single-shard
+   launches;
    FastRandomHash's padded entry at the reference test's shapes and its
    CSR entry over empty, one-item and longest rows, row offsets of every
    residue mod 4 and an unaligned item array, t = 1, 8 and 32, b = 256,
@@ -65,11 +70,27 @@ Phases, each fatal on failure:
    exact-Jaccard ``avg_sim`` of the C² and brute-force graphs (equal on
    the card and the CPU) and their ratio (paper Eq. 2), which must lie in
    (0, 1.05], beside the C² build's time;
+4c. sharded placement — over the same paper index, ``knn_serve --shards
+   4`` of the 2,048 profiles as wave x {plain, fused, DMA hop} and
+   continuous (256 slots) x DMA hop, bitwise equal rid by rid, each kernel
+   path launching its hop only through the sharded entry (one launch per
+   hop for the 4 shards), and wave x fused hop at ``--shards 2``; the
+   mutation serve ``--shards 4 --insert 256 --churn 128 --repair-every
+   1`` three ways (plain and fused hop in waves, DMA hop in continuous
+   slots), bitwise in served ids and sims and in the mutated index, no
+   request served an id dead when served, the delta-synced shard tables
+   equal to a rematerialisation, with the plans' sync() counts; both
+   hops' shard grid axis at the main path's first hop on 4 shards (beam
+   32: 12 lanes a shard) and on 2 shards at beam 256 (192 lanes a shard,
+   state in global memory), 256 queries and one, against the plain
+   sharded hop and S single-shard launches;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
    there, and timed beside it and the least time the card could take
-   (``bound_ms``); both hops' cycles per block by phase
+   (``bound_ms``); both hops' one-launch 4-shard hop of 256 queries
+   beside 4 single-shard launches, its plain version and its bound, and
+   the host clock of ``shard_seeds``; both hops' cycles per block by phase
    (``repro_torch.bench.hop_phases``) and resident warps per SM; the
    Step-2 sweep's device time per capacity group
    beside its host clock; the host clock per phase of a wave and of
@@ -77,12 +98,15 @@ Phases, each fatal on failure:
    ml1M@1.0 build's clustering and one wave's routing spend their host
    clock (item hashes, distinct hashes, splits, the rest).
 
-Prints one ``{"kernels": [...]}`` JSON line, then as the last line
+Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
+sharded placement's launches and 4-shard hop time under ``sharded``),
+then as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -763,10 +787,13 @@ def reset_launches() -> None:
     from repro_torch.kernels.goldfinger_knn import ops as gk_ops
 
     gk_ops.launches = ds_ops.launches = ds_ops.launches_dma = 0
+    ds_ops.launches_sharded = ds_ops.launches_dma_sharded = 0
     mh_ops.launches = mh_ops.launches_csr = 0
 
 
 def read_launches() -> dict:
+    """Each kernel's launches; the hops' also as ``*_sharded``: those of
+    them made through the sharded entry (``ops.descent_hop_sharded``)."""
     from repro_torch.kernels.descent_score import ops as ds_ops
     from repro_torch.kernels.frh_minhash import ops as mh_ops
     from repro_torch.kernels.goldfinger_knn import ops as gk_ops
@@ -774,7 +801,9 @@ def read_launches() -> dict:
     return {"goldfinger_knn": gk_ops.launches,
             "descent_hop": ds_ops.launches,
             "descent_hop_dma": ds_ops.launches_dma,
-            "frh_minhash": mh_ops.launches + mh_ops.launches_csr}
+            "frh_minhash": mh_ops.launches + mh_ops.launches_csr,
+            "descent_hop_sharded": ds_ops.launches_sharded,
+            "descent_hop_dma_sharded": ds_ops.launches_dma_sharded}
 
 
 def served(engine):
@@ -1547,6 +1576,336 @@ def mutable_index(dev, run: dict, tmp: Path) -> dict:
     return out
 
 
+# -- phase 3 / 4c: the sharded placement -----------------------------------
+
+def sharded_inputs(rng, dev, S, cap, W, kg, kr, q, B, tomb_frac=0.05):
+    """S shards' stacked tables [S, cap, ·] and beams [S, q, B], each shard
+    drawn as ``hop_inputs`` draws one table, the queries every shard's
+    (one query: ``hop_inputs``' second row, whose beam is full)."""
+    import torch
+
+    skip = int(q == 1)
+    parts = [hop_inputs(rng, dev, cap, W, kg, kr, q + skip, B, tomb_frac)
+             for _ in range(S)]
+    stack = lambda i: torch.stack([p[i] for p in parts])  # noqa: E731
+    return (stack(0), stack(1), stack(2), stack(3), parts[0][4][skip:],
+            parts[0][5][skip:], stack(6)[:, skip:], stack(7)[:, skip:],
+            stack(8))
+
+
+def sharded_kernel(args, dma: bool, **kw):
+    """One launch of either hop kernel for all shards (the sharded entry):
+    ids, sims, n_scored (and the DMA hop's byte counters)."""
+    from repro_torch.kernels.descent_score import ops
+
+    graph, rev, words, card, qw, qc, beam, sims, tomb = args
+    out = ops.descent_hop_sharded(graph, rev, words, card, qw, qc, beam,
+                                  sims, tomb=tomb, dma=dma,
+                                  with_counts=True, **kw)
+    return out if dma else out[:3]
+
+
+def sharded_plain(args, dma: bool):
+    from repro_torch.kernels.descent_score import ref
+
+    graph, rev, words, card, qw, qc, beam, sims, tomb = args
+    out = ref.descent_hop_sharded_ref(graph, rev, words, card, qw, qc, beam,
+                                      sims, tomb=tomb)
+    if not dma:
+        return out
+    C = beam.shape[-1] * (graph.shape[-1] + rev.shape[-1])
+    return out + ref.dma_counts(out[2], words.shape[-1], C)
+
+
+def shard_by_shard(args, dma: bool, **kw):
+    """The cross-check: S single-shard launches through ``descent_hop``,
+    stacked."""
+    import torch
+
+    graph, rev, words, card, qw, qc, beam, sims, tomb = args
+    fn = dma_kernel if dma else hop_kernel
+    outs = [fn(graph[s], rev[s], words[s], card[s], qw, qc, beam[s], sims[s],
+               tomb[s], **kw) for s in range(graph.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def check_sharded_case(label: str, args, err: float, **kw) -> float:
+    """Both hop kernels' shard grid axis against the plain sharded hop and
+    against S single-shard launches: ids, sims, n_scored and the DMA hop's
+    byte counters, exactly."""
+    import torch
+
+    graph, rev, words = args[:3]
+    C = args[6].shape[-1] * (graph.shape[-1] + rev.shape[-1])
+    fused = None
+    for dma in (False, True):
+        dkw = kw if dma else {}
+        k_out = sharded_kernel(args, dma, **dkw)
+        p_out = sharded_plain(args, dma)
+        l_out = shard_by_shard(args, dma, **dkw)
+        torch.cuda.synchronize()
+        name = "descent_hop_dma" if dma else "descent_hop"
+        if not same_hop(k_out, p_out):
+            fail(f"sharded {name} {label}: differs from the plain version ("
+                 + ", ".join(f"{n} {torch.equal(a, b)}" for n, a, b in zip(
+                     ("ids", "sims", "n_scored", "dma_bytes", "bytes_saved"),
+                     k_out, p_out)) + ")")
+        if not same_hop(k_out, l_out):
+            fail(f"sharded {name} {label}: differs from S single-shard "
+                 f"launches")
+        if dma and not (check_dma_counts(k_out, words.shape[-1], C)
+                        and same_hop(k_out[:3], fused)):
+            fail(f"sharded DMA hop {label}: byte counters or results "
+                 f"disagree with the fused hop")
+        fused = k_out
+        err = max(err, max_abs_err(k_out[1], p_out[1]))
+    S, q, B = args[6].shape
+    log(f"[kernels] sharded hops {label} (S={S} cap={graph.shape[1]} "
+        f"W={words.shape[-1]} q={q} B={B}): both kernels bitwise equal to "
+        f"the plain sharded hop and to {S} single-shard launches (scored "
+        f"{int(fused[2].sum())} of {S * q * C} lanes)")
+    return err
+
+
+def check_sharded_hops(dev) -> tuple[int, float]:
+    """Phase 3: the shard grid axis of both hops at random shapes: 2-5
+    shards, table rows a power of 2 and not, W = 32 (16-byte rows) and 33
+    (4-byte copies), one and many queries, beams with their state in
+    shared memory and in global memory (192 lanes), tombstone-heavy
+    shards, DMA rings of several queries per block."""
+    import numpy as np
+
+    cases = [  # (S, cap, W, q, B, tomb_frac, DMA launch params)
+        (4, 2048, 32, 256, 12, 0.05, {}),
+        (2, 4096, 32, 64, 32, 0.05, {}),
+        (3, 300, 33, 17, 16, 0.05, {}),
+        (5, 512, 32, 1, 24, 0.3, {}),
+        (2, 4096, 32, 40, 192, 0.05, {}),
+        (3, 1000, 32, 50, 16, 0.05, {"block_q": 3, "score_chunk": 100}),
+    ]
+    err = 0.0
+    for S, cap, W, q, B, frac, kw in cases:
+        rng = np.random.default_rng(S * 1000 + cap + W + q + B)
+        args = sharded_inputs(rng, dev, S, cap, W, 30, 30, q, B, frac)
+        label = (f"tomb={frac:.0%} "
+                 + " ".join(f"{k}={v}" for k, v in kw.items())).strip()
+        err = check_sharded_case(label, args, err, **kw)
+    return len(cases), err
+
+
+SHARDED_PATHS = (  # (name, knn_serve flags, the hop kernel it must launch)
+    ("wave x jnp", [], None),
+    ("wave x pallas", ["--kernel"], "descent_hop"),
+    ("wave x pallas_dma", ["--kernel", "--dma"], "descent_hop_dma"),
+    ("continuous x pallas_dma",
+     ["--continuous", "--slots", "256", "--kernel", "--dma"],
+     "descent_hop_dma"),
+)
+SHARDED_MUTATION_PATHS = (SHARDED_PATHS[0], SHARDED_PATHS[1],
+                          SHARDED_PATHS[3])
+
+
+def check_sharded_launches(label: str, counts: dict, kernel) -> None:
+    """The path launched its hop (and no other) through the sharded entry
+    alone: one launch per hop for all shards."""
+    check_path_launches(label, counts, kernel)
+    for hop in ("descent_hop", "descent_hop_dma"):
+        if counts[hop] != counts[f"{hop}_sharded"]:
+            fail(f"{label} launched {hop} outside the sharded entry: "
+                 f"{counts}")
+
+
+def sharded_line(engine) -> str:
+    sd = engine.sharded_state()
+    mb = [round(b / 1e6, 2) for b in sd.resident_bytes()]
+    return (f"{sd.n_shards} shards, resident rows "
+            f"{[len(r) for r in sd.plan.residents]} ({mb} MB), cap "
+            f"{sd.cap}, imbalance {sd.plan.imbalance:.2f}, shard beam "
+            f"{sd.shard_beam(engine.plan.beam, engine.plan.spec.k)}")
+
+
+def check_shard_tables_fresh(engine, label: str) -> None:
+    """The delta-synced shard tables equal a from-scratch rematerialisation
+    under ``extend_plan`` of the frozen base plan, on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.query import sharded
+
+    sd = engine.sharded_state()
+    fresh = sharded.ShardedDescent(
+        engine.index, sd.n_shards,
+        plan=sharded.extend_plan(sd.base_plan, engine.index),
+        device=engine.plan.device)
+    if not np.array_equal(sd._g2l, fresh._g2l) or not all(
+            a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(sd._dev, fresh._dev)):
+        fail(f"{label}: delta-synced shard tables differ from a "
+             f"rematerialisation")
+
+
+def sharded_serves(serve_args) -> dict:
+    """``knn_serve --shards 4`` of the main path's 2,048 queries: wave x
+    {jnp, pallas, pallas_dma} and continuous (256 slots) x pallas_dma, all
+    bitwise equal rid by rid, each kernel path launching its hop through
+    the sharded entry alone; then wave x pallas at ``--shards 2``."""
+    import numpy as np
+
+    from repro_torch.launch import knn_serve
+
+    base, out = None, {"serves": {}, "launches": {}}
+    for shards, paths in (("4", SHARDED_PATHS), ("2", SHARDED_PATHS[1:2])):
+        for name, extra, kernel in paths:
+            label = f"--shards {shards} {name}"
+            reset_launches()
+            stats, recall, engine = knn_serve.main(
+                serve_args + ["--shards", shards] + extra)
+            counts = read_launches()
+            check_sharded_launches(label, counts, kernel)
+            ids, sims, rids = served(engine)
+            if rids != list(range(2048)) or ids.shape != (2048, 10):
+                fail(f"{label}: rids {rids[:5]}..., {ids.shape}")
+            ok = ids != -1
+            if (not np.isfinite(sims[ok]).all()
+                    or not 0.5 <= recall <= 1.0):
+                fail(f"{label}: non-finite sims or recall@10 {recall:.4f}")
+            same = ""
+            if shards == "4":
+                if base is None:
+                    base = (ids, sims, label)
+                elif not (np.array_equal(ids, base[0])
+                          and np.array_equal(sims, base[1])):
+                    bad = int((~((ids == base[0])
+                                 & (sims == base[1])).all(1)).sum())
+                    fail(f"{label} differs from {base[2]} in {bad} requests")
+                else:
+                    same = f"; bitwise equal to {base[2]}"
+            log(f"[sharded] {serve_line(label, stats, recall)}; launches "
+                f"{counts}; {sharded_line(engine)}{same}")
+            out["serves"][label] = stats
+            out["launches"][label] = counts
+            if label == "--shards 4 wave x pallas":
+                out["engine"] = engine
+            if label == "--shards 2 wave x pallas":
+                out["engine2"] = engine
+    return out
+
+
+def sharded_mutation_serves(serve_args) -> None:
+    """``knn_serve --shards 4 --insert 256 --churn 128 --repair-every 1``
+    three ways (wave x jnp, wave x pallas, continuous x pallas_dma): the
+    same served ids and sims rid by rid and the same mutated index; no
+    request served an id dead when it was served; the delta-synced shard
+    tables equal a rematerialisation; the plans' sync() counts."""
+    import numpy as np
+
+    from repro_torch.launch import knn_serve
+
+    base, watched = None, {"checked": 0}
+    for name, extra, kernel in SHARDED_MUTATION_PATHS:
+        label = f"--shards 4 mutation {name}"
+        reset_launches()
+        t0 = time.perf_counter()
+        with served_watch(watched):
+            stats, recall, engine = knn_serve.main(
+                serve_args + ["--shards", "4"] + MUTATION_FLAGS + extra)
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        check_sharded_launches(label, counts, kernel)
+        check_shard_tables_fresh(engine, label)
+        ids, sims, rids = served(engine)
+        state = index_state(engine.index)
+        lc = stats["lifecycle"]
+        if base is None:
+            if (rids != list(range(2048)) or stats["inserted"] != 256
+                    or lc["removed"] != 128 or lc["updated"] != 128
+                    or lc["repairs"] < 1):
+                fail(f"{label}: rids {rids[:5]}..., inserted "
+                     f"{stats['inserted']}, lifecycle {lc}")
+            base = (ids, sims, state, label)
+        elif not (np.array_equal(ids, base[0])
+                  and np.array_equal(sims, base[1])):
+            bad = int((~((ids == base[0]) & (sims == base[1])).all(1)).sum())
+            fail(f"{label} differs from {base[3]} in {bad} requests")
+        elif same_state(state, base[2]):
+            fail(f"{label}: mutated index differs from {base[3]} in "
+                 f"{same_state(state, base[2])}")
+        log(f"[sharded] {serve_line(label, stats, recall)}; launches "
+            f"{counts}; sync() {engine.plan.sync_stats}; "
+            f"{sharded_line(engine)}; {seconds:.1f} s in all"
+            + ("" if base[3] == label else f"; bitwise equal to {base[3]} "
+               f"(served ids, sims, index rows, cluster tables, version "
+               f"{state['version']})"))
+    log(f"[sharded] {watched['checked']} served requests checked against "
+        f"the tombstones of their moment; delta-synced shard tables equal a "
+        f"rematerialisation on every path")
+
+
+@functools.lru_cache(maxsize=1)
+def main_queries():
+    """The main path's unseen query profiles (ml1M@1.0, seed 1), made
+    once for every sharded hop check."""
+    from repro_torch.data.synthetic import make_dataset
+
+    return make_dataset("ml1M", scale=1.0, seed=1)
+
+
+def first_sharded_hop(engine, n_shards: int, beam: int, q: int):
+    """The first hop's inputs of a ``q``-query wave of the main path on a
+    ``n_shards``-shard state of ``engine``'s index at fleet beam ``beam``:
+    each shard's owned seeds scored into its initial beams."""
+    import numpy as np
+    import torch
+
+    from repro_torch.query import sharded
+    from repro_torch.query.router import (fingerprint_profiles,
+                                          profiles_to_csr, route)
+    from repro_torch.query.search import descent_init_sharded
+    from repro_torch.sketch.goldfinger import words_tensor
+
+    dev = engine.plan.device
+    ix = engine.index
+    sd = sharded.ShardedDescent(ix, n_shards, device=dev)
+    qds = main_queries()
+    items, offsets = profiles_to_csr([qds.profile(u) for u in range(q)])
+    qgf = fingerprint_profiles(items, offsets, ix.n_bits, ix.fp_seed)
+    seeds = route(ix, items, offsets, engine.plan.spec.seeds_per_config)
+    l_seeds = torch.from_numpy(
+        sd.shard_seeds(seeds).astype(np.int32)).to(dev)
+    qw = words_tensor(qgf.words, dev)
+    qc = torch.from_numpy(qgf.card).to(dev)
+    graph, rev, words, card, _, tomb = sd._dev
+    beam_ids, beam_sims = descent_init_sharded(
+        words, card, qw, qc, l_seeds,
+        beam=sd.shard_beam(beam, engine.plan.spec.k),
+        l_tomb=tomb)
+    return (graph, rev, words, card, qw, qc, beam_ids, beam_sims, tomb), \
+        sd, seeds
+
+
+def sharded_hops_at_main_shapes(engine) -> float:
+    """Both kernels' shard grid axis at the main path's shapes: the first
+    hop of a 256-query wave on 4 shards (beam 32: 12 lanes a shard, state
+    in shared memory) and of one query; on 2 shards at beam 256 (192
+    lanes a shard, state in global memory), 256 queries and one."""
+    err = 0.0
+    for S, beam, q in ((4, 32, 256), (4, 32, 1), (2, 256, 256), (2, 256, 1)):
+        args, _, _ = first_sharded_hop(engine, S, beam, q)
+        err = check_sharded_case(f"ml1M@1.0 first hop, fleet beam {beam}",
+                                 args, err)
+    return err
+
+
+def sharded_placement(dev, run: dict) -> dict:
+    """Phase 4c: the sharded placement on the paper index of phase 4."""
+    t0 = time.perf_counter()
+    out = sharded_serves(run["serve_args"])
+    sharded_mutation_serves(run["serve_args"])
+    out["err"] = sharded_hops_at_main_shapes(run["engine"])
+    log(f"[sharded] phase 4c: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -- phase 5: timing at the main path's shapes -----------------------------
 
 def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
@@ -1663,10 +2022,21 @@ def sweep_by_cap(batches, caps, k: int, sweep_ms: float) -> None:
 
 def hop_bound(args, n_scored: int, n_counts: int) -> tuple[float, str]:
     """Least time of one hop on this card, for this run's data: the bytes
-    each input and output must move (adjacency rows of live beam lanes,
-    tombstone flags, one fingerprint row and card per distinct scored
-    row, queries, beams, counts) at HBM rate, or the scored lanes'
-    intersections as int8 bit-plane products, whichever is larger."""
+    each input and output must move (``hop_bytes``) at HBM rate, or the
+    scored lanes' intersections as int8 bit-plane products, whichever is
+    larger."""
+    W = args[2].shape[1]
+    ops_count = 2 * n_scored * W * 32
+    t_ops = ops_count / INT8_OPS_PER_S * 1e3
+    t_bytes = hop_bytes(args, n_counts) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def hop_bytes(args, n_counts: int) -> int:
+    """Bytes one hop must move at least: adjacency rows of live beam
+    lanes, tombstone flags, one fingerprint row and card per distinct
+    scored row, queries, beams, counts (``n_counts`` int32 per query)."""
     from repro_torch.kernels.descent_score import ref
 
     graph, rev, words, card, qw, qc, beam_ids, beam_sims, tomb = args
@@ -1677,16 +2047,62 @@ def hop_bound(args, n_scored: int, n_counts: int) -> tuple[float, str]:
     need = ref.survivors(cand, beam_ids)
     scored_rows = cand[need].unique().numel()
     cand_rows = cand[cand >= 0].unique().numel()
-    bytes_count = (live_beam * (kg + kr) * 4      # adjacency rows
-                   + (cand_rows + live_beam)       # tombstone flags
-                   + scored_rows * (4 * W + 4)     # fingerprint rows + card
-                   + q * (4 * W + 4 + B * 8)       # queries + beams in
-                   + q * (B * 8 + 4 * n_counts))   # beams + counts out
-    ops_count = 2 * n_scored * W * 32
-    t_ops = ops_count / INT8_OPS_PER_S * 1e3
-    t_bytes = bytes_count / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    return (live_beam * (kg + kr) * 4      # adjacency rows
+            + (cand_rows + live_beam)       # tombstone flags
+            + scored_rows * (4 * W + 4)     # fingerprint rows + card
+            + q * (4 * W + 4 + B * 8)       # queries + beams in
+            + q * (B * 8 + 4 * n_counts))   # beams + counts out
+
+
+def time_sharded_hops(engine, launches: dict) -> tuple[dict, float]:
+    """One 4-shard, 256-query hop of each kernel at the main path's first
+    hop, held bitwise against the plain sharded hop, timed as device time
+    (a sleep kernel holds the card while 20 calls queue) beside the plain
+    version, S single-shard launches and the bound; and the host clock a
+    wave spends in ``shard_seeds``."""
+    args, sd, seeds = first_sharded_hop(engine, 4, 32, 256)
+    host = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        sd.shard_seeds(seeds)
+        host.append((time.perf_counter() - t0) * 1e3)
+    err = check_sharded_case("timed: ml1M@1.0 first hop, fleet beam 32",
+                             args, 0.0)
+    graph, rev, words, card, qw, qc, beam, sims, tomb = args
+    S, q = beam.shape[:2]
+    W = words.shape[-1]
+    n_scored = int(sharded_plain(args, False)[2].sum())
+    shard_args = [(graph[s], rev[s], words[s], card[s], qw, qc, beam[s],
+                   sims[s], tomb[s]) for s in range(S)]
+    out = {}
+    for name, dma, n_counts in (("descent_hop", False, 1),
+                                ("descent_hop_dma", True, 3)):
+        ms = [cuda_ms(lambda: sharded_kernel(args, dma), reps=7, inner=20,
+                      hold=True)]
+        loop = cuda_ms(lambda: shard_by_shard(args, dma), reps=7, inner=20,
+                       hold=True)
+        ms.append(cuda_ms(lambda: sharded_kernel(args, dma), reps=7,
+                          inner=20, hold=True))
+        plain = cuda_ms(lambda: sharded_plain(args, dma), reps=5)
+        # The queries are read once for all shards.
+        nbytes = (sum(hop_bytes(a, n_counts) for a in shard_args)
+                  - (S - 1) * q * (4 * W + 4))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * n_scored * W * 32 / INT8_OPS_PER_S * 1e3
+        out[name] = {"ms": statistics.median(ms), "shard_loop_ms": loop,
+                     "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "launches": launches[name]}
+        log(f"[timing] sharded {name}, one launch for 4 shards x 256 "
+            f"queries (shard beam {beam.shape[-1]}, {n_scored} lanes "
+            f"scored): {ms[0]:.4f} / {ms[1]:.4f} ms device time; 4 "
+            f"single-shard launches {loop:.4f} ms; plain {plain:.4f} ms; "
+            f"bound {out[name]['bound_ms']:.5f} ms by "
+            f"{out[name]['bound_by']}")
+    log(f"[timing] shard_seeds of a 256-query wave (4 shards, "
+        f"{seeds.shape[1]} seeds a query): {statistics.median(host):.3f} ms "
+        f"host clock (median of 7)")
+    return out, err
 
 
 def time_hops(dev, engine, launches: dict) -> tuple[list, float]:
@@ -1978,29 +2394,51 @@ def main() -> int:
     n_hop, err_hop = check_hop(dev)
     n_dma, err_dma = check_dma_hop(dev)
     n_shapes, err_shapes = check_hop_shapes(dev)
+    n_shard, err_shard = check_sharded_hops(dev)
     n_mh, err_mh = check_minhash(dev)
     log(f"[kernels] {n_ck} cluster-KNN, {n_hop} hop, {n_dma} DMA-hop, "
-        f"{n_shapes} two-hop and {n_mh} minhash cases bitwise equal to the "
-        f"plain versions")
+        f"{n_shapes} two-hop, {n_shard} sharded two-hop and {n_mh} minhash "
+        f"cases bitwise equal to the plain versions")
 
     small_build_matches_cpu()
     with tempfile.TemporaryDirectory() as tmp:
         run = main_path(dev, Path(tmp))
         bf = mutable_index(dev, run, Path(tmp))
+        shard = sharded_placement(dev, run)
         launches = run["launches"]
         ck_row, err_ck_main = time_cluster_knn(
             dev, run["built"], run["engine"].index, launches["goldfinger_knn"])
         (hop_row, dma_row), err_hops = time_hops(dev, run["engine"],
                                                  launches)
+        shard_launches = {
+            "descent_hop": shard["launches"]["--shards 4 wave x pallas"][
+                "descent_hop_sharded"],
+            "descent_hop_dma": shard["launches"][
+                "--shards 4 continuous x pallas_dma"][
+                "descent_hop_dma_sharded"]}
+        shard_rows, err_shard_main = time_sharded_hops(shard["engine"],
+                                                       shard_launches)
         mh_row, err_mh_main = time_minhash(dev, launches["frh_minhash"])
         tick_breakdown(run["cont_engine"])
         build_stages(run["engine"])
     ck_row["max_abs_err"] = max(err_ck, err_ck_main, bf["err"])
-    hop_row["max_abs_err"] = max(err_hop, err_shapes, err_hops)
-    dma_row["max_abs_err"] = max(err_dma, err_shapes, err_hops)
+    hop_row["max_abs_err"] = max(err_hop, err_shapes, err_hops, err_shard,
+                                 shard["err"], err_shard_main)
+    dma_row["max_abs_err"] = max(err_dma, err_shapes, err_hops, err_shard,
+                                 shard["err"], err_shard_main)
+    # The sharded placement's launches (its own path: --shards 4, wave x
+    # pallas for the fused hop, continuous x pallas_dma for the DMA hop)
+    # and its one-launch 4-shard hop's device time and bound.
+    for row in (hop_row, dma_row):
+        sh = shard_rows[row["name"]]
+        row["sharded"] = {"launches": sh["launches"], "ms": sh["ms"],
+                          "plain_ms": sh["plain_ms"],
+                          "bound_ms": sh["bound_ms"],
+                          "bound_by": sh["bound_by"]}
     mh_row["max_abs_err"] = max(err_mh, err_mh_main)
     rows = [ck_row, hop_row, dma_row, mh_row]
-    for name, st in run["serves"].items():
+    for name, st in list(run["serves"].items()) + list(
+            shard["serves"].items()):
         log(f"[timing] serve 2,048 queries, {name}: QPS {st['qps']:.1f}, "
             f"p50 {st['p50_latency_s'] * 1e3:.2f} ms, "
             f"p95 {st['p95_latency_s'] * 1e3:.2f} ms")

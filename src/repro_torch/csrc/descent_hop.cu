@@ -21,11 +21,18 @@
 // filtered against their B-th key and the beam's lowest key, merged by
 // warp-shuffle bitonic networks, then in a tree across the warps.
 //
+// Shards. The sharded placement's hop (repro_descent_hop_sharded) stacks
+// S shards' tables and beams and runs shard s in grid row blockIdx.y = s:
+// one launch for all shards, the counterpart of the TPU kernel's
+// pallas_call batched over the shard axis by jax.vmap. A block offsets
+// its table pointers by s * cap rows and its beam and output pointers by
+// s * q rows (hop_common.cuh shard_rows); the queries are every shard's.
+//
 // Wide beams. A query's state grows with B * (kg + kr) lanes (~37 bytes a
 // lane): at kg + kr = 60 it fills a block's shared memory above ~100 beam
-// lanes. Such a state lives in a global workspace instead
-// (repro_descent_hop_global: one block per resident slot, each walking
-// its queries in turn, so the workspace is grid x state, not q x state).
+// lanes. Such a state lives in a global workspace instead (one block per
+// resident slot, each walking its queries in turn, so the workspace is
+// grid x state, not q x state).
 // Beams above kMaxBeam = 512 lanes outgrow the warps' register lists and
 // are selected by an exact radix select over the block (select_beam<0>).
 //
@@ -147,7 +154,8 @@ __device__ __forceinline__ void hop_query(
 
 // A block per query with its state in shared memory (kGlobal false, grid
 // = q), or a block per resident slot, its state in the block's slice of
-// `workspace`, walking queries blockIdx.x, blockIdx.x + gridDim.x, ...
+// `workspace`, walking queries blockIdx.x, blockIdx.x + gridDim.x, ...;
+// grid row blockIdx.y is the shard (tables of `cap` rows each).
 template <int P, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 2)
 descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
@@ -159,13 +167,25 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
                    const int* __restrict__ beam_ids,
                    const float* __restrict__ beam_sims,
                    int* __restrict__ out_ids, float* __restrict__ out_sims,
-                   int* __restrict__ n_scored, int nq, int W, int kg, int kr,
-                   int B, int vec16, unsigned char* __restrict__ workspace) {
+                   int* __restrict__ n_scored, int nq, int cap, int W,
+                   int kg, int kr, int B, int vec16,
+                   unsigned char* __restrict__ workspace) {
   extern __shared__ __align__(16) unsigned char smem[];
+  using repro::hop::shard_rows;
+  graph = shard_rows(graph, cap, kg);
+  rev = shard_rows(rev, cap, kr);
+  words = shard_rows(words, cap, W);
+  card = shard_rows(card, cap, 1);
+  tomb = shard_rows(tomb, cap, 1);
+  beam_ids = shard_rows(beam_ids, nq, B);
+  beam_sims = shard_rows(beam_sims, nq, B);
+  out_ids = shard_rows(out_ids, nq, B);
+  out_sims = shard_rows(out_sims, nq, B);
+  n_scored = shard_rows(n_scored, nq, 1);
   const repro::hop::Layout lo = repro::hop::layout(W, kg, kr, B, 0, kGlobal);
   const repro::hop::State s = repro::hop::carve(
-      kGlobal ? workspace + blockIdx.x * repro::hop::workspace_stride(
-                                             W, kg, kr, B)
+      kGlobal ? repro::hop::block_workspace(
+                    workspace, repro::hop::workspace_stride(W, kg, kr, B))
               : smem,
       lo);
   for (long long q = blockIdx.x; q < nq; q += gridDim.x) {
@@ -179,7 +199,7 @@ descent_hop_kernel(const int* __restrict__ graph, const int* __restrict__ rev,
 using KernelFn = void (*)(const int*, const int*, const uint32_t*,
                           const int*, const uint8_t*, const uint32_t*,
                           const int*, const int*, const float*, int*, float*,
-                          int*, int, int, int, int, int, int,
+                          int*, int, int, int, int, int, int, int,
                           unsigned char*);
 
 template <bool kGlobal>
@@ -204,27 +224,33 @@ cudaError_t allow_smem(KernelFn fn, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// S shards of `cap` table rows each in grid rows y (S = 1: the single
+// placement, cap unused); `grid` blocks per shard in x.
 int launch(const void* graph, const void* rev, const void* words,
            const void* card, const void* tomb, const void* q_words,
            const void* q_card, const void* beam_ids, const void* beam_sims,
-           void* out_ids, void* out_sims, void* n_scored, int q, int W,
-           int kg, int kr, int B, void* workspace, int grid, void* stream) {
+           void* out_ids, void* out_sims, void* n_scored, int S, int cap,
+           int q, int W, int kg, int kr, int B, void* workspace, int grid,
+           void* stream) {
+  if (S < 1 || S > 65535 || cap < 0) return cudaErrorInvalidValue;
   const int global_state = workspace != nullptr;
   const size_t smem =
       repro::hop::layout(W, kg, kr, B, 0, global_state).smem;
   const KernelFn fn = kernel_for(B, global_state);
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int vec16 =
-      W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
-  fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  // At W % 4 == 0 every shard's table (cap * W words in) is as aligned as
+  // the first.
+  const int vec16 = W % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  fn<<<dim3(grid, S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(graph), static_cast<const int*>(rev),
       static_cast<const uint32_t*>(words), static_cast<const int*>(card),
       static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
       static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
       static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
-      static_cast<float*>(out_sims), static_cast<int*>(n_scored), q, W, kg,
-      kr, B, vec16, static_cast<unsigned char*>(workspace));
+      static_cast<float*>(out_sims), static_cast<int*>(n_scored), q, cap, W,
+      kg, kr, B, vec16, static_cast<unsigned char*>(workspace));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,7 +293,9 @@ REPRO_EXPORT int repro_descent_hop_blocks_per_sm(int W, int kg, int kr,
 // out_ids / out_sims [q, B], n_scored [q]. Adjacency and beam ids lie in
 // [-1, n). All contiguous. One block per query, its state in shared
 // memory. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// success). The wrapper launches through repro_descent_hop_sharded (S =
+// 1 for one table); this entry is the probes' (repro_torch.bench.
+// hop_phases), whose signature older checkouts share.
 REPRO_EXPORT int repro_descent_hop(const void* graph, const void* rev,
                                    const void* words, const void* card,
                                    const void* tomb, const void* q_words,
@@ -277,21 +305,27 @@ REPRO_EXPORT int repro_descent_hop(const void* graph, const void* rev,
                                    int W, int kg, int kr, int B,
                                    void* stream) {
   return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
-                beam_sims, out_ids, out_sims, n_scored, q, W, kg, kr, B,
+                beam_sims, out_ids, out_sims, n_scored, 1, 0, q, W, kg, kr, B,
                 nullptr, q, stream);
 }
 
-// The same hop with each block's state in `workspace` (grid blocks of
-// repro_descent_hop_workspace_stride bytes, 256-byte aligned): `grid`
-// blocks walk the q queries.
-REPRO_EXPORT int repro_descent_hop_global(
+// The sharded hop: tables graph [S, cap, kg], rev [S, cap, kr], words
+// [S, cap, W], card [S, cap], tomb [S, cap]; beams and outputs [S, q, B],
+// n_scored [S, q]; q_words [q, W] and q_card [q] shared by every shard.
+// Ids in shard s's beams and adjacency are its own rows, in [-1, cap).
+// Shard s runs in grid row s, one block per query with its state in
+// shared memory (workspace null, grid = q), or `grid` blocks per shard
+// with their states in `workspace` (S * grid slices of
+// repro_descent_hop_workspace_stride bytes). S = 1 is the single hop's
+// launch. Launches on `stream` and returns cudaGetLastError().
+REPRO_EXPORT int repro_descent_hop_sharded(
     const void* graph, const void* rev, const void* words, const void* card,
     const void* tomb, const void* q_words, const void* q_card,
     const void* beam_ids, const void* beam_sims, void* out_ids,
-    void* out_sims, void* n_scored, int q, int W, int kg, int kr, int B,
-    void* workspace, int grid, void* stream) {
-  if (workspace == nullptr || grid < 1) return cudaErrorInvalidValue;
+    void* out_sims, void* n_scored, int S, int cap, int q, int W, int kg,
+    int kr, int B, void* workspace, int grid, void* stream) {
+  if (grid < 1) return cudaErrorInvalidValue;
   return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
-                beam_sims, out_ids, out_sims, n_scored, q, W, kg, kr, B,
-                workspace, grid, stream);
+                beam_sims, out_ids, out_sims, n_scored, S, cap, q, W, kg, kr,
+                B, workspace, grid, stream);
 }

@@ -33,6 +33,10 @@
 // Then step 5 selects the new beam. The copies of the next stages are in
 // flight while a stage is scored.
 //
+// Shards. repro_descent_hop_dma_sharded runs S shards' stacked tables and
+// beams in one launch, shard s in grid row blockIdx.y = s, as
+// descent_hop.cu does (hop_common.cuh shard_rows).
+//
 // Counters. Only owner rows are copied: the rows of lanes that repeat an
 // id are never fetched. The byte counters keep the reference's meaning,
 // derived from n_scored (lanes that survive PAD / tombstone / in-beam
@@ -134,15 +138,30 @@ descent_hop_dma_kernel(const int* __restrict__ graph,
                        const float* __restrict__ beam_sims,
                        int* __restrict__ out_ids, float* __restrict__ out_sims,
                        int* __restrict__ n_scored, int* __restrict__ dma_bytes,
-                       int* __restrict__ bytes_saved, int q, int W, int kg,
-                       int kr, int B, int block_q, int chunk, int n_buffers,
-                       int vec16, unsigned char* __restrict__ workspace) {
+                       int* __restrict__ bytes_saved, int q, int cap, int W,
+                       int kg, int kr, int B, int block_q, int chunk,
+                       int n_buffers, int vec16,
+                       unsigned char* __restrict__ workspace) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // Grid row blockIdx.y is the shard (hop_common.cuh shard_rows).
+  using repro::hop::shard_rows;
+  graph = shard_rows(graph, cap, kg);
+  rev = shard_rows(rev, cap, kr);
+  words = shard_rows(words, cap, W);
+  card = shard_rows(card, cap, 1);
+  tomb = shard_rows(tomb, cap, 1);
+  beam_ids = shard_rows(beam_ids, q, B);
+  beam_sims = shard_rows(beam_sims, q, B);
+  out_ids = shard_rows(out_ids, q, B);
+  out_sims = shard_rows(out_sims, q, B);
+  n_scored = shard_rows(n_scored, q, 1);
+  dma_bytes = shard_rows(dma_bytes, q, 1);
+  bytes_saved = shard_rows(bytes_saved, q, 1);
   const repro::hop::Layout lo =
       repro::hop::layout(W, kg, kr, B, n_buffers * chunk, kGlobal);
   const repro::hop::State s = repro::hop::carve(
-      kGlobal ? workspace + blockIdx.x * repro::hop::workspace_stride(
-                                             W, kg, kr, B)
+      kGlobal ? repro::hop::block_workspace(
+                    workspace, repro::hop::workspace_stride(W, kg, kr, B))
               : smem,
       lo);
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem + lo.ring);
@@ -273,7 +292,7 @@ using KernelFn = void (*)(const int*, const int*, const uint32_t*,
                           const int*, const uint8_t*, const uint32_t*,
                           const int*, const int*, const float*, int*, float*,
                           int*, int*, int*, int, int, int, int, int, int, int,
-                          int, int, unsigned char*);
+                          int, int, int, unsigned char*);
 
 template <bool kGlobal>
 KernelFn kernel_for(int B) {
@@ -297,13 +316,16 @@ cudaError_t allow_smem(KernelFn fn, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// S shards of `cap` table rows each in grid rows y (S = 1: the single
+// placement, cap unused); `grid` blocks per shard in x.
 int launch(const void* graph, const void* rev, const void* words,
            const void* card, const void* tomb, const void* q_words,
            const void* q_card, const void* beam_ids, const void* beam_sims,
            void* out_ids, void* out_sims, void* n_scored, void* dma_bytes,
-           void* bytes_saved, int q, int W, int kg, int kr, int B,
-           int block_q, int chunk, int n_buffers, void* workspace, int grid,
-           void* stream) {
+           void* bytes_saved, int S, int cap, int q, int W, int kg, int kr,
+           int B, int block_q, int chunk, int n_buffers, void* workspace,
+           int grid, void* stream) {
+  if (S < 1 || S > 65535 || cap < 0) return cudaErrorInvalidValue;
   const int global_state = workspace != nullptr;
   const size_t smem =
       repro::hop::layout(W, kg, kr, B, n_buffers * chunk, global_state).smem;
@@ -312,15 +334,15 @@ int launch(const void* graph, const void* rev, const void* words,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int vec16 =
       W % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
-  fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<dim3(grid, S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(graph), static_cast<const int*>(rev),
       static_cast<const uint32_t*>(words), static_cast<const int*>(card),
       static_cast<const uint8_t*>(tomb), static_cast<const uint32_t*>(q_words),
       static_cast<const int*>(q_card), static_cast<const int*>(beam_ids),
       static_cast<const float*>(beam_sims), static_cast<int*>(out_ids),
       static_cast<float*>(out_sims), static_cast<int*>(n_scored),
-      static_cast<int*>(dma_bytes), static_cast<int*>(bytes_saved), q, W, kg,
-      kr, B, block_q, chunk, n_buffers, vec16,
+      static_cast<int*>(dma_bytes), static_cast<int*>(bytes_saved), q, cap,
+      W, kg, kr, B, block_q, chunk, n_buffers, vec16,
       static_cast<unsigned char*>(workspace));
   return static_cast<int>(cudaGetLastError());
 }
@@ -373,7 +395,9 @@ REPRO_EXPORT int repro_descent_hop_dma_blocks_per_sm(int W, int kg, int kr,
 // beam_ids / beam_sims [q, B], no id repeated in a beam row. Outputs:
 // out_ids / out_sims [q, B], n_scored / dma_bytes / bytes_saved [q]. Ids
 // lie in [-1, n); all contiguous; block_q, chunk >= 1 and 1 <= n_buffers
-// <= 4. One block per block_q queries, its state in shared memory.
+// <= 4. One block per block_q queries, its state in shared memory. The
+// wrapper launches through repro_descent_hop_dma_sharded (S = 1 for one
+// table); this entry is the probes' (repro_torch.bench.hop_phases).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 REPRO_EXPORT int repro_descent_hop_dma(
     const void* graph, const void* rev, const void* words, const void* card,
@@ -384,23 +408,30 @@ REPRO_EXPORT int repro_descent_hop_dma(
     int n_buffers, void* stream) {
   return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
                 beam_sims, out_ids, out_sims, n_scored, dma_bytes,
-                bytes_saved, q, W, kg, kr, B, block_q, chunk, n_buffers,
-                nullptr, (q + block_q - 1) / block_q, stream);
+                bytes_saved, 1, 0, q, W, kg, kr, B, block_q, chunk,
+                n_buffers, nullptr, (q + block_q - 1) / block_q, stream);
 }
 
-// The same hop with each block's state in `workspace` (grid blocks of
-// repro_descent_hop_dma_workspace_stride bytes, 256-byte aligned): `grid`
-// blocks walk the groups of block_q queries.
-REPRO_EXPORT int repro_descent_hop_dma_global(
+// The sharded hop: tables graph [S, cap, kg], rev [S, cap, kr], words
+// [S, cap, W], card [S, cap], tomb [S, cap]; beams and outputs [S, q, B],
+// n_scored / dma_bytes / bytes_saved [S, q]; q_words [q, W] and q_card
+// [q] shared by every shard. Ids in shard s's beams and adjacency are its
+// own rows, in [-1, cap). Shard s runs in grid row s: `grid` blocks of
+// block_q queries (grid = ceil(q / block_q) with the state in shared
+// memory, workspace null), or with their states in `workspace` (S * grid
+// slices of repro_descent_hop_dma_workspace_stride bytes). S = 1 is the
+// single hop's launch. Launches on `stream` and returns
+// cudaGetLastError().
+REPRO_EXPORT int repro_descent_hop_dma_sharded(
     const void* graph, const void* rev, const void* words, const void* card,
     const void* tomb, const void* q_words, const void* q_card,
     const void* beam_ids, const void* beam_sims, void* out_ids,
     void* out_sims, void* n_scored, void* dma_bytes, void* bytes_saved,
-    int q, int W, int kg, int kr, int B, int block_q, int chunk,
-    int n_buffers, void* workspace, int grid, void* stream) {
-  if (workspace == nullptr || grid < 1) return cudaErrorInvalidValue;
+    int S, int cap, int q, int W, int kg, int kr, int B, int block_q,
+    int chunk, int n_buffers, void* workspace, int grid, void* stream) {
+  if (grid < 1) return cudaErrorInvalidValue;
   return launch(graph, rev, words, card, tomb, q_words, q_card, beam_ids,
                 beam_sims, out_ids, out_sims, n_scored, dma_bytes,
-                bytes_saved, q, W, kg, kr, B, block_q, chunk, n_buffers,
-                workspace, grid, stream);
+                bytes_saved, S, cap, q, W, kg, kr, B, block_q, chunk,
+                n_buffers, workspace, grid, stream);
 }

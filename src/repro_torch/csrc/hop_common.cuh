@@ -132,6 +132,25 @@ __host__ __device__ inline size_t workspace_stride(int W, int kg, int kr,
   return align_up(layout(W, kg, kr, B, 0, true).total, 256);
 }
 
+// The shard axis. A sharded launch stacks the S shards' tables ([S, cap]
+// rows) and beams and outputs ([S, q] rows) and runs shard s in the blocks
+// of grid row blockIdx.y = s; the queries' words and cards are every
+// shard's. A single-placement launch is S = 1: grid row 0, no offset.
+// `p` advanced to this block's shard, whose rows start `rows` rows of
+// `width` elements in.
+template <class T>
+__device__ __forceinline__ T* shard_rows(T* p, long long rows, int width) {
+  return p + static_cast<long long>(blockIdx.y) * rows * width;
+}
+
+// This block's slice of a workspace of `stride`-byte slices, one per block
+// of the (x, y) grid.
+__device__ __forceinline__ unsigned char* block_workspace(unsigned char* ws,
+                                                          size_t stride) {
+  return ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                  stride;
+}
+
 // Pointers into one query's state.
 struct State {
   int slots;

@@ -7,7 +7,8 @@ reverse neighbors of the beam, score every candidate lane, let
 The kernel must match it bit for bit (ids and sims). :func:`scored_lanes`
 is the kernels' third output, the count of lanes that survive the
 pre-scoring suppression, and :func:`dma_counts` the DMA hop's byte
-counters. Serving runs this hop under scorer ``"jnp"``.
+counters. :func:`descent_hop_sharded_ref` is the sharded placement's hop,
+shard by shard. Serving runs this hop under scorer ``"jnp"``.
 """
 from __future__ import annotations
 
@@ -92,3 +93,24 @@ def dma_counts(n_scored, W: int, C: int):
     candidate lanes gathered (one W-word row per scored lane) and left
     unread."""
     return n_scored * (W * 4), (C - n_scored) * (W * 4)
+
+
+def descent_hop_sharded_ref(graph_ids, rev_ids, words, card, q_words, q_card,
+                            beam_ids, beam_sims, tomb=None):
+    """The sharded placement's hop: :func:`descent_hop_ref` and
+    :func:`scored_lanes` of each shard, stacked. Tables [S, cap, ·] (tomb
+    bool[S, cap] or None), beams [S, q, B] in each shard's own row ids,
+    q_words / q_card shared. Returns (ids int32[S, q, B], sims f32[S, q,
+    B], n_scored int32[S, q]) — the contract of both kernels' shard grid
+    axis."""
+    ids, sims, scored = [], [], []
+    for s in range(graph_ids.shape[0]):
+        t = None if tomb is None else tomb[s]
+        i, m = descent_hop_ref(graph_ids[s], rev_ids[s], words[s], card[s],
+                               q_words, q_card, beam_ids[s], beam_sims[s],
+                               tomb=t)
+        ids.append(i)
+        sims.append(m)
+        scored.append(scored_lanes(graph_ids[s], rev_ids[s], beam_ids[s],
+                                   tomb=t))
+    return torch.stack(ids), torch.stack(sims), torch.stack(scored)

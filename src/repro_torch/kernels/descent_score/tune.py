@@ -228,6 +228,8 @@ def hop_params(n: int, W: int, beam: int, kdeg: int,
                q: int | None = None) -> HopParams:
     """Resolve launch params for one index shape (memoized per process).
 
+    ``n`` is the rows of one table: under the sharded placement a shard's
+    ``cap``, not ``S·cap`` (each shard's blocks walk its own table).
     ``q`` (the rows of the hop) only clamps ``block_q``; it is not part of
     the key.
     """

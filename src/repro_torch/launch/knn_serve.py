@@ -25,9 +25,11 @@ M query profiles), with one repair pass when ``--repair-every`` is set;
 ``--repair-every R`` re-links delete-damaged rows every R steps, both
 during the serve.
 
-This port serves the single placement. The reference's other flags are
-accepted by name and raise NotImplementedError naming the ROADMAP item
-that ports them when set to anything but their default.
+``--shards S`` serves the sharded placement (LPT cluster shards, all on
+``--device``, one hop launch for every shard) and prints a ``[serve]
+sharded:`` line with the reference's numbers. The reference's other flags
+are accepted by name and raise NotImplementedError naming the ROADMAP
+item that ports them when set to anything but their default.
 """
 from __future__ import annotations
 
@@ -44,7 +46,6 @@ from repro_torch.query.index import KNNIndex, build_index
 
 # Reference flags outside this slice: (flag, type, default, ROADMAP item).
 _LATER = (
-    ("--shards", int, 1, "queue 1 item 5 (sharded placement)"),
     ("--admission", str, "fifo", "queue 1 item 7 (SLO admission)"),
     ("--max-pending", int, 0, "queue 1 item 7 (SLO admission)"),
     ("--priority-split", float, 0.0, "queue 1 item 7 (SLO admission)"),
@@ -70,6 +71,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--beam", type=int, default=32)
     ap.add_argument("--hops", type=int, default=3)
     ap.add_argument("--max-wave", type=int, default=256)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="LPT cluster shards (1 = single placement); all "
+                         "on one device, one hop launch for every shard")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching (slot scheduler, streaming "
                          "admission) instead of closed waves")
@@ -116,7 +120,8 @@ def main(argv=None):
                 f"{flag} is outside this port's slice: ROADMAP {item}")
     dev = resolve_device(args.device)
     qc = QueryConfig(k=args.k, beam=args.beam, hops=args.hops,
-                     max_wave=args.max_wave, continuous=args.continuous,
+                     max_wave=args.max_wave, shards=args.shards,
+                     continuous=args.continuous,
                      slots=args.slots, kernel=args.kernel, dma=args.dma,
                      ttl=args.ttl, repair_every=args.repair_every)
     qc.spec()  # --dma without --kernel fails before any work
@@ -174,6 +179,14 @@ def main(argv=None):
               f"{len(victims[1::2])} updates "
               f"(index now {index.n_live} live rows) | "
               f"lifecycle {engine.lifecycle.stats()}")
+
+    sd = engine.sharded_state()  # after the mutations: the serve reuses it
+    if sd is not None:
+        mb = [round(b / 1e6, 2) for b in sd.resident_bytes()]
+        print(f"[serve] sharded: {sd.n_shards} shards, resident rows "
+              f"{[len(r) for r in sd.plan.residents]} ({mb} MB), "
+              f"imbalance {sd.plan.imbalance:.2f}, shard-grid execution "
+              f"(one hop launch for all shards)")
 
     if not profiles:
         print("[serve] no queries requested")

@@ -19,8 +19,9 @@ Deletes, profile updates, TTL expiry and churn repair go through
 after every step. The plan follows each mutation by a journal-driven row
 scatter into its device tables.
 
-SLO admission, result caching, re-balancing and faults are later slices
-(ROADMAP queue 1 items 7–9).
+``QueryConfig.shards`` > 1 serves the sharded placement
+(``query/sharded.py``). SLO admission, result caching, re-balancing and
+faults are later slices (ROADMAP queue 1 items 7–9).
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ class QueryConfig:
     beam: int = 32             # descent frontier width
     hops: int = 3              # descent depth
     max_wave: int = 256        # queries per wave
+    shards: int = 1            # >1: LPT cluster shards + cross-shard merge
     seeds_per_config: int = 16 # routed seed candidates per hash config
     refresh_every: int = 64    # cohort size triggering re-clustering
     continuous: bool = False   # slot-based streaming admission (sched/)
@@ -90,7 +92,8 @@ class QueryConfig:
                 "needs kernel=True")
         scorer = ("pallas_dma" if self.dma
                   else "pallas" if self.kernel else "jnp")
-        return PlanSpec(batching="continuous" if self.continuous else "wave",
+        return PlanSpec(placement=self.shards,
+                        batching="continuous" if self.continuous else "wave",
                         scorer=scorer, k=self.k, beam=self.beam,
                         hops=self.hops, max_wave=self.max_wave,
                         slots=self.slots,
@@ -130,6 +133,11 @@ class QueryEngine:
                     hops: int | None = None):
         """Answer a batch of raw profiles: (ids int32[q, k], sims f32[q, k])."""
         return self.plan.query_batch(profiles, k=k, hops=hops)
+
+    def sharded_state(self):
+        """The plan's delta-synced ShardedDescent (built on demand), or
+        None when it serves the single placement."""
+        return self.plan.sharded_state()
 
     def step(self) -> int:
         """Serve one step, a wave or a continuous tick; returns requests
@@ -178,7 +186,7 @@ class QueryEngine:
             "p50_latency_s": float(np.percentile(lats, 50)) if lats else 0.0,
             "p95_latency_s": float(np.percentile(lats, 95)) if lats else 0.0,
             "inserted": self.n_inserted,
-            "shards": 1,
+            "shards": self.qc.shards,
             "refreshes": self.n_refreshes,
             "lifecycle": self.lifecycle.stats(),
         }

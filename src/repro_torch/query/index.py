@@ -190,6 +190,17 @@ class KNNIndex:
     def n_clusters(self) -> int:
         return len(self.cluster_config)
 
+    @property
+    def row_bytes(self) -> int:
+        """Serving bytes one resident row costs a shard: adjacency +
+        reverse adjacency + fingerprint words (all 4-byte) + card +
+        local→global id + tombstone flag
+        (``ShardedDescent.resident_bytes``)."""
+        kg = self._bufs["graph_ids"].shape[1]
+        kr = self._bufs["rev_ids"].shape[1]
+        w = self._bufs["words"].shape[1]
+        return 4 * (kg + kr + w) + 4 + 4 + 1
+
     # -- routing tables ----------------------------------------------------
 
     def path_lut(self) -> dict:

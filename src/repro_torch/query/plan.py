@@ -1,23 +1,34 @@
-"""Descent plans: placement × batching × scorer (torch port of the single
-placement of ``repro.query.plan``).
+"""Descent plans: placement × batching × scorer (torch port of
+``repro.query.plan``).
 
-A :class:`PlanSpec` names the three serving axes of the reference. This
-port runs placement ``1`` (one device) under batching ``"wave"`` (closed
-waves) or ``"continuous"`` (a slot scheduler, streaming admission,
-per-request hop budgets), with scorer ``"jnp"`` (the plain unfused hop),
-``"pallas"`` (the fused CUDA hop) or ``"pallas_dma"`` (the DMA hop); the
-scorer names are the reference's, so specs and CLI flags carry over. For
-a fixed placement, batching and scorer never change a result: every
-combination gives bitwise-identical ids and sims. The sharded placement
-raises NotImplementedError naming the ROADMAP item that ports it.
+A :class:`PlanSpec` names the three serving axes of the reference:
 
-A :class:`DescentPlan` owns its device state — padded copies of the
-index tables on the plan's device, kept current by :meth:`DescentPlan.sync`
-from the index's row journal, and for continuous plans the slot arrays —
-and serves through ``step(queue, done)``: one closed wave, or one
-continuous tick. Every wave, seeded descent and tick syncs first, so an
-index mutation between two steps reaches in-flight slots as the tombstone
-mask of their next hop.
+* **placement** — ``1`` (the whole index on one device) or ``S`` LPT
+  cluster shards (``query/sharded.py``: owner-partitioned seeds, per-shard
+  local subgraphs, a cross-shard top-k merge), all S on one device with
+  one hop launch for every shard;
+* **batching** — ``"wave"`` (closed waves) or ``"continuous"`` (a slot
+  scheduler, streaming admission, per-request hop budgets);
+* **scorer** — ``"jnp"`` (the plain unfused hop), ``"pallas"`` (the fused
+  CUDA hop) or ``"pallas_dma"`` (the DMA hop); the scorer names are the
+  reference's, so specs and CLI flags carry over.
+
+For a fixed placement, batching and scorer never change a result: every
+combination gives bitwise-identical ids and sims. Placement is the one
+axis that changes results (disjoint seed basins, dropped cross-shard
+edges), identically under every batching and scorer, and bitwise as the
+reference's sharded placement does.
+
+A :class:`DescentPlan` owns its device state and serves through
+``step(queue, done)``: one closed wave, or one continuous tick. The single
+placement keeps padded copies of the index tables on the plan's device,
+kept current by :meth:`DescentPlan.sync` from the index's row journal; the
+sharded placement keeps a :class:`~repro_torch.query.sharded.
+ShardedDescent`, delta-resharded from the index's journals, and never a
+full-index copy. Continuous plans add the slot arrays (beams ``[S,
+n_slots, shard_beam]`` under sharding). Every wave, seeded descent and
+tick syncs first, so an index mutation between two steps reaches
+in-flight slots as the tombstone mask of their next hop.
 """
 from __future__ import annotations
 
@@ -32,15 +43,15 @@ from repro_torch.core.local_knn import capacity_of
 from repro_torch.device import resolve_device
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.router import fingerprint_profiles, profiles_to_csr, route
-from repro_torch.query.search import batched_descent, slot_admit, slot_hop
+from repro_torch.query.search import (batched_descent, map_shard_ids,
+                                      shard_slot_admit, shard_slot_hop,
+                                      shard_slot_topk, slot_admit, slot_hop)
 from repro_torch.sched import SlotScheduler
 from repro_torch.sketch.goldfinger import words_tensor
 from repro_torch.types import NEG_INF, PAD_ID
 
 BATCHINGS = ("wave", "continuous")
 SCORERS = ("jnp", "pallas", "pallas_dma")
-
-_SHARDED_NOT_PORTED = "sharded placement is ROADMAP queue 1 item 5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +78,6 @@ class PlanSpec:
         if self.scorer not in SCORERS:
             raise ValueError(
                 f"unknown scorer {self.scorer!r}; supported: {SCORERS}")
-        if self.placement > 1:
-            raise NotImplementedError(_SHARDED_NOT_PORTED)
         if self.batching == "continuous" and self.slots < 1:
             raise ValueError(f"continuous plans need slots >= 1, "
                              f"got {self.slots}")
@@ -88,15 +97,19 @@ class PlanSpec:
         return self.scorer == "pallas_dma"
 
     def describe(self) -> str:
+        place = ("single" if self.placement == 1
+                 else f"sharded({self.placement})")
         batch = ("wave" if self.batching == "wave"
                  else f"continuous(slots={self.slots})")
-        return f"single x {batch} x {self.scorer}"
+        return f"{place} x {batch} x {self.scorer}"
 
 
 class _SlotState:
     """Device-resident per-slot state of a continuous plan: the query
     fingerprints and beams of the ``n_slots`` rows, and on the host each
-    slot's hops done and hop budget."""
+    slot's hops done and hop budget. Under a sharded placement the beams
+    carry a leading shard axis (``[S, n_slots, shard_beam]``): every shard
+    advances its own beam per slot, merged across shards at release."""
 
     def __init__(self, index: KNNIndex, spec: PlanSpec, beam: int, device):
         n_slots = spec.slots
@@ -105,16 +118,19 @@ class _SlotState:
         self.q_words = torch.zeros((n_slots, index.words.shape[1]),
                                    dtype=torch.int32, device=device)
         self.q_card = torch.zeros(n_slots, dtype=torch.int32, device=device)
-        self.beam_ids = torch.full((n_slots, beam), PAD_ID, dtype=torch.int32,
+        shape = ((spec.placement, n_slots, beam) if spec.placement > 1
+                 else (n_slots, beam))
+        self.beam_ids = torch.full(shape, PAD_ID, dtype=torch.int32,
                                    device=device)
-        self.beam_sims = torch.full((n_slots, beam), NEG_INF,
-                                    dtype=torch.float32, device=device)
+        self.beam_sims = torch.full(shape, NEG_INF, dtype=torch.float32,
+                                    device=device)
         self.hops_done = np.zeros(n_slots, np.int64)
         self.budget = np.full(n_slots, spec.hops, np.int64)
 
 
 class DescentPlan:
-    """Single placement × wave or continuous batching, on one device."""
+    """One placement × batching × scorer combination on one device,
+    owning its device state and serving loop."""
 
     def __init__(self, index: KNNIndex, spec: PlanSpec, device="cuda"):
         self.index = index
@@ -122,6 +138,7 @@ class DescentPlan:
         self.device = resolve_device(device)
         self.beam = max(spec.beam, spec.k)
         self._single = None     # (version, capacity, device tables)
+        self._sharded = None    # ShardedDescent (delta-synced)
         self._slots: Optional[_SlotState] = None
         self.n_ticks = 0
         # Hop accounting over every hop this plan ran, real query rows
@@ -132,10 +149,12 @@ class DescentPlan:
         # reference counts them.
         self.descent_stats = {"scored_lanes": 0, "dma_bytes": 0,
                               "bytes_saved": 0, "hop_queries": 0}
-        # Device syncs: full uploads, journal scatters and the rows they
-        # scattered.
-        self.sync_stats = {"full_uploads": 0, "scatters": 0,
-                           "rows_scattered": 0}
+        # Device syncs. Single placement: full uploads, journal scatters
+        # and the rows they scattered. Sharded: the results of the shard
+        # state's sync() after its first build (ShardedDescent.sync).
+        self.sync_stats = (
+            {"noop": 0, "delta": 0, "rebuild": 0} if spec.placement > 1
+            else {"full_uploads": 0, "scatters": 0, "rows_scattered": 0})
 
     def describe(self) -> str:
         return self.spec.describe()
@@ -152,10 +171,14 @@ class DescentPlan:
         self.descent_stats["hop_queries"] += int(s.shape[0])
 
     def sync(self):
-        """The index on the plan's device, current to its version:
-        (graph_ids, rev_ids, words bit-views, card, tombstone), padded to
-        ``capacity_of(n, minimum=64)`` rows (PAD adjacency, zero words and
-        cards, live flags past n; no id names them).
+        """Repair this plan's device state to the index's version and
+        return it. The sharded placement delegates to its
+        :class:`~repro_torch.query.sharded.ShardedDescent` (delta reshard,
+        :meth:`sharded_state`) and returns it. The single placement
+        returns the index on the plan's device: (graph_ids, rev_ids, words
+        bit-views, card, tombstone), padded to ``capacity_of(n,
+        minimum=64)`` rows (PAD adjacency, zero words and cards, live
+        flags past n; no id names them).
 
         A stale copy is repaired in place when it can be: the rows the
         index journalled since the copy's version
@@ -163,6 +186,8 @@ class DescentPlan:
         resident tensors. The whole index is uploaded on first use, when
         n crosses the padded capacity, when the journal no longer reaches
         back, or when more than ``max(64, n // 8)`` rows changed."""
+        if self.spec.placement > 1:
+            return self._sync_sharded()
         ix = self.index
         if self._single is not None and self._single[0] == ix.version:
             return self._single[2]
@@ -204,6 +229,22 @@ class DescentPlan:
         self.sync_stats["full_uploads"] += 1
         return tables
 
+    def _sync_sharded(self):
+        from repro_torch.query.sharded import ShardedDescent
+
+        if (self._sharded is None
+                or self._sharded.n_shards != self.spec.placement):
+            self._sharded = ShardedDescent(
+                self.index, self.spec.placement, device=self.device)
+        else:
+            self.sync_stats[self._sharded.sync()] += 1
+        return self._sharded
+
+    def sharded_state(self):
+        """The delta-synced ShardedDescent, or None for the single
+        placement."""
+        return self._sync_sharded() if self.spec.placement > 1 else None
+
     # -- one closed wave -----------------------------------------------------
 
     def search(self, items, offsets, qgf, k: int, *,
@@ -224,6 +265,13 @@ class DescentPlan:
         beam = max(self.beam if beam is None else beam, k)
         hops = spec.hops if hops is None else hops
         dev = self.device
+        if spec.placement > 1:
+            sd = self._sync_sharded()
+            ids, sims = sd.descend(q_words, q_card, seeds, k=k, beam=beam,
+                                   hops=hops, kernel=spec.kernel,
+                                   dma=spec.dma)
+            self._note_stats(torch.from_numpy(sd.last_hop_stats))
+            return ids.cpu().numpy(), sims.cpu().numpy()
         graph_ids, rev_ids, words, card, tomb = self.sync()
         ids, sims, stats = batched_descent(
             graph_ids, rev_ids, words, card, words_tensor(q_words, dev),
@@ -286,14 +334,22 @@ class DescentPlan:
 
     def _slot_state(self) -> _SlotState:
         if self._slots is None:
-            self._slots = _SlotState(self.index, self.spec, self.beam,
+            beam = self.beam
+            if self.spec.placement > 1:
+                beam = self._sync_sharded().shard_beam(self.beam, self.spec.k)
+            self._slots = _SlotState(self.index, self.spec, beam,
                                      self.device)
         return self._slots
 
     def _slot_results(self, st: _SlotState):
         """(ids int32[n_slots, k], sims f32[n_slots, k]) host snapshots:
-        the beam is sorted, so the top k is its prefix."""
+        the beam is sorted, so the top k is its prefix; under sharding the
+        shards' prefixes merged in global ids (:func:`shard_slot_topk`)."""
         k = self.spec.k
+        if self.spec.placement > 1:
+            ids, sims = shard_slot_topk(self._sharded._dev[4], st.beam_ids,
+                                        st.beam_sims, k=k)
+            return ids.cpu().numpy(), sims.cpu().numpy()
         return (st.beam_ids[:, :k].cpu().numpy(),
                 st.beam_sims[:, :k].cpu().numpy())
 
@@ -310,6 +366,16 @@ class DescentPlan:
         for slot, req in admitted:
             st.hops_done[slot] = 0
             st.budget[slot] = req.hops if req.hops is not None else spec.hops
+        if spec.placement > 1:
+            sd = self._sync_sharded()
+            shard_slot_admit(
+                sd._dev[2], sd._dev[3], words_tensor(qgf.words, dev),
+                torch.from_numpy(np.asarray(qgf.card, np.int32)).to(dev),
+                torch.from_numpy(sd.shard_seeds(np.asarray(seeds))
+                                 .astype(np.int32)).to(dev),
+                torch.from_numpy(slots).to(dev), st.q_words, st.q_card,
+                st.beam_ids, st.beam_sims, beam=st.beam, l_tomb=sd._dev[5])
+            return
         words, card, tomb = self.sync()[2:5]
         slot_admit(words, card, words_tensor(qgf.words, dev),
                    torch.from_numpy(np.asarray(qgf.card, np.int32)).to(dev),
@@ -326,7 +392,21 @@ class DescentPlan:
         while the others keep descending, with no wave barrier."""
         spec = self.spec
         self.sync()  # mutations since the last tick reach this one's hop
+        had_state = self._slots is not None
         st = self._slot_state()
+        if spec.placement > 1:
+            # A reshard since the last tick may have relabelled shard-local
+            # ids (a shard rematerialised after a cohort refresh); in-flight
+            # beams hold local ids, so relabel them before the next hop.
+            remap = self._sharded.take_beam_remap()
+            if remap is not None and had_state:
+                st.beam_ids = map_shard_ids(
+                    torch.from_numpy(remap).to(self.device), st.beam_ids)
+                # Lanes the map sends to PAD lose their sims (the identity
+                # under the frozen-base extension: no live lane maps to
+                # PAD there).
+                st.beam_sims = torch.where(st.beam_ids == PAD_ID, NEG_INF,
+                                           st.beam_sims)
         sched = st.sched
         while queue:
             sched.submit(queue.popleft())
@@ -341,12 +421,19 @@ class DescentPlan:
         hop_active = active & (st.hops_done < st.budget)
         changed = np.zeros(active.shape[0], bool)
         if hop_active.any():
-            graph_ids, rev_ids, words, card, tomb = self.sync()
             mask = torch.from_numpy(hop_active).to(self.device)
-            st.beam_ids, st.beam_sims, changed_t, stats = slot_hop(
-                graph_ids, rev_ids, words, card, st.q_words, st.q_card,
-                st.beam_ids, st.beam_sims, mask, kernel=spec.kernel,
-                dma=spec.dma, tomb=tomb)
+            if spec.placement > 1:
+                sd = self._sync_sharded()
+                st.beam_ids, st.beam_sims, changed_t, stats = shard_slot_hop(
+                    *sd._dev[:4], st.q_words, st.q_card, st.beam_ids,
+                    st.beam_sims, mask, kernel=spec.kernel, dma=spec.dma,
+                    l_tomb=sd._dev[5])
+            else:
+                graph_ids, rev_ids, words, card, tomb = self.sync()
+                st.beam_ids, st.beam_sims, changed_t, stats = slot_hop(
+                    graph_ids, rev_ids, words, card, st.q_words, st.q_card,
+                    st.beam_ids, st.beam_sims, mask, kernel=spec.kernel,
+                    dma=spec.dma, tomb=tomb)
             changed = changed_t.cpu().numpy()
             # The hop ran every slot row; count only the active ones.
             self._note_stats(stats[mask])

@@ -1,5 +1,5 @@
-"""Batched graph descent for query serving (torch port of the wave and
-single-placement slot pieces of ``repro.query.search``).
+"""Batched graph descent for query serving (torch port of
+``repro.query.search``).
 
 Every query of a wave keeps a fixed-width beam of its best candidates;
 each hop gathers the forward AND reverse neighbors of the beam
@@ -20,7 +20,10 @@ implementations with bitwise-identical results:
 
 Waves run :func:`batched_descent`; continuous batching runs the same
 pieces a hop at a time over a fixed slot array (:func:`slot_admit`,
-:func:`slot_hop`).
+:func:`slot_hop`). The sharded placement has its counterparts over
+stacked shards (:func:`batched_descent_sharded`, :func:`shard_slot_admit`,
+:func:`shard_slot_hop`, :func:`shard_slot_topk`), one hop launch for all
+shards.
 """
 from __future__ import annotations
 
@@ -149,6 +152,178 @@ def slot_hop(graph_ids, rev_ids, words, card, q_words, q_card, beam_ids,
     out_ids = torch.where(active[:, None], nids, beam_ids)
     out_sims = torch.where(active[:, None], nsims, beam_sims)
     return out_ids, out_sims, changed, stats
+
+
+# -- the sharded placement ----------------------------------------------------
+#
+# The sharded placement (``query/sharded.py``) stacks its shards' local
+# subgraphs, ``[S, cap, ·]`` tables, and every shard keeps its own beams
+# over them, ``[S, q, B]`` in its own local ids; the query fingerprints are
+# every shard's. Each hop is ONE launch for all shards
+# (``ops.descent_hop_sharded``: the shard is a grid axis of both kernels),
+# the counterpart of the reference's hop vmapped over the shard axis. The
+# plain pieces (seed scoring, the plain hop, the merges) are row-wise, so
+# they run once for all shards with the shard axis folded into the rows
+# (tables ``[S·cap, ·]``, shard s's ids offset by ``s·cap``): each row
+# holds one shard's ids, shifted alike, which gives the reference's bits.
+
+
+def _rows(t):
+    """``[S, r, ·]`` → ``[S·r, ·]``: the shard axis folded into the rows."""
+    return t.reshape((-1,) + tuple(t.shape[2:]))
+
+
+def _fold(ids, cap: int):
+    """Shard-local ids ``[S, r, c]`` as rows of the folded ``[S·cap, ·]``
+    tables (shard s's rows start at ``s·cap``): ``[S·r, c]``, PAD stays
+    PAD."""
+    base = torch.arange(ids.shape[0], dtype=ids.dtype,
+                        device=ids.device).mul_(cap).view(-1, 1, 1)
+    return _rows(torch.where(ids == PAD_ID, PAD_ID, ids + base))
+
+
+def _unfold(ids, S: int, cap: int):
+    """:func:`_fold`'s inverse: rows ``[S·q, c]`` of folded ids back to
+    each shard's local ids ``[S, q, c]``."""
+    ids = ids.reshape(S, ids.shape[0] // S, ids.shape[-1])
+    base = torch.arange(S, dtype=ids.dtype,
+                        device=ids.device).mul_(cap).view(-1, 1, 1)
+    return torch.where(ids == PAD_ID, PAD_ID, ids - base)
+
+
+def descent_init_sharded(l_words, l_card, q_words, q_card, l_seeds, *,
+                         beam: int, l_tomb=None):
+    """Every shard's initial beams from its own owner-partitioned local
+    seeds ``l_seeds`` int32[S, q, cols]: (ids int32[S, q, beam], sims
+    f32[S, q, beam])."""
+    S, cap = l_words.shape[:2]
+    ids, sims = descent_init(
+        _rows(l_words), _rows(l_card), q_words.repeat(S, 1),
+        q_card.repeat(S), _fold(l_seeds, cap), beam=beam,
+        tomb=None if l_tomb is None else _rows(l_tomb))
+    return _unfold(ids, S, cap), sims.reshape(S, l_seeds.shape[1], beam)
+
+
+def descent_step_sharded(l_graph, l_rev, l_words, l_card, q_words, q_card,
+                         beam_ids, beam_sims, *, kernel: bool = False,
+                         dma: bool = False, l_tomb=None):
+    """One hop of every shard's beams ``[S, q, B]``: with ``kernel`` one
+    launch of the fused (or, with ``dma``, the DMA) hop for all shards,
+    else the plain hop once over the folded shards. Returns ``(beam_ids, beam_sims,
+    stats)`` with ``stats`` int32[S, q, 3], each shard's as
+    :func:`descent_step` gives it."""
+    if kernel:
+        ids, sims, *counts = ds_ops.descent_hop_sharded(
+            l_graph, l_rev, l_words, l_card, q_words, q_card, beam_ids,
+            beam_sims, tomb=l_tomb, dma=dma, with_counts=True)
+        return ids, sims, torch.stack(counts, dim=-1)
+    (S, cap), (q, B) = l_graph.shape[:2], beam_ids.shape[1:]
+    ids, sims, stats = descent_step(
+        _fold(l_graph, cap), _fold(l_rev, cap), _rows(l_words),
+        _rows(l_card), q_words.repeat(S, 1), q_card.repeat(S),
+        _fold(beam_ids, cap), _rows(beam_sims),
+        tomb=None if l_tomb is None else _rows(l_tomb))
+    return (_unfold(ids, S, cap), sims.reshape(S, q, B),
+            stats.reshape(S, q, 3))
+
+
+def map_shard_ids(table, ids):
+    """Each shard's ids [S, q, c] mapped through its row of ``table``
+    int32[S, ·] (local → global through l2g, or old → new local ids
+    through a reshard's remap); PAD stays PAD."""
+    S, q, c = ids.shape
+    safe = torch.where(ids == PAD_ID, 0, ids).long().reshape(S, q * c)
+    out = torch.gather(table, 1, safe).reshape(S, q, c)
+    return torch.where(ids == PAD_ID, PAD_ID, out)
+
+
+def _merge_rows(ids, sims, k: int):
+    """:func:`merge_topk` of every row of ``[S, q, c]`` (row-wise, so the
+    shard axis folds into the rows)."""
+    S, q, c = ids.shape
+    out_ids, out_sims = merge_topk(ids.reshape(S * q, c),
+                                   sims.reshape(S * q, c), k)
+    return out_ids.reshape(S, q, k), out_sims.reshape(S, q, k)
+
+
+def batched_descent_sharded(l_graph, l_rev, l_words, l_card, l2g, l_tomb,
+                            q_words, q_card, l_seeds, *, k: int, beam: int,
+                            hops: int, kernel: bool = False,
+                            dma: bool = False):
+    """Every shard's beam search for a wave of queries (the reference's
+    ``_vmapped_descent``): init from the shard's own seeds, ``hops``
+    sharded hops, each shard's top k, mapped to global ids.
+
+    Returns (ids int32[S, q, k] global, sims f32[S, q, k], stats
+    int32[S, q, 3]) with ``stats`` summed over the hops; the cross-shard
+    merge is the caller's (``sharded._merge_shard_topk``).
+    """
+    beam_ids, beam_sims = descent_init_sharded(
+        l_words, l_card, q_words, q_card, l_seeds, beam=beam, l_tomb=l_tomb)
+    acc = torch.zeros(beam_ids.shape[:2] + (3,), dtype=torch.int32,
+                      device=beam_ids.device)
+    for _ in range(hops):
+        beam_ids, beam_sims, stats = descent_step_sharded(
+            l_graph, l_rev, l_words, l_card, q_words, q_card, beam_ids,
+            beam_sims, kernel=kernel, dma=dma, l_tomb=l_tomb)
+        acc += stats
+    ids, sims = _merge_rows(beam_ids, beam_sims, k)
+    return map_shard_ids(l2g, ids), sims, acc
+
+
+def shard_slot_admit(l_words, l_card, new_words, new_card, new_seeds,
+                     slot_idx, q_words, q_card, beam_ids, beam_sims, *,
+                     beam: int, l_tomb=None):
+    """Admit requests into every shard's persistent slot state, in place.
+
+    ``new_seeds`` int32[S, A, cols] are the admitted rows'
+    owner-partitioned local seeds (``ShardedDescent.shard_seeds``): each
+    shard initialises its slot rows from the seeds it owns, as the sharded
+    wave seeds its descent. Beams are ``[S, n_slots, beam]``.
+    """
+    init_ids, init_sims = descent_init_sharded(
+        l_words, l_card, new_words, new_card, new_seeds, beam=beam,
+        l_tomb=l_tomb)
+    q_words.index_copy_(0, slot_idx, new_words)
+    q_card.index_copy_(0, slot_idx, new_card)
+    beam_ids.index_copy_(1, slot_idx, init_ids)
+    beam_sims.index_copy_(1, slot_idx, init_sims)
+    return q_words, q_card, beam_ids, beam_sims
+
+
+def shard_slot_hop(l_graph, l_rev, l_words, l_card, q_words, q_card,
+                   beam_ids, beam_sims, active, *, kernel: bool = False,
+                   dma: bool = False, l_tomb=None):
+    """One continuous tick over every shard's slot array: one sharded hop
+    of all rows; ``active`` rows keep the result. ``changed[i]`` is False
+    only when slot i's beam reached a fixed point on EVERY shard, so the
+    request may complete early with its full-budget result. ``stats`` is
+    the raw int32[n_slots, 3] summed over shards; the caller masks it by
+    its own active set."""
+    nids, nsims, stats = descent_step_sharded(
+        l_graph, l_rev, l_words, l_card, q_words, q_card, beam_ids,
+        beam_sims, kernel=kernel, dma=dma, l_tomb=l_tomb)
+    changed = (nids != beam_ids).any(dim=2).any(dim=0) & active
+    keep = active[None, :, None]
+    return (torch.where(keep, nids, beam_ids),
+            torch.where(keep, nsims, beam_sims), changed,
+            stats.sum(dim=0, dtype=torch.int32))
+
+
+def shard_slot_topk(l2g, beam_ids, beam_sims, *, k: int):
+    """Cross-shard top-k of every slot's per-shard beams, in global ids.
+
+    Each shard's beam is a ``merge_topk`` output, so its top k is its
+    k-prefix, the wave's per-shard closing merge; the prefixes are mapped
+    to global ids and merged shard-major, as ``sharded._merge_shard_topk``
+    does, which keeps the sharded continuous plan bitwise the sharded
+    wave. Returns (ids int32[n_slots, k], sims f32[n_slots, k]).
+    """
+    gids = map_shard_ids(l2g, beam_ids[:, :, :k].contiguous())
+    sims_k = beam_sims[:, :, :k]
+    S, n_slots, kk = gids.shape
+    return merge_topk(gids.transpose(0, 1).reshape(n_slots, S * kk),
+                      sims_k.transpose(0, 1).reshape(n_slots, S * kk), k)
 
 
 def _exact_block(words, card, tomb, q_words, q_card, k: int,

@@ -204,7 +204,8 @@ def test_knn_serve_cli_on_cpu(indexes, tmp_path, capsys):
     assert stats["requests"] == 40 and 0.5 < recall <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["--adaptive", "2"],
+@pytest.mark.parametrize("flag", [["--resident-configs", "2"],
+                                  ["--adaptive", "2"],
                                   ["--rebalance-every", "3"],
                                   ["--fault-plan", "crash@3"],
                                   ["--cache", "8"]])
@@ -214,10 +215,13 @@ def test_knn_serve_flags_outside_slice_raise(flag):
 
 
 def test_plans_outside_slice_raise():
+    # The sharded placement is ported: both batchings validate, and a
+    # placement below one shard is refused, as the reference does.
     for kw in (dict(placement=2),
                dict(placement=2, batching="continuous")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PlanSpec(**kw)
+        assert PlanSpec(**kw).describe().startswith("sharded(2) x ")
+    with pytest.raises(ValueError, match="placement"):
+        PlanSpec(placement=0)
     with pytest.raises(ValueError):
         PlanSpec(scorer="nope")
     with pytest.raises(ValueError, match="kernel"):
