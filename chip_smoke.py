@@ -84,6 +84,34 @@ Phases, each fatal on failure:
    32: 12 lanes a shard) and on 2 shards at beam 256 (192 lanes a shard,
    state in global memory), 256 queries and one, against the plain
    sharded hop and S single-shard launches;
+4d. SLO admission, adaptive budgets, the result cache, re-balance and
+   tiered residency — over the same paper index, each path through
+   ``QueryEngine`` with its launch counts from 0, each launching its hop:
+   the 2,048 profiles then the first 1,024 again with a 4,096-entry cache
+   and without, wave x fused hop and continuous (256 slots) x DMA hop,
+   bitwise equal rid by rid with 1,024 hits, and a continuous cache-on
+   serve with 64 inserts arriving eight a tick over its first eight
+   ticks (flushed by each), serving hits after the last flush, equal to
+   cache off; SLO admission on a ManualClock (a quarter class 0, every
+   eighth class-1 deadline expiring before the first step, the queue
+   bounded at 1,024) as wave x {plain, fused hop} and continuous x DMA
+   hop: the same shed rids, every served rid the FIFO serve's, no class-1
+   request completed before the last class-0 one in waves, and a
+   host-clock serve for latency by class; ``--adaptive 1`` and ``2``
+   continuous x {plain, fused, DMA hop}, bitwise across scorers, ticks,
+   slot hops and recall beside the non-adaptive serve; ``--shards 4
+   --insert 256 --rebalance-every 1 --rebalance-threshold 1.0`` as wave x
+   fused and continuous x DMA hop (a swap forced if the first check does
+   not fire), equal rid by rid, the shard tables after every swap equal
+   to a fresh ``ShardedDescent``, with the swaps' host clock, imbalance
+   and ``merge_coverage``; continuous x {plain, DMA hop} with 256 inserts
+   before the first tick and a swap forced before the second, slots in
+   flight, that moves rows between shards (beam lanes relabelled and
+   evicted to PAD), equal rid by rid; a cache-on continuous serve with a
+   swap forced before every tick on the fixed index, slots in flight,
+   equal to the serve without swaps and flushed at each swap; ``--shards 4 --resident-configs 4`` and ``2``
+   three ways each, bitwise, with resident rows, MB and recall; and a
+   small synth serve with every knob on, equal on the card and the CPU;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -99,7 +127,8 @@ Phases, each fatal on failure:
    clock (item hashes, distinct hashes, splits, the rest).
 
 Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
-sharded placement's launches and 4-shard hop time under ``sharded``),
+sharded placement's launches and 4-shard hop time under ``sharded``, and
+phase 4d's launches path by path under ``phase_4d``),
 then as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1906,6 +1935,531 @@ def sharded_placement(dev, run: dict) -> dict:
     return out
 
 
+# -- phase 4d: SLO admission, adaptive budgets, the cache, re-balance ------
+
+# The serve's knobs (k=10, beam 32, 3 hops, waves of 256, 256 slots) and
+# this phase's sizes: the 2,048 unseen profiles, the first 1,024 of them
+# again for the cache, 256 inserts, 64 arrivals between ticks (eight a
+# tick).
+SERVE_QC = dict(k=10, beam=32, hops=3, max_wave=256, slots=256)
+P4D = dict(queries=2048, repeats=1024, inserts=256, arrivals=64,
+           arrivals_per_tick=8, max_pending=1024, shards=4, small=["--dataset", "synth",
+                                              "--scale", "0.1"])
+FUSED, DMA = "descent_hop", "descent_hop_dma"
+WAVE_PALLAS = ("wave x pallas", FUSED, dict(kernel=True))
+WAVE_JNP = ("wave x jnp", None, {})
+CONT_JNP = ("continuous x jnp", None, dict(continuous=True))
+CONT_DMA = ("continuous x pallas_dma", DMA,
+            dict(continuous=True, kernel=True, dma=True))
+
+
+def serve4d(ctx, label, kernel, qc, stream=None, requests=None,
+            prepare=None, on_tick=None, clock=None, sharded=False):
+    """One serve of this phase through ``QueryEngine`` on a freshly loaded
+    copy of the paper index: ``prepare(engine)`` first (inserts, a forced
+    swap), then the tables are uploaded and the routing table built (the
+    serve's first-use costs), the launch counts set to 0, the requests
+    (``stream``'s profiles as rids 0.., or ``requests(engine)``) served,
+    and the counts read and checked: the path launched its hop (through
+    the sharded entry alone when ``sharded``). With a ManualClock
+    ``clock`` the loop advances it one unit before every step and ``run``'s
+    stats are None. Returns (engine, stats, launches)."""
+    from repro_torch.query.engine import QueryConfig, QueryEngine, QueryRequest
+    from repro_torch.query.index import KNNIndex
+
+    engine = QueryEngine(KNNIndex.load(ctx["index_path"]),
+                         QueryConfig(**{**SERVE_QC, **qc}),
+                         device=ctx["dev"], clock=clock)
+    if prepare is not None:
+        prepare(engine)
+    engine.plan.sync()
+    engine.index.path_lut()
+    reset_launches()
+    reqs = (requests(engine) if requests is not None else
+            [QueryRequest(rid=i, profile=p) for i, p in enumerate(stream)])
+    for r in reqs:
+        engine.submit(r)
+    stats = None
+    if clock is None:
+        stats = engine.run(on_tick=on_tick)
+    else:
+        while engine.busy():
+            clock.advance(1.0)
+            engine.step()
+    counts = read_launches()
+    (check_sharded_launches if sharded else check_path_launches)(
+        label, counts, kernel)
+    ctx["launches"][label] = counts
+    return engine, stats, counts
+
+
+def by_rid(engine) -> dict:
+    """rid → (ids, sims) of the served requests; shed ones → None."""
+    return {r.rid: None if r.rejected else (r.ids, r.sims)
+            for r in engine.done}
+
+
+def same_results(a: dict, b: dict, label: str, other: str) -> None:
+    import numpy as np
+
+    if sorted(a) != sorted(b):
+        fail(f"{label} completed other rids than {other}")
+    bad = [rid for rid in a
+           if (a[rid] is None) != (b[rid] is None) or a[rid] is not None
+           and not (np.array_equal(a[rid][0], b[rid][0])
+                    and np.array_equal(a[rid][1], b[rid][1]))]
+    if bad:
+        fail(f"{label} differs from {other} in {len(bad)} requests "
+             f"(rid {bad[0]})")
+
+
+def cache_serves(ctx) -> None:
+    """The 2,048 profiles then the first 1,024 again, ``--cache 4096`` and
+    without, as wave x pallas and continuous (256 slots) x pallas_dma:
+    equal rid by rid, 1,024 hits; served on, off, off, on for the QPS
+    (the host clock drifts between serves). Then a continuous cache-on
+    serve with 64 inserts arriving before its first eight ticks, eight a
+    tick, flushed by each: the repeats are looked up after the last
+    flush, so hits are served from entries stored after it; equal to the
+    same serve without the cache rid by rid."""
+    import numpy as np
+
+    profiles, n_rep = ctx["profiles"], P4D["repeats"]
+    stream = profiles + profiles[:n_rep]
+    for name, kernel, qc in (WAVE_PALLAS, CONT_DMA):
+        runs = {4096: [], 0: []}
+        for cache in (4096, 0, 0, 4096):
+            label = f"cache {cache} {name}"
+            runs[cache].append(serve4d(ctx, label, kernel,
+                                       {**qc, "cache": cache},
+                                       stream=stream))
+        on, off = runs[4096][0], runs[0][0]
+        same_results(by_rid(on[0]), by_rid(off[0]), f"cache-on {name}",
+                     "cache off")
+        c = on[1]["cache"]
+        if c["hits"] != n_rep or c["flushes"] != 0:
+            fail(f"cache-on {name}: {c}, expected {n_rep} hits")
+        qps = {cache: [r[1]["qps"] for r in rr] for cache, rr in runs.items()}
+        ctx["numbers"][f"cache {name}"] = {"qps_on": qps[4096],
+                                           "qps_off": qps[0]}
+        log(f"[slo] repeated stream ({len(stream)} requests) {name}: QPS "
+            f"cache on {qps[4096]}, off {qps[0]} (on, off, off, on: ratio of "
+            f"the medians {np.median(qps[4096]) / np.median(qps[0]):.3f}); "
+            f"steps {on[1]['waves']} on, {off[1]['waves']} off; cache {c}; "
+            f"hop launches {on[2][kernel]} on, {off[2][kernel]} off; "
+            f"bitwise equal rid by rid")
+    inserts = ctx["inserts"][:P4D["arrivals"]]
+    per = P4D["arrivals_per_tick"]
+
+    def arrivals(engine, tick):
+        for p in inserts[per * tick:per * (tick + 1)]:
+            engine.insert(p)
+
+    name, kernel, qc = CONT_DMA
+    on = serve4d(ctx, f"cache 4096 {name} + arrivals", kernel,
+                 {**qc, "cache": 4096}, stream=stream, on_tick=arrivals)
+    off = serve4d(ctx, f"cache 0 {name} + arrivals", kernel, qc,
+                  stream=stream, on_tick=arrivals)
+    same_results(by_rid(on[0]), by_rid(off[0]),
+                 f"cache-on {name} with arrivals", "cache off")
+    c = on[1]["cache"]
+    if (c["flushes"] < 1 or c["hits"] < 1
+            or on[1]["inserted"] != len(inserts)):
+        fail(f"cache-on serve with arrivals: {c}, inserted "
+             f"{on[1]['inserted']}; expected flushes and hits after them")
+    ctx["numbers"][f"cache {name} + arrivals"] = dict(c)
+    log(f"[slo] {name} with {len(inserts)} inserts arriving {per} a tick "
+        f"before its first {len(inserts) // per} ticks: cache {c}; bitwise "
+        f"equal to cache off rid by rid")
+
+
+def p95_by_class(done, n_high: int) -> dict:
+    import numpy as np
+
+    out = {}
+    for cls, reqs in (("class 0", [r for r in done if r.rid < n_high]),
+                      ("class 1", [r for r in done if r.rid >= n_high])):
+        lats = [r.latency for r in reqs if not r.rejected]
+        out[cls] = (float(np.percentile(lats, 95)) if lats else None,
+                    len(lats), sum(1 for r in reqs if r.rejected))
+    return out
+
+
+def slo_serves(ctx, fifo: dict) -> None:
+    """SLO admission on a ManualClock that the serve loop advances by one
+    unit before every step: class 0 the first quarter of the 2,048
+    profiles; every eighth class-1 request's deadline half a unit after
+    submission (it expires while queued for the first step); the queue
+    bounded at 1,024 (overflow shed at the first admission). Wave x {jnp,
+    pallas} and continuous x pallas_dma shed the same rids and serve the
+    same results, each the FIFO serve's; in waves no class-1 request
+    completes before the last class-0 one. Then a wave x pallas serve on
+    the host clock, overflow shedding only, for latency by class."""
+    from repro_torch.query.engine import QueryRequest
+    from repro_torch.sched import ManualClock
+
+    profiles = ctx["profiles"]
+    n_high = len(profiles) // 4
+
+    def requests(engine):
+        t0 = engine.clock()
+        return [QueryRequest(rid=i, profile=p,
+                             priority=0 if i < n_high else 1,
+                             deadline=t0 + (0.5 if i >= n_high and i % 8 == 7
+                                            else 1e6))
+                for i, p in enumerate(profiles)]
+
+    slo = dict(admission="slo", max_pending=P4D["max_pending"])
+    base = None
+    for name, kernel, qc in (WAVE_JNP, WAVE_PALLAS, CONT_DMA):
+        label = f"slo {name}"
+        engine, _, counts = serve4d(ctx, label, kernel, {**qc, **slo},
+                                    requests=requests,
+                                    clock=ManualClock(1.0))
+        got = by_rid(engine)
+        shed = sorted(rid for rid, v in got.items() if v is None)
+        expired = sum(1 for rid in shed if rid >= n_high and rid % 8 == 7)
+        if not 0 < expired < len(shed) or len(got) != len(profiles):
+            fail(f"{label}: {len(shed)} shed, {expired} of them expired")
+        same_results({rid: v for rid, v in got.items() if v is not None},
+                     {rid: fifo[rid] for rid, v in got.items()
+                      if v is not None}, label, "the FIFO serve")
+        if base is None:
+            base = (got, label)
+        else:
+            same_results(got, base[0], label, base[1])
+        if name.startswith("wave"):
+            order = [r.rid for r in engine.done if not r.rejected]
+            last0 = max(i for i, rid in enumerate(order) if rid < n_high)
+            first1 = min(i for i, rid in enumerate(order) if rid >= n_high)
+            t = {r.rid: r.t_done for r in engine.done}
+            if t[order[first1]] < t[order[last0]]:
+                fail(f"{label}: a class-1 request completed before the "
+                     f"last class-0 one")
+        by_class = p95_by_class(engine.done, n_high)
+        log(f"[slo] {label} (ManualClock, one unit a step): served "
+            f"{len(got) - len(shed)}, shed {len(shed)} ({expired} expired, "
+            f"{len(shed) - expired} overflow); p95 latency in steps, served, "
+            f"shed by class {by_class}; launches {counts}; same shed rids "
+            f"and results as {base[1]}, each the FIFO serve's")
+    name, kernel, qc = WAVE_PALLAS
+
+    def split(engine):
+        return [QueryRequest(rid=i, profile=p,
+                             priority=0 if i < n_high else 1)
+                for i, p in enumerate(profiles)]
+
+    engine, stats, _ = serve4d(ctx, f"slo host clock {name}", kernel,
+                               {**qc, **slo}, requests=split)
+    by_class = {cls: (None if v[0] is None else v[0] * 1e3, v[1], v[2])
+                for cls, v in p95_by_class(engine.done, n_high).items()}
+    ctx["numbers"]["slo host clock"] = {"served": stats["served"],
+                                        "shed": stats["shed"],
+                                        "by_class": by_class}
+    log(f"[slo] slo host clock {name}, priority split {n_high}/"
+        f"{len(profiles) - n_high}, max_pending {P4D['max_pending']}: "
+        f"served {stats['served']}, shed {stats['shed']}, QPS "
+        f"{stats['qps']:.1f}; p95 ms, served, shed by class {by_class}")
+
+
+def adaptive_serves(ctx) -> None:
+    """Continuous (256 slots) x {jnp, pallas, pallas_dma} at ``--adaptive
+    1`` and ``2``: bitwise equal across scorers (ids, sims, ticks,
+    hop_queries); ticks, slot hops, scored lanes and recall@10 beside the
+    non-adaptive serve."""
+    profiles = ctx["profiles"]
+    paths = (CONT_JNP,
+             ("continuous x pallas", FUSED,
+              dict(continuous=True, kernel=True)), CONT_DMA)
+    engine, _, _ = serve4d(ctx, "adaptive 0 continuous x pallas_dma", DMA,
+                           CONT_DMA[2], stream=profiles)
+    full = (engine.n_ticks, dict(engine.plan.descent_stats),
+            engine.recall_vs_brute_force())
+    log(f"[slo] adaptive 0: {full[0]} ticks, {full[1]['hop_queries']} slot "
+        f"hops, {full[1]['scored_lanes']} lanes scored, recall@10 "
+        f"{full[2]:.4f}")
+    for patience in (1, 2):
+        base = None
+        for name, kernel, qc in paths:
+            label = f"adaptive {patience} {name}"
+            engine, _, _ = serve4d(ctx, label, kernel,
+                                   {**qc, "adaptive": patience},
+                                   stream=profiles)
+            got = (by_rid(engine), engine.n_ticks,
+                   engine.plan.descent_stats["hop_queries"])
+            if base is None:
+                base = (got, label)
+            else:
+                same_results(got[0], base[0][0], label, base[1])
+                if got[1:] != base[0][1:]:
+                    fail(f"{label}: ticks, slot hops {got[1:]} != "
+                         f"{base[1]}'s {base[0][1:]}")
+        d = engine.plan.descent_stats
+        recall = engine.recall_vs_brute_force()
+        ctx["numbers"][f"adaptive {patience}"] = {
+            "ticks": engine.n_ticks, "hop_queries": d["hop_queries"],
+            "recall": recall, "ticks_full": full[0],
+            "hop_queries_full": full[1]["hop_queries"],
+            "recall_full": full[2]}
+        log(f"[slo] adaptive {patience}: {engine.n_ticks} ticks (non-adaptive "
+            f"{full[0]}), {d['hop_queries']} slot hops "
+            f"({full[1]['hop_queries']}), {d['scored_lanes']} lanes scored "
+            f"({full[1]['scored_lanes']}), recall@10 {recall:.4f} (non-"
+            f"adaptive {full[2]:.4f}); bitwise equal across the three "
+            f"scorers")
+
+
+def check_swaps(engine, label: str, record: list) -> None:
+    """Wrap the engine's Rebalancer.swap: time each swap's host clock and,
+    after it, hold the six shard tables and g2l against a fresh
+    ShardedDescent on the swapped plan, bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.query import rebalance, sharded
+
+    reb = engine.rebalance
+    plain_swap = reb.swap
+
+    def swap(sd=None):
+        sd = sd or engine.sharded_state()
+        before = rebalance.measured_imbalance(sd.index, sd.plan)
+        sync = (torch.cuda.synchronize if sd.device.type == "cuda"
+                else lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        after = plain_swap(sd)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        fresh = sharded.ShardedDescent(sd.index, sd.n_shards, plan=sd.plan,
+                                       device=sd.device)
+        if not np.array_equal(fresh._g2l, sd._g2l) or not all(
+                a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(fresh._dev, sd._dev)):
+            fail(f"{label}: the tables after swap {sd.generation} differ "
+                 f"from a fresh ShardedDescent on the same plan")
+        record.append((ms, before, after, sd.generation,
+                       dict(reb.merge_stats)))
+        return after
+
+    reb.swap = swap
+
+
+def lanes_moved(engine) -> dict:
+    """The in-flight beam lanes that the pending old → new local-id map
+    (read before the next tick applies it) sends to another local id or
+    to PAD."""
+    import numpy as np
+
+    from repro_torch.types import PAD_ID
+
+    mp = engine.plan._sharded._beam_remap
+    st = engine.plan._slots
+    ids = st.beam_ids.cpu().numpy()  # [S, n_slots, shard beam]
+    S = ids.shape[0]
+    live = ids != PAD_ID
+    new = np.take_along_axis(mp, np.where(live, ids, 0).reshape(S, -1),
+                             axis=1).reshape(ids.shape)
+    return {"slots": int(st.sched.active_mask().sum()),
+            "lanes": int(live.sum()),
+            "relabelled": int((live & (new != ids) & (new != PAD_ID)).sum()),
+            "evicted": int((live & (new == PAD_ID)).sum())}
+
+
+def rebalance_serves(ctx, shard_truth: dict) -> None:
+    """``--shards 4 --insert 256 --rebalance-every 1
+    --rebalance-threshold 1.0`` as wave x pallas and continuous x
+    pallas_dma, a swap forced after the inserts if the first check does
+    not fire, so that both serve on the same partition: equal rid by rid;
+    after every swap the tables equal a fresh ShardedDescent. Then
+    continuous x {jnp, pallas_dma} with the 256 inserts before the first
+    tick and a swap forced before the second, slots in flight: the swap
+    moves rows between shards, so the in-flight beams are relabelled and
+    lanes evicted to PAD (at least one lane, else the check fails), and
+    the two serves are equal rid by rid. Then swaps forced before every
+    tick but the first of a cache-on continuous serve on the fixed index,
+    slots in flight: the results of the serve without swaps, and a cache
+    flush at each swap."""
+    profiles, inserts = ctx["profiles"], ctx["inserts"][:P4D["inserts"]]
+    S = P4D["shards"]
+    reb_qc = dict(shards=S, rebalance_every=1, rebalance_threshold=1.0)
+    base = None
+    for name, kernel, qc in (WAVE_PALLAS, CONT_DMA):
+        label = f"rebalance {name}"
+        record: list = []
+
+        def prepare(engine):
+            check_swaps(engine, label, record)
+            for p in inserts:
+                engine.insert(p)
+            if engine.rebalance.check() is None:
+                engine.rebalance.swap()  # forced: the check did not fire
+
+        engine, stats, counts = serve4d(ctx, label, kernel, {**qc, **reb_qc},
+                                        stream=profiles, prepare=prepare,
+                                        sharded=True)
+        got = by_rid(engine)
+        if base is None:
+            base = (got, label)
+        else:
+            same_results(got, base[0], label, base[1])
+        ms = sorted(r[0] for r in record)
+        first = record[0]
+        ctx["numbers"][label] = {
+            "swaps": len(record), "swap_ms_first": first[0],
+            "swap_ms_median": ms[len(ms) // 2],
+            "imbalance_before": first[1], "imbalance_after": first[2],
+            "merge": first[4], "generation": engine.sharded_state().generation}
+        log(f"[rebalance] {label}: {len(record)} swaps (generation "
+            f"{engine.sharded_state().generation}); first: imbalance "
+            f"{first[1]:.4f} -> {first[2]:.4f}, {first[0]:.1f} ms host, merge "
+            f"{first[4]}; swap host ms median {ms[len(ms) // 2]:.1f}, max "
+            f"{ms[-1]:.1f}; stats {stats['rebalance']}; launches {counts}; "
+            f"{sharded_line(engine)}; recall@10 "
+            f"{engine.recall_vs_brute_force():.4f}"
+            + (f"; bitwise equal to {base[1]}" if base[1] != label else ""))
+    base = None
+    for name, kernel, qc in (CONT_JNP, CONT_DMA):
+        label = f"mid-flight swap {name}"
+        record, moved = [], {}
+
+        def schedule(engine, tick, label=label, record=record, moved=moved):
+            if tick == 0:
+                check_swaps(engine, label, record)
+                for p in inserts:
+                    engine.insert(p)
+            elif tick == 1:
+                engine.rebalance.swap()
+                moved.update(lanes_moved(engine))
+
+        engine, stats, counts = serve4d(ctx, label, kernel,
+                                        {**qc, "shards": S},
+                                        stream=profiles, on_tick=schedule,
+                                        sharded=True)
+        if len(record) != 1 or moved["relabelled"] + moved["evicted"] < 1:
+            fail(f"{label}: {len(record)} swaps moved no in-flight lane "
+                 f"({moved})")
+        got = by_rid(engine)
+        if base is None:
+            base = (got, label)
+        else:
+            same_results(got, base[0], label, base[1])
+        ms, before, after, generation, merge = record[0]
+        ctx["numbers"][label] = {
+            "swap_ms": ms, "imbalance_before": before,
+            "imbalance_after": after, "merge": merge, **moved}
+        log(f"[rebalance] {label}: {len(inserts)} inserts, then a swap with "
+            f"{moved['slots']} slots in flight: imbalance {before:.4f} -> "
+            f"{after:.4f}, {ms:.1f} ms host, merge {merge}; beam lanes "
+            f"relabelled {moved['relabelled']}, evicted to PAD "
+            f"{moved['evicted']} of {moved['lanes']}; generation "
+            f"{generation}; launches {counts}; recall@10 "
+            f"{engine.recall_vs_brute_force():.4f}"
+            + (f"; bitwise equal to {base[1]}" if base[1] != label else ""))
+    name, kernel, qc = CONT_DMA
+    label = f"forced swaps {name}"
+    record = []
+
+    def every_tick(engine, tick):
+        if tick == 0:
+            check_swaps(engine, label, record)
+        else:
+            engine.rebalance.swap()
+
+    engine, stats, counts = serve4d(ctx, label, kernel,
+                                    {**qc, "shards": S, "cache": 4096},
+                                    stream=profiles, on_tick=every_tick,
+                                    sharded=True)
+    same_results(by_rid(engine), shard_truth, label,
+                 f"the --shards {S} serve without swaps")
+    c = stats["cache"]
+    if not record or c["flushes"] != len(record):
+        fail(f"{label}: {len(record)} swaps, cache {c}")
+    log(f"[rebalance] {label}: a swap before each of {len(record)} ticks "
+        f"with slots in flight (generation "
+        f"{engine.sharded_state().generation}), swap host ms median "
+        f"{sorted(r[0] for r in record)[len(record) // 2]:.1f}; cache {c}; "
+        f"bitwise equal to the serve without swaps")
+
+
+def tiered_serves(ctx, full_line: str) -> None:
+    """``--shards 4 --resident-configs 4`` and ``2`` as wave x {jnp,
+    pallas} and continuous x pallas_dma: bitwise equal; resident rows, MB
+    per shard and recall@10 beside full residency."""
+    S = P4D["shards"]
+    for rc in (4, 2):
+        base = None
+        for name, kernel, qc in (WAVE_JNP, WAVE_PALLAS, CONT_DMA):
+            label = f"resident_configs {rc} {name}"
+            engine, stats, counts = serve4d(
+                ctx, label, kernel, {**qc, "shards": S,
+                                     "resident_configs": rc},
+                stream=ctx["profiles"], sharded=True)
+            got = by_rid(engine)
+            if base is None:
+                base = (got, label)
+            else:
+                same_results(got, base[0], label, base[1])
+        sd = engine.sharded_state()
+        recall = engine.recall_vs_brute_force()
+        ctx["numbers"][f"resident_configs {rc}"] = {
+            "rows": [len(r) for r in sd.plan.residents],
+            "mb": [b / 1e6 for b in sd.resident_bytes()], "recall": recall}
+        log(f"[rebalance] resident_configs {rc}: {sharded_line(engine)}; "
+            f"recall@10 {recall:.4f}; bitwise equal three ways (full "
+            f"residency: {full_line})")
+
+
+def cpu_equals_card(ctx) -> None:
+    """A small synth serve with every knob of this phase on (shards,
+    continuous slots, the DMA hop, slo admission with a bounded queue and
+    a priority split, adaptive budgets, the cache, re-balance, tiered
+    residency, inserts), on the card and on the CPU: equal results and
+    counters."""
+    from repro_torch.launch import knn_serve
+
+    flags = P4D["small"] + [
+        "--queries", "96", "--shards", "2", "--continuous", "--slots",
+        "16", "--kernel", "--dma", "--admission", "slo", "--max-pending",
+        "40", "--priority-split", "0.25", "--adaptive", "1", "--cache",
+        "64", "--rebalance-every", "1", "--rebalance-threshold", "1.0",
+        "--resident-configs", "2", "--insert", "20"]
+    reset_launches()
+    card = knn_serve.main(flags + ["--device", "cuda"])
+    check_sharded_launches("the all-knobs synth serve", read_launches(), DMA)
+    cpu = knn_serve.main(flags + ["--device", "cpu"])
+    same_results(by_rid(card[2]), by_rid(cpu[2]),
+                 "the all-knobs synth serve on the card", "the CPU's")
+    keys = ("requests", "served", "shed", "waves", "cache", "rebalance")
+    if any(card[0][k] != cpu[0][k] for k in keys) or card[1] != cpu[1]:
+        fail(f"the all-knobs synth serve: card {[card[0][k] for k in keys]}"
+             f" != CPU {[cpu[0][k] for k in keys]}")
+    log(f"[slo] all-knobs synth serve: card equals CPU (served "
+        f"{card[0]['served']}, shed {card[0]['shed']}, cache "
+        f"{card[0]['cache']}, rebalance {card[0]['rebalance']}, recall@10 "
+        f"{card[1]:.4f})")
+
+
+def slo_cache_rebalance(dev, run: dict, shard: dict) -> dict:
+    """Phase 4d on the paper index of phase 4."""
+    qds = main_queries()
+    ctx = {"dev": dev, "index_path": run["index_path"], "launches": {},
+           "numbers": {},
+           "profiles": [qds.profile(u) for u in range(P4D["queries"])],
+           "inserts": [qds.profile(qds.n_users - 1 - m)
+                       for m in range(P4D["inserts"])]}
+    t0 = time.perf_counter()
+    cache_serves(ctx)
+    slo_serves(ctx, by_rid(run["engine"]))
+    adaptive_serves(ctx)
+    rebalance_serves(ctx, by_rid(shard["engine"]))
+    tiered_serves(ctx, sharded_line(shard["engine"]))
+    cpu_equals_card(ctx)
+    ctx["seconds"] = time.perf_counter() - t0
+    log(f"[slo] phase 4d: {ctx['seconds']:.1f} s")
+    return ctx
+
+
 # -- phase 5: timing at the main path's shapes -----------------------------
 
 def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
@@ -2405,6 +2959,7 @@ def main() -> int:
         run = main_path(dev, Path(tmp))
         bf = mutable_index(dev, run, Path(tmp))
         shard = sharded_placement(dev, run)
+        slice8 = slo_cache_rebalance(dev, run, shard)
         launches = run["launches"]
         ck_row, err_ck_main = time_cluster_knn(
             dev, run["built"], run["engine"].index, launches["goldfinger_knn"])
@@ -2435,6 +2990,10 @@ def main() -> int:
                           "plain_ms": sh["plain_ms"],
                           "bound_ms": sh["bound_ms"],
                           "bound_by": sh["bound_by"]}
+    # Phase 4d's launches of each hop, path by path (each counted from 0).
+    for row in (hop_row, dma_row):
+        row["phase_4d"] = {label: c[row["name"]] for label, c in
+                           slice8["launches"].items() if c[row["name"]]}
     mh_row["max_abs_err"] = max(err_mh, err_mh_main)
     rows = [ck_row, hop_row, dma_row, mh_row]
     for name, st in list(run["serves"].items()) + list(

@@ -27,9 +27,27 @@ during the serve.
 
 ``--shards S`` serves the sharded placement (LPT cluster shards, all on
 ``--device``, one hop launch for every shard) and prints a ``[serve]
-sharded:`` line with the reference's numbers. The reference's other flags
-are accepted by name and raise NotImplementedError naming the ROADMAP
-item that ports them when set to anything but their default.
+sharded:`` line with the reference's numbers.
+
+SLO flags: ``--admission slo`` ranks pending requests by (priority class,
+deadline) and sheds expired and overflow requests with a ``rejected``
+marker (``--max-pending`` bounds the queue); ``--priority-split F`` submits
+the first F of the queries as class 0 and the rest as class 1;
+``--deadline-ms D`` gives every request a deadline D ms after its
+submission; ``--adaptive P`` frees a continuous slot once its top-k prefix
+held P hops; ``--cache N`` serves exact-fingerprint repeats from an
+N-entry result cache flushed by index mutations. ``[serve] slo:`` and
+``[serve] cache:`` lines report them.
+
+Re-balance flags (with ``--shards``): ``--rebalance-every N`` measures the
+shards' imbalance every N scheduler steps and swaps in a freshly derived
+partition past ``--rebalance-threshold`` (rebuilt by merging the old shard
+tables, in-flight beams remapped, the cache flushed; a ``[serve]
+rebalance:`` line); ``--resident-configs M`` makes only clusters of the
+first M hash configurations shard residents (tiered residency).
+
+The fault flags are accepted by name and raise NotImplementedError
+naming the ROADMAP item that ports them when set.
 """
 from __future__ import annotations
 
@@ -46,15 +64,6 @@ from repro_torch.query.index import KNNIndex, build_index
 
 # Reference flags outside this slice: (flag, type, default, ROADMAP item).
 _LATER = (
-    ("--admission", str, "fifo", "queue 1 item 7 (SLO admission)"),
-    ("--max-pending", int, 0, "queue 1 item 7 (SLO admission)"),
-    ("--priority-split", float, 0.0, "queue 1 item 7 (SLO admission)"),
-    ("--deadline-ms", float, 0.0, "queue 1 item 7 (SLO admission)"),
-    ("--adaptive", int, 0, "queue 1 item 7 (adaptive budgets)"),
-    ("--cache", int, 0, "queue 1 item 7 (result cache)"),
-    ("--rebalance-every", int, 0, "queue 1 item 8 (re-balance)"),
-    ("--rebalance-threshold", float, 1.25, "queue 1 item 8 (re-balance)"),
-    ("--resident-configs", int, 0, "queue 1 item 8 (tiered residency)"),
     ("--fault-plan", str, None, "queue 1 item 9 (faults)"),
     ("--store", str, None, "queue 1 item 9 (crash store)"),
     ("--snapshot-every", int, 0, "queue 1 item 9 (crash store)"),
@@ -96,6 +105,38 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--repair-every", type=int, default=0,
                     help="re-link churn-damaged rows every this many "
                          "scheduler steps (0 = off)")
+    ap.add_argument("--admission", default="fifo", choices=["fifo", "slo"],
+                    help="admission policy: fifo (arrival order) or slo "
+                         "(priority class + earliest deadline, explicit "
+                         "shedding)")
+    ap.add_argument("--max-pending", type=int, default=0,
+                    help="slo: bound on the pending queue; overflow is "
+                         "shed with a rejected marker (0 = unbounded)")
+    ap.add_argument("--priority-split", type=float, default=0.0,
+                    help="fraction of the queries submitted as high "
+                         "priority (class 0); the rest is class 1 (0 = "
+                         "every request class 0)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request deadline in ms from submission; "
+                         "expired pending requests are shed under "
+                         "--admission slo (0 = no deadline)")
+    ap.add_argument("--adaptive", type=int, default=0,
+                    help="continuous: free a slot once its top-k prefix "
+                         "held this many hops (0 = run to budget)")
+    ap.add_argument("--cache", type=int, default=0,
+                    help="fingerprint result-cache capacity, flushed on "
+                         "index mutation (0 = off)")
+    ap.add_argument("--rebalance-every", type=int, default=0,
+                    help="measure shard imbalance every this many "
+                         "scheduler steps; swap the plan past the "
+                         "threshold (0 = off; needs --shards)")
+    ap.add_argument("--rebalance-threshold", type=float, default=1.25,
+                    help="measured imbalance (max/mean resident cluster "
+                         "mass) that triggers a re-balance swap")
+    ap.add_argument("--resident-configs", type=int, default=0,
+                    help="tiered residency: only clusters of the first M "
+                         "hash configurations contribute shard residents "
+                         "(0 = all t; needs --shards)")
     ap.add_argument("--index", default=None, help="load a saved index")
     ap.add_argument("--save-index", default=None, help="save the built index")
     ap.add_argument("--seed", type=int, default=0)
@@ -123,7 +164,12 @@ def main(argv=None):
                      max_wave=args.max_wave, shards=args.shards,
                      continuous=args.continuous,
                      slots=args.slots, kernel=args.kernel, dma=args.dma,
-                     ttl=args.ttl, repair_every=args.repair_every)
+                     ttl=args.ttl, repair_every=args.repair_every,
+                     admission=args.admission, max_pending=args.max_pending,
+                     adaptive=args.adaptive, cache=args.cache,
+                     resident_configs=args.resident_configs,
+                     rebalance_every=args.rebalance_every,
+                     rebalance_threshold=args.rebalance_threshold)
     qc.spec()  # --dma without --kernel fails before any work
 
     if args.index:
@@ -184,9 +230,11 @@ def main(argv=None):
     if sd is not None:
         mb = [round(b / 1e6, 2) for b in sd.resident_bytes()]
         print(f"[serve] sharded: {sd.n_shards} shards, resident rows "
-              f"{[len(r) for r in sd.plan.residents]} ({mb} MB), "
-              f"imbalance {sd.plan.imbalance:.2f}, shard-grid execution "
-              f"(one hop launch for all shards)")
+              f"{[len(r) for r in sd.plan.residents]} ({mb} MB"
+              + (f", configs {sd.plan.resident_configs}/{index.t}"
+                 if sd.plan.resident_configs else "")
+              + f"), imbalance {sd.plan.imbalance:.2f}, shard-grid "
+              f"execution (one hop launch for all shards)")
 
     if not profiles:
         print("[serve] no queries requested")
@@ -198,8 +246,14 @@ def main(argv=None):
     engine.run()
     engine.done.clear()
 
+    n_high = (int(round(args.priority_split * len(profiles)))
+              if args.priority_split > 0 else len(profiles))
     for rid, p in enumerate(profiles):
-        engine.submit(QueryRequest(rid=rid, profile=p))
+        deadline = (engine.clock() + args.deadline_ms / 1e3
+                    if args.deadline_ms > 0 else None)
+        engine.submit(QueryRequest(
+            rid=rid, profile=p,
+            priority=0 if rid < n_high else 1, deadline=deadline))
     stats = engine.run()
     recall = engine.recall_vs_brute_force()
     unit = "ticks" if args.continuous else "waves"
@@ -221,6 +275,19 @@ def main(argv=None):
                      f"{saved / 1e6:.2f} MB skipped "
                      f"({saved / (moved + saved):.0%} of gather traffic)")
         print(line)
+    if args.admission == "slo":
+        print(f"[serve] slo: served {stats['served']}, "
+              f"shed {stats['shed']} "
+              f"(priority split {n_high}/{len(profiles) - n_high}, "
+              f"deadline {args.deadline_ms:.0f}ms)")
+    if "cache" in stats:
+        c = stats["cache"]
+        print(f"[serve] cache: {c['hits']} hits / "
+              f"{c['hits'] + c['misses']} lookups "
+              f"(rate {c['hit_rate']:.2f}), {c['entries']}/{c['capacity']} "
+              f"entries, {c['flushes']} flushes")
+    if "rebalance" in stats:
+        print(f"[serve] rebalance: {stats['rebalance']}")
     return stats, recall, engine
 
 

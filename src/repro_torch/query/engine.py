@@ -20,8 +20,14 @@ after every step. The plan follows each mutation by a journal-driven row
 scatter into its device tables.
 
 ``QueryConfig.shards`` > 1 serves the sharded placement
-(``query/sharded.py``). SLO admission, result caching, re-balancing and
-faults are later slices (ROADMAP queue 1 items 7–9).
+(``query/sharded.py``); with ``rebalance_every`` the engine's
+:class:`~repro_torch.query.rebalance.Rebalancer` measures the shards'
+imbalance after lifecycle maintenance and swaps in a fresh partition past
+``rebalance_threshold``. SLO admission (``admission``, ``max_pending``,
+per-request ``priority`` and ``deadline``), adaptive hop budgets and the
+result cache are the plan's (``query/plan.py``). Every time stamp reads
+the injectable ``clock``. Faults are a later slice (ROADMAP queue 1 item
+9).
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro_torch.eval.metrics import knn_recall
 from repro_torch.lifecycle import LifecycleConfig, LifecycleManager
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.plan import DescentPlan, PlanSpec
+from repro_torch.query.rebalance import RebalanceConfig, Rebalancer
 from repro_torch.query.router import (fingerprint_profiles, placements,
                                       profiles_to_csr)
 from repro_torch.query.search import exact_knn
@@ -47,12 +54,23 @@ class QueryRequest:
     profile: np.ndarray                  # int32[|P|] item ids
     hops: Optional[int] = None           # per-request hop budget
                                          # (None → QueryConfig.hops)
+    priority: int = 0                    # SLO class (0 = highest; higher
+                                         # classes are shed first)
+    deadline: Optional[float] = None     # absolute clock() expiry (None =
+                                         # never; expired pending requests
+                                         # are shed under slo admission)
     # Filled by the engine:
     ids: Optional[np.ndarray] = None     # int32[k] neighbor ids
     sims: Optional[np.ndarray] = None    # float32[k] similarities
     t_submit: float = 0.0
     t_done: float = 0.0
-    status: str = "pending"              # pending | done
+    status: str = "pending"              # pending | done | rejected
+
+    @property
+    def rejected(self) -> bool:
+        """True when admission shed this request (deadline expired or
+        queue overflow): it completed without a result."""
+        return self.status == "rejected"
 
     @property
     def latency(self) -> Optional[float]:
@@ -83,6 +101,21 @@ class QueryConfig:
                                # expires (0 = never)
     repair_every: int = 0      # lifecycle: churn-repair cadence in ticks
                                # (0 = off)
+    admission: str = "fifo"    # "slo": priority classes + deadline-aware
+                               # admission, explicit shedding (sched/)
+    max_pending: int = 0       # pending-queue bound under slo admission
+                               # (0 = unbounded; overflow is shed)
+    adaptive: int = 0          # >0: free continuous slots once the top-k
+                               # prefix held for this many hops
+    cache: int = 0             # >0: fingerprint-keyed result-cache
+                               # capacity (journal-invalidated)
+    resident_configs: int = 0  # tiered residency: only clusters of the
+                               # first m hash configurations contribute
+                               # shard residents (0 = all t; shards > 1)
+    rebalance_every: int = 0   # re-balance check cadence in scheduler
+                               # steps (0 = off; shards > 1)
+    rebalance_threshold: float = 1.25  # measured imbalance that triggers
+                               # a blue/green plan swap
 
     def spec(self) -> PlanSpec:
         """Map the flags onto a validated plan on the three axes."""
@@ -97,15 +130,27 @@ class QueryConfig:
                         scorer=scorer, k=self.k, beam=self.beam,
                         hops=self.hops, max_wave=self.max_wave,
                         slots=self.slots,
-                        seeds_per_config=self.seeds_per_config)
+                        seeds_per_config=self.seeds_per_config,
+                        admission=self.admission,
+                        max_pending=self.max_pending,
+                        adaptive=self.adaptive, cache=self.cache,
+                        resident_configs=self.resident_configs)
 
 
 class QueryEngine:
     def __init__(self, index: KNNIndex, qc: QueryConfig | None = None, *,
-                 device="cuda"):
+                 device="cuda", clock=None):
         self.index = index
         self.qc = qc or QueryConfig()
-        self.plan = DescentPlan(index, self.qc.spec(), device=device)
+        if self.qc.rebalance_every > 0 and self.qc.shards <= 1:
+            raise ValueError(
+                "rebalance_every re-balances the SHARD partition; the "
+                "single placement has nothing to re-balance (use shards > 1)")
+        # Injectable clock (a sched.ManualClock makes latencies and
+        # deadline shedding deterministic).
+        self.clock = clock or time.perf_counter
+        self.plan = DescentPlan(index, self.qc.spec(), device=device,
+                                clock=self.clock)
         self.device = self.plan.device
         self.queue: deque[QueryRequest] = deque()
         self.done: list[QueryRequest] = []
@@ -115,9 +160,13 @@ class QueryEngine:
         self.lifecycle = LifecycleManager(
             self, LifecycleConfig(ttl=self.qc.ttl,
                                   repair_every=self.qc.repair_every))
+        self.rebalance = Rebalancer(
+            self.plan, RebalanceConfig(
+                every=self.qc.rebalance_every,
+                threshold=self.qc.rebalance_threshold))
 
     def submit(self, req: QueryRequest):
-        req.t_submit = time.perf_counter()
+        req.t_submit = self.clock()
         self.queue.append(req)
 
     @property
@@ -143,9 +192,12 @@ class QueryEngine:
         """Serve one step, a wave or a continuous tick; returns requests
         completed. Lifecycle maintenance (TTL expiry, churn repair) runs
         after it, between steps, so in-flight slots never see a
-        half-applied mutation."""
+        half-applied mutation; the shard re-balancer runs last, so it
+        measures the step's mutations and any swap lands before the next
+        step."""
         n = self.plan.step(self.queue, self.done)
         self.lifecycle.maintain()
+        self.rebalance.maintain()
         return n
 
     def tick(self) -> int:
@@ -161,7 +213,7 @@ class QueryEngine:
         ``on_tick`` (continuous plans only): ``f(engine, tick)`` called
         between steps, e.g. to submit arrivals while slots are in flight.
         """
-        t0 = time.perf_counter()
+        t0 = self.clock()
         n_steps = 0
         n_new_done = 0
         continuous = self.qc.continuous
@@ -170,18 +222,21 @@ class QueryEngine:
                 on_tick(self, n_steps)
             n_new_done += self.step()
             n_steps += 1
-        dt = max(time.perf_counter() - t0, 1e-9)
+        dt = max(self.clock() - t0, 1e-9)
         recent = self.done[-n_new_done:] if n_new_done else []
+        # Latency covers served requests only: a shed request's interval
+        # is queueing, not service.
         lats = [r.latency for r in recent
                 if r.status == "done" and r.latency is not None]
+        n_shed = sum(1 for r in recent if r.rejected)
         stats = {
             "requests": n_new_done,
-            "served": n_new_done,
-            "shed": 0,
+            "served": n_new_done - n_shed,
+            "shed": n_shed,
             "mode": "continuous" if continuous else "wave",
             "plan": self.plan.describe(),
             "waves": n_steps,
-            "qps": n_new_done / dt,
+            "qps": (n_new_done - n_shed) / dt,
             "mean_latency_s": float(np.mean(lats)) if lats else 0.0,
             "p50_latency_s": float(np.percentile(lats, 50)) if lats else 0.0,
             "p95_latency_s": float(np.percentile(lats, 95)) if lats else 0.0,
@@ -192,6 +247,10 @@ class QueryEngine:
         }
         if self.plan.spec.kernel:
             stats["descent"] = dict(self.plan.descent_stats)
+        if self.plan.cache is not None:
+            stats["cache"] = self.plan.cache.stats()
+        if self.rebalance.active:
+            stats["rebalance"] = self.rebalance.stats()
         return stats
 
     # -- online insertion --------------------------------------------------

@@ -29,6 +29,16 @@ full-index copy. Continuous plans add the slot arrays (beams ``[S,
 n_slots, shard_beam]`` under sharding). Every wave, seeded descent and
 tick syncs first, so an index mutation between two steps reaches
 in-flight slots as the tombstone mask of their next hop.
+
+Four knobs ride on every combination, as the reference's do:
+``admission="slo"`` (priority classes and deadlines, expired and overflow
+requests shed with a ``rejected`` marker: ``sched.shed_and_select``);
+``adaptive`` (continuous: a slot frees once its top-k prefix held that
+many hops: ``search.slot_prefix_stable``); ``cache`` (exact-fingerprint
+results served without a descent: ``query/cache.py``); and
+``resident_configs`` (sharded: tiered residency). Every time stamp reads
+the injectable ``clock`` (default ``time.perf_counter``), so deadlines and
+latencies can be driven by a ``sched.ManualClock``.
 """
 from __future__ import annotations
 
@@ -41,17 +51,32 @@ import torch
 
 from repro_torch.core.local_knn import capacity_of
 from repro_torch.device import resolve_device
+from repro_torch.query.cache import ResultCache
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.router import fingerprint_profiles, profiles_to_csr, route
 from repro_torch.query.search import (batched_descent, map_shard_ids,
                                       shard_slot_admit, shard_slot_hop,
-                                      shard_slot_topk, slot_admit, slot_hop)
-from repro_torch.sched import SlotScheduler
+                                      shard_slot_topk, slot_admit, slot_hop,
+                                      slot_prefix_stable)
+from repro_torch.sched import (ADMISSION_POLICIES, SlotScheduler,
+                               shed_and_select)
 from repro_torch.sketch.goldfinger import words_tensor
 from repro_torch.types import NEG_INF, PAD_ID
 
 BATCHINGS = ("wave", "continuous")
 SCORERS = ("jnp", "pallas", "pallas_dma")
+
+
+def _csr_subset(items: np.ndarray, offsets: np.ndarray,
+                idxs) -> tuple[np.ndarray, np.ndarray]:
+    """CSR rows ``idxs`` of an (items, offsets) profile batch."""
+    rows = [items[offsets[i]:offsets[i + 1]] for i in idxs]
+    sizes = np.array([len(r) for r in rows], dtype=np.int64)
+    out_offsets = np.zeros(len(rows) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=out_offsets[1:])
+    out_items = (np.concatenate(rows) if rows
+                 else np.zeros((0,), np.int32)).astype(np.int32)
+    return out_items, out_offsets
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +92,15 @@ class PlanSpec:
     max_wave: int = 256         # wave batching: queries per descent
     slots: int = 32             # continuous batching: in-flight capacity
     seeds_per_config: int = 16
+    admission: str = "fifo"     # "fifo" | "slo" (priority + deadline
+                                # admission with explicit shedding)
+    max_pending: int = 0        # slo: pending-queue bound (0 = unbounded)
+    adaptive: int = 0           # continuous: free a slot once its top-k
+                                # prefix held this many hops (0 = off)
+    cache: int = 0              # fingerprint result-cache capacity (0=off)
+    resident_configs: int = 0   # tiered residency: clusters of the first
+                                # m hash configurations contribute shard
+                                # residents (0 = all t; sharded only)
 
     def __post_init__(self):
         if self.placement < 1:
@@ -86,6 +120,36 @@ class PlanSpec:
                              f"got {self.max_wave}")
         if self.k < 1 or self.hops < 0:
             raise ValueError(f"invalid k={self.k} / hops={self.hops}")
+        if self.admission not in ADMISSION_POLICIES:
+            raise ValueError(
+                f"unknown admission {self.admission!r}; supported: "
+                f"{ADMISSION_POLICIES}")
+        if self.max_pending < 0:
+            raise ValueError(
+                f"max_pending must be >= 0, got {self.max_pending}")
+        if self.max_pending > 0 and self.admission != "slo":
+            raise ValueError(
+                "max_pending bounds the slo admission queue; FIFO never "
+                "sheds (set admission='slo' to bound the queue)")
+        if self.adaptive < 0:
+            raise ValueError(f"adaptive patience must be >= 0, "
+                             f"got {self.adaptive}")
+        if self.adaptive > 0 and self.batching != "continuous":
+            raise ValueError(
+                "adaptive hop budgets free continuous slots on top-k "
+                "prefix stability; wave batching has no per-request "
+                "termination (use batching='continuous')")
+        if self.cache < 0:
+            raise ValueError(f"cache capacity must be >= 0, "
+                             f"got {self.cache}")
+        if self.resident_configs < 0:
+            raise ValueError(f"resident_configs must be >= 0, "
+                             f"got {self.resident_configs}")
+        if self.resident_configs > 0 and self.placement == 1:
+            raise ValueError(
+                "resident_configs restricts SHARD residency to a subset "
+                "of hash configurations; the single placement hosts every "
+                "row (use placement > 1)")
 
     @property
     def kernel(self) -> bool:
@@ -101,7 +165,17 @@ class PlanSpec:
                  else f"sharded({self.placement})")
         batch = ("wave" if self.batching == "wave"
                  else f"continuous(slots={self.slots})")
-        return f"{place} x {batch} x {self.scorer}"
+        base = f"{place} x {batch} x {self.scorer}"
+        extras = []
+        if self.admission != "fifo":
+            extras.append(f"slo(max_pending={self.max_pending})")
+        if self.adaptive:
+            extras.append(f"adaptive({self.adaptive})")
+        if self.cache:
+            extras.append(f"cache({self.cache})")
+        if self.resident_configs:
+            extras.append(f"resident_configs({self.resident_configs})")
+        return base + (" + " + ", ".join(extras) if extras else "")
 
 
 class _SlotState:
@@ -109,12 +183,19 @@ class _SlotState:
     fingerprints and beams of the ``n_slots`` rows, and on the host each
     slot's hops done and hop budget. Under a sharded placement the beams
     carry a leading shard axis (``[S, n_slots, shard_beam]``): every shard
-    advances its own beam per slot, merged across shards at release."""
+    advances its own beam per slot, merged across shards at release.
 
-    def __init__(self, index: KNNIndex, spec: PlanSpec, beam: int, device):
+    Adaptive budgets add, per slot, the count of consecutive hops whose
+    top-k prefix held (``streak``), the prefix it is compared with
+    (``prefix_ids``, on the device) and a ``fresh`` flag, so a re-admitted
+    slot never compares against its previous occupant's prefix."""
+
+    def __init__(self, index: KNNIndex, spec: PlanSpec, beam: int, device,
+                 clock):
         n_slots = spec.slots
         self.beam = beam
-        self.sched = SlotScheduler(n_slots)
+        self.sched = SlotScheduler(n_slots, policy=spec.admission,
+                                   max_pending=spec.max_pending, clock=clock)
         self.q_words = torch.zeros((n_slots, index.words.shape[1]),
                                    dtype=torch.int32, device=device)
         self.q_card = torch.zeros(n_slots, dtype=torch.int32, device=device)
@@ -126,16 +207,25 @@ class _SlotState:
                                     device=device)
         self.hops_done = np.zeros(n_slots, np.int64)
         self.budget = np.full(n_slots, spec.hops, np.int64)
+        self.streak = np.zeros(n_slots, np.int64)
+        self.fresh = np.ones(n_slots, bool)
+        self.prefix_ids = None
+        if spec.adaptive > 0:
+            self.prefix_ids = torch.full(shape[:-1] + (spec.k,), PAD_ID,
+                                         dtype=torch.int32, device=device)
 
 
 class DescentPlan:
     """One placement × batching × scorer combination on one device,
     owning its device state and serving loop."""
 
-    def __init__(self, index: KNNIndex, spec: PlanSpec, device="cuda"):
+    def __init__(self, index: KNNIndex, spec: PlanSpec, device="cuda",
+                 clock=None):
         self.index = index
         self.spec = spec
         self.device = resolve_device(device)
+        # Every completion, shed and deadline stamp reads this clock.
+        self.clock = clock or time.perf_counter
         self.beam = max(spec.beam, spec.k)
         self._single = None     # (version, capacity, device tables)
         self._sharded = None    # ShardedDescent (delta-synced)
@@ -155,6 +245,9 @@ class DescentPlan:
         self.sync_stats = (
             {"noop": 0, "delta": 0, "rebuild": 0} if spec.placement > 1
             else {"full_uploads": 0, "scatters": 0, "rows_scattered": 0})
+        # Exact-fingerprint result cache, flushed by any index mutation the
+        # journals show and by re-balance swaps (note_replan).
+        self.cache = ResultCache(index, spec.cache) if spec.cache else None
 
     def describe(self) -> str:
         return self.spec.describe()
@@ -235,7 +328,9 @@ class DescentPlan:
         if (self._sharded is None
                 or self._sharded.n_shards != self.spec.placement):
             self._sharded = ShardedDescent(
-                self.index, self.spec.placement, device=self.device)
+                self.index, self.spec.placement,
+                resident_configs=self.spec.resident_configs,
+                device=self.device)
         else:
             self.sync_stats[self._sharded.sync()] += 1
         return self._sharded
@@ -245,16 +340,58 @@ class DescentPlan:
         placement."""
         return self._sync_sharded() if self.spec.placement > 1 else None
 
+    def note_replan(self):
+        """A re-balance swap replaced the shard partition
+        (``query/rebalance.py``). No index content changed, so no journal
+        shows it, but placement changes results: flush the cache. The
+        flush count also keeps continuous requests admitted before the
+        swap and completed after it out of the cache."""
+        if self.cache is not None:
+            self.cache.invalidate()
+
     # -- one closed wave -----------------------------------------------------
 
     def search(self, items, offsets, qgf, k: int, *,
                hops: int | None = None, placed=None):
         """Route + beam-descend already-fingerprinted query profiles (one
         closed wave, whatever the plan's batching; inserts search through
-        it). ``placed`` reuses :func:`router.placements` already computed."""
-        seeds = route(self.index, items, offsets, self.spec.seeds_per_config,
-                      placed=placed)
-        return self.descend_rows(qgf.words, qgf.card, seeds, k, hops=hops)
+        it). ``placed`` reuses :func:`router.placements` already computed.
+
+        With a result cache, exact-fingerprint hits are served from it
+        (bitwise what the descent gives: the cache flushes on any index
+        mutation the journals show) and only the misses route and descend.
+        """
+        hops = self.spec.hops if hops is None else hops
+        if self.cache is None:
+            seeds = route(self.index, items, offsets,
+                          self.spec.seeds_per_config, placed=placed)
+            return self.descend_rows(qgf.words, qgf.card, seeds, k,
+                                     hops=hops)
+        self.cache.sync()
+        qw, qc = qgf.words, qgf.card
+        qn = qw.shape[0]
+        keys = [self.cache.key(qw[i], qc[i], k, hops) for i in range(qn)]
+        out_ids = np.empty((qn, k), np.int32)
+        out_sims = np.empty((qn, k), np.float32)
+        miss = []
+        for i, cache_key in enumerate(keys):
+            hit = self.cache.get(cache_key)
+            if hit is None:
+                miss.append(i)
+            else:
+                out_ids[i], out_sims[i] = hit
+        if miss:
+            m_items, m_offsets = _csr_subset(items, offsets, miss)
+            m_placed = ([placed[i] for i in miss]
+                        if placed is not None else None)
+            seeds = route(self.index, m_items, m_offsets,
+                          self.spec.seeds_per_config, placed=m_placed)
+            m_ids, m_sims = self.descend_rows(qw[miss], qc[miss], seeds, k,
+                                              hops=hops)
+            for j, i in enumerate(miss):
+                out_ids[i], out_sims[i] = m_ids[j], m_sims[j]
+                self.cache.put(keys[i], m_ids[j], m_sims[j])
+        return out_ids, out_sims
 
     def descend_rows(self, q_words, q_card, seeds, k: int, *,
                      hops: int | None = None, beam: int | None = None):
@@ -309,26 +446,46 @@ class DescentPlan:
             return self._step_continuous(queue, done)
         return self._step_wave(queue, done)
 
+    def _reject(self, shed, done) -> int:
+        """Complete shed requests with the ``rejected`` marker: they enter
+        ``done`` (counted, excluded from latency) with no result."""
+        if not shed:
+            return 0
+        now = self.clock()
+        for r in shed:
+            r.status = "rejected"
+            r.t_done = now
+            done.append(r)
+        return len(shed)
+
     def _step_wave(self, queue, done) -> int:
         """Close one wave. It runs to the largest hop budget of its
         members (one deep request convoys the shallow ones; per-slot
-        budgets under continuous batching are the fix)."""
+        budgets under continuous batching are the fix). Under slo
+        admission the wave closes over the best (class, deadline)
+        requests, and expired and overflow requests are shed."""
         spec = self.spec
-        wave = []
-        while queue and len(wave) < spec.max_wave:
-            wave.append(queue.popleft())
+        n_done = 0
+        if spec.admission == "slo":
+            wave, shed = shed_and_select(queue, spec.max_wave, self.clock(),
+                                         spec.max_pending)
+            n_done = self._reject(shed, done)
+        else:
+            wave = []
+            while queue and len(wave) < spec.max_wave:
+                wave.append(queue.popleft())
         if not wave:
-            return 0
+            return n_done
         hops = max(r.hops if r.hops is not None else spec.hops
                    for r in wave)
         ids, sims = self.query_batch([r.profile for r in wave], hops=hops)
-        now = time.perf_counter()
+        now = self.clock()
         for j, r in enumerate(wave):
             r.ids, r.sims = ids[j], sims[j]
             r.t_done = now
             r.status = "done"
             done.append(r)
-        return len(wave)
+        return len(wave) + n_done
 
     # -- continuous batching ---------------------------------------------------
 
@@ -338,7 +495,7 @@ class DescentPlan:
             if self.spec.placement > 1:
                 beam = self._sync_sharded().shard_beam(self.beam, self.spec.k)
             self._slots = _SlotState(self.index, self.spec, beam,
-                                     self.device)
+                                     self.device, self.clock)
         return self._slots
 
     def _slot_results(self, st: _SlotState):
@@ -353,35 +510,74 @@ class DescentPlan:
         return (st.beam_ids[:, :k].cpu().numpy(),
                 st.beam_sims[:, :k].cpu().numpy())
 
-    def _admit(self, st: _SlotState, admitted) -> None:
+    def _admit(self, st: _SlotState, admitted, done) -> int:
         """Fingerprint, route and scatter one admission generation into
-        the slot arrays."""
+        the slot arrays.
+
+        With a result cache each request is looked up first: a hit
+        completes at once and releases its slot, which stays out of the
+        scatter; only the misses are routed and scattered. Returns the
+        hits, so the tick can admit into the slots they freed.
+        """
         spec = self.spec
         dev = self.device
         items, offsets = profiles_to_csr([r.profile for _, r in admitted])
         qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
                                    self.index.fp_seed)
+        qw, qc = qgf.words, qgf.card
+        n_hit = 0
+        if self.cache is None:
+            rows = list(range(len(admitted)))
+        else:
+            rows = []
+            now = self.clock()
+            for j, (slot, req) in enumerate(admitted):
+                budget = req.hops if req.hops is not None else spec.hops
+                ck = self.cache.key(qw[j], qc[j], spec.k, budget)
+                hit = self.cache.get(ck)
+                if hit is not None:
+                    st.sched.release(slot)
+                    req.ids, req.sims = hit
+                    req.t_done = now
+                    req.status = "done"
+                    done.append(req)
+                    n_hit += 1
+                else:
+                    # The completion is stored only if no flush fell while
+                    # the request was in flight (flush count unchanged).
+                    req._cache_key = ck
+                    req._cache_flushes = self.cache.flushes
+                    rows.append(j)
+            if not rows:
+                return n_hit
+            items, offsets = _csr_subset(items, offsets, rows)
+            qw, qc = qw[rows], qc[rows]
         seeds = route(self.index, items, offsets, spec.seeds_per_config)
-        slots = np.array([slot for slot, _ in admitted], dtype=np.int64)
-        for slot, req in admitted:
+        slots = np.array([admitted[j][0] for j in rows], dtype=np.int64)
+        for j in rows:
+            slot, req = admitted[j]
             st.hops_done[slot] = 0
             st.budget[slot] = req.hops if req.hops is not None else spec.hops
+            st.streak[slot] = 0
+            st.fresh[slot] = True
+        q_words = words_tensor(qw, dev)
+        q_card = torch.from_numpy(np.asarray(qc, np.int32)).to(dev)
+        slot_idx = torch.from_numpy(slots).to(dev)
         if spec.placement > 1:
             sd = self._sync_sharded()
             shard_slot_admit(
-                sd._dev[2], sd._dev[3], words_tensor(qgf.words, dev),
-                torch.from_numpy(np.asarray(qgf.card, np.int32)).to(dev),
+                sd._dev[2], sd._dev[3], q_words, q_card,
                 torch.from_numpy(sd.shard_seeds(np.asarray(seeds))
                                  .astype(np.int32)).to(dev),
-                torch.from_numpy(slots).to(dev), st.q_words, st.q_card,
-                st.beam_ids, st.beam_sims, beam=st.beam, l_tomb=sd._dev[5])
-            return
+                slot_idx, st.q_words, st.q_card, st.beam_ids, st.beam_sims,
+                beam=st.beam, l_tomb=sd._dev[5])
+            return n_hit
         words, card, tomb = self.sync()[2:5]
-        slot_admit(words, card, words_tensor(qgf.words, dev),
-                   torch.from_numpy(np.asarray(qgf.card, np.int32)).to(dev),
+        slot_admit(words, card, q_words, q_card,
                    torch.from_numpy(np.asarray(seeds, np.int32)).to(dev),
-                   torch.from_numpy(slots).to(dev), st.q_words, st.q_card,
-                   st.beam_ids, st.beam_sims, beam=st.beam, tomb=tomb)
+                   slot_idx, st.q_words, st.q_card, st.beam_ids,
+                   st.beam_sims, beam=st.beam, tomb=tomb)
+        return n_hit
 
     def _step_continuous(self, queue, done) -> int:
         """One continuous tick: admit into free slots, advance every
@@ -389,33 +585,54 @@ class DescentPlan:
         or whose beam reached its fixed point (no later hop could change
         it, so the result is the full-budget one). Admission is
         mid-flight: rows freed by an earlier tick take fresh requests
-        while the others keep descending, with no wave barrier."""
+        while the others keep descending, with no wave barrier.
+
+        Returns the requests completed this tick: cache hits, rejections
+        and descents. Only exact completions are cached (budget spent, or
+        the full beam at its fixed point); an adaptive early free (top-k
+        prefix stable for ``adaptive`` hops) is served but never stored,
+        and neither is a result whose flight straddled a cache flush.
+        """
         spec = self.spec
         self.sync()  # mutations since the last tick reach this one's hop
         had_state = self._slots is not None
         st = self._slot_state()
         if spec.placement > 1:
-            # A reshard since the last tick may have relabelled shard-local
-            # ids (a shard rematerialised after a cohort refresh); in-flight
-            # beams hold local ids, so relabel them before the next hop.
+            # A reshard or a re-balance swap since the last tick may have
+            # relabelled shard-local ids; in-flight beams hold local ids,
+            # so relabel them before the next hop.
             remap = self._sharded.take_beam_remap()
             if remap is not None and had_state:
                 st.beam_ids = map_shard_ids(
                     torch.from_numpy(remap).to(self.device), st.beam_ids)
-                # Lanes the map sends to PAD lose their sims (the identity
-                # under the frozen-base extension: no live lane maps to
-                # PAD there).
+                # Lanes the map sends to PAD (rows a swap evicted from
+                # their shard) lose their sims; under the frozen-base
+                # extension no live lane maps to PAD.
                 st.beam_sims = torch.where(st.beam_ids == PAD_ID, NEG_INF,
                                            st.beam_sims)
+                if spec.adaptive > 0:
+                    # Stored prefixes hold the old local ids: restart every
+                    # streak rather than compare across labels.
+                    st.streak[:] = 0
+                    st.fresh[:] = True
         sched = st.sched
         while queue:
             sched.submit(queue.popleft())
+        if self.cache is not None:
+            self.cache.sync()
+        n_done = 0
         admitted = sched.admit()
-        if admitted:
-            self._admit(st, admitted)
+        while admitted:
+            freed = self._admit(st, admitted, done)
+            n_done += freed
+            if not freed:
+                break
+            # Cache hits released their slots: admit into them.
+            admitted = sched.admit()
+        n_done += self._reject(sched.drain_shed(), done)
         active = sched.active_mask()
         if not active.any():
-            return 0
+            return n_done
         # Zero-budget slots never enter the hop (a hops=0 wave runs no
         # hop); they complete at the snapshot below.
         hop_active = active & (st.hops_done < st.budget)
@@ -434,17 +651,34 @@ class DescentPlan:
                     graph_ids, rev_ids, words, card, st.q_words, st.q_card,
                     st.beam_ids, st.beam_sims, mask, kernel=spec.kernel,
                     dma=spec.dma, tomb=tomb)
-            changed = changed_t.cpu().numpy()
+            # The hop's counts, `changed` and (adaptive) `stable` reach the
+            # host in one copy.
+            cols = [stats.to(torch.int32), changed_t[:, None].to(torch.int32)]
+            if spec.adaptive > 0:
+                stable_t, st.prefix_ids = slot_prefix_stable(
+                    st.beam_ids, st.prefix_ids, k=spec.k)
+                cols.append(stable_t[:, None].to(torch.int32))
+            host = torch.cat(cols, dim=1).cpu().numpy()
+            changed = host[:, 3].astype(bool)
             # The hop ran every slot row; count only the active ones.
-            self._note_stats(stats[mask])
+            self._note_stats(torch.from_numpy(host[hop_active, :3]))
             st.hops_done[hop_active] += 1
             self.n_ticks += 1
-        finished = active & ((st.hops_done >= st.budget)
-                             | (hop_active & ~changed))
+            if spec.adaptive > 0:
+                # A slot's first hop compares against its previous
+                # occupant's prefix: `fresh` keeps it out of the streak.
+                gained = hop_active & host[:, 4].astype(bool) & ~st.fresh
+                st.streak[gained] += 1
+                st.streak[hop_active & ~gained] = 0
+                st.fresh[hop_active] = False
+        exact = (st.hops_done >= st.budget) | (hop_active & ~changed)
+        finished = active & exact
+        if spec.adaptive > 0:
+            finished |= hop_active & (st.streak >= spec.adaptive)
         if not finished.any():
-            return 0
+            return n_done
         ids, sims = self._slot_results(st)
-        now = time.perf_counter()
+        now = self.clock()
         slots = np.flatnonzero(finished)
         for slot, req in zip(slots, sched.release_many(slots)):
             req.ids = ids[slot].copy()
@@ -452,4 +686,8 @@ class DescentPlan:
             req.t_done = now
             req.status = "done"
             done.append(req)
-        return len(slots)
+            if (self.cache is not None and exact[slot]
+                    and getattr(req, "_cache_flushes", -1)
+                    == self.cache.flushes):
+                self.cache.put(req._cache_key, req.ids, req.sims)
+        return n_done + len(slots)

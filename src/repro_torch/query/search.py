@@ -20,8 +20,9 @@ implementations with bitwise-identical results:
 
 Waves run :func:`batched_descent`; continuous batching runs the same
 pieces a hop at a time over a fixed slot array (:func:`slot_admit`,
-:func:`slot_hop`). The sharded placement has its counterparts over
-stacked shards (:func:`batched_descent_sharded`, :func:`shard_slot_admit`,
+:func:`slot_hop`, and :func:`slot_prefix_stable` for adaptive budgets).
+The sharded placement has its counterparts over stacked shards
+(:func:`batched_descent_sharded`, :func:`shard_slot_admit`,
 :func:`shard_slot_hop`, :func:`shard_slot_topk`), one hop launch for all
 shards.
 """
@@ -152,6 +153,24 @@ def slot_hop(graph_ids, rev_ids, words, card, q_words, q_card, beam_ids,
     out_ids = torch.where(active[:, None], nids, beam_ids)
     out_sims = torch.where(active[:, None], nsims, beam_sims)
     return out_ids, out_sims, changed, stats
+
+
+def slot_prefix_stable(beam_ids, prev_prefix, *, k: int):
+    """Per-slot stability of the top-k prefix between consecutive hops.
+
+    Adaptive budgets (``PlanSpec.adaptive``) free a slot once its result,
+    the beam's k-prefix, has held for ``adaptive`` hops: a beam's tail
+    keeps churning long after the answer settled. Takes single-placement
+    ``[n_slots, beam]`` and sharded ``[S, n_slots, beam]`` beams; a slot
+    is stable only when every shard's prefix is. Returns ``(stable
+    bool[n_slots], prefix)``, ``prefix`` the current k-prefix (a copy) to
+    pass back as ``prev_prefix`` on the next tick.
+    """
+    cur = beam_ids[..., :k].clone()
+    same = cur == prev_prefix
+    stable = (same.all(dim=2).all(dim=0) if beam_ids.dim() == 3
+              else same.all(dim=1))
+    return stable, cur
 
 
 # -- the sharded placement ----------------------------------------------------

@@ -41,9 +41,14 @@ tables keep their shapes (``cap`` doubles geometrically). A shard is
 rematerialised when a *pre-existing* user gains residency on it (a cohort
 refresh registering it in a new cluster: its in-edges must be remapped);
 everything is rebuilt when ``cap`` crosses a doubling boundary or a
-journal no longer reaches back to the synced version. Re-balancing
-(``adopt_plan``) and dead shards (``set_dead``) are ROADMAP queue 1
-items 8 and 9.
+journal no longer reaches back to the synced version.
+
+Re-balancing (:meth:`ShardedDescent.adopt_plan`, driven by
+``query/rebalance.py``) swaps in a freshly derived partition between
+scheduler steps: every table is rebuilt from the index, ``generation``
+counts the swaps, and in-flight beams follow through the old → new
+local-id map, rows evicted from a shard mapping to PAD. Dead shards
+(``set_dead``) are ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -225,13 +230,18 @@ class ShardedDescent:
     """
 
     def __init__(self, index: KNNIndex, n_shards: int,
-                 plan: ShardPlan | None = None, device="cuda"):
+                 plan: ShardPlan | None = None, *,
+                 resident_configs: int = 0, device="cuda"):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.index = index
         self.device = resolve_device(device)
-        self.base_plan = plan or plan_shards(index, n_shards)
+        self.base_plan = plan or plan_shards(
+            index, n_shards, resident_configs=resident_configs)
         self.plan = self.base_plan
+        # Bumped by every re-balance swap (adopt_plan): the tables, plan
+        # and pending beam remap move together between scheduler steps.
+        self.generation = 0
         # Pending old-local → new-local id map for in-flight slot beams
         # ([S, cap at the snapshot] or None); see take_beam_remap().
         self._beam_remap: np.ndarray | None = None
@@ -282,7 +292,7 @@ class ShardedDescent:
 
     def _materialize(self):
         """Full (re)build of every shard's tables: first use, ``cap``
-        crossings and journal expiry."""
+        crossings, journal expiry and re-balance swaps."""
         ix = self.index
         S = self.plan.n_shards
         cap = max(capacity_of(len(r), minimum=64)
@@ -412,11 +422,33 @@ class ShardedDescent:
             self._record_remap(old_l2g)
         return "delta"
 
+    def adopt_plan(self, plan: ShardPlan) -> None:
+        """Re-balance swap: install a freshly derived partition and rebuild
+        every shard's tables in one host-side call between scheduler steps.
+
+        The one reshard where residency is not monotone: rows move off
+        shards. The rows are read from the index: on one card it holds
+        the row content a merge of the old shard tables gives back (the
+        reference merges them for a mesh, where the shards are the only
+        copy: ROADMAP queue 1 item 5 (rest)). In-flight slot beams follow
+        through the recorded old → new local-id map: rows still resident
+        keep descending under their new labels, evicted rows map to PAD
+        (the continuous plan masks their sims). ``cap`` may change with the
+        plan; the map is ``[S, old cap]``.
+        """
+        old_l2g = self._dev[4].cpu().numpy().copy()
+        self.base_plan = plan
+        self.plan = plan
+        self._materialize()
+        self._record_remap(old_l2g)
+        self.generation += 1
+
     def _record_remap(self, old_l2g: np.ndarray):
         """Accumulate an old-local → new-local id map after a reshard that
-        may have shifted local ids. Residency is monotone under the frozen
-        base, so every previously resident row keeps a local id (PAD stays
-        PAD)."""
+        may have shifted local ids. Under the frozen-base extension
+        residency is monotone, so every previously resident row keeps a
+        local id; after a re-balance swap (:meth:`adopt_plan`) rows that
+        left a shard map to PAD there. PAD stays PAD."""
         S = old_l2g.shape[0]
         rows = np.arange(S)[:, None]
         safe = np.where(old_l2g == PAD_ID, 0, old_l2g)

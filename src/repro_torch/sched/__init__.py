@@ -1,3 +1,7 @@
-"""Continuous-batching slot scheduler (``scheduler.SlotScheduler``) and
-the maintenance trigger (``scheduler.Cadence``)."""
-from repro_torch.sched.scheduler import Cadence, SlotScheduler  # noqa: F401
+"""Continuous-batching slot scheduler with FIFO and SLO admission
+(``scheduler.SlotScheduler``, ``scheduler.shed_and_select``), the
+maintenance trigger (``scheduler.Cadence``) and the injectable
+``scheduler.ManualClock``."""
+from repro_torch.sched.scheduler import (ADMISSION_POLICIES,  # noqa: F401
+                                         Cadence, ManualClock,
+                                         SlotScheduler, shed_and_select)

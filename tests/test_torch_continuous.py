@@ -286,10 +286,13 @@ def test_knn_serve_continuous_dma_cli(indexes, capsys):
 
 
 def test_scheduler_outside_slice_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotScheduler(4, policy="slo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotScheduler(4, max_pending=8)
+    # SLO admission is ported (test_torch_slo.py holds it against the
+    # reference); what stays refused is what the reference refuses.
+    assert SlotScheduler(4, policy="slo", max_pending=8).policy == "slo"
+    with pytest.raises(ValueError, match="policy"):
+        SlotScheduler(4, policy="edf")
+    with pytest.raises(ValueError, match="max_pending"):
+        SlotScheduler(4, max_pending=-1)
     with pytest.raises(ValueError):
         SlotScheduler(0)
 
