@@ -35,7 +35,10 @@ Phases, each fatal on failure:
    shards, W = 32 and 33, one to 256 queries, shard beams of 12-192 lanes
    (state in shared and in global memory) and a DMA ring of 3 queries a
    block, against the plain sharded hop and against S single-shard
-   launches;
+   launches; the same with whole shards all PAD, as a dead shard leaves
+   them (S = 4 with shard 1, S = 3 with shards 0 and 2, S = 2 with both;
+   W = 32 and 33, 256 queries, shard beams of 12 and 192), each dead
+   shard giving PAD ids, -inf sims, no scored lane and no DMA byte;
    FastRandomHash's padded entry at the reference test's shapes and its
    CSR entry over empty, one-item and longest rows, row offsets of every
    residue mod 4 and an unaligned item array, t = 1, 8 and 32, b = 256,
@@ -112,6 +115,24 @@ Phases, each fatal on failure:
    equal to the serve without swaps and flushed at each swap; ``--shards 4 --resident-configs 4`` and ``2``
    three ways each, bitwise, with resident rows, MB and recall; and a
    small synth serve with every knob on, equal on the card and the CPU;
+4e. faults and crash recovery — over the same paper index at ``--shards
+   4`` through ``QueryEngine``: ``kill:1@2`` (max_retries 2, backoff cap
+   2, recover_after 2: the degraded window and the failover inside the
+   serve of the 2,048 profiles) as wave (64 a wave) x {plain, fused, DMA
+   hop} and continuous (256 slots) x {plain, DMA hop}, equal rid by rid
+   within a batching with equal fault stats, each kernel path launching
+   its hop through the sharded entry alone, the tables after the failover
+   a fresh ``ShardedDescent``'s and a re-serve bitwise phase 4c's healthy
+   ``--shards 4`` serve, with the degraded window's QPS and recall@10
+   beside the healthy fleet's and the failover's host clock; ``fail:2@1+2``
+   ending with no death and no failover; a cache-on serve across the kill
+   (degraded results skipped, every repeat the healthy answer); a crash
+   store (``--snapshot-every 2``) with 256 inserts and ``crash@5``,
+   recovered as wave x {plain, DMA hop} to the index and the answers of a
+   mirror that never crashed, with the snapshots' ms and bytes, the WAL's
+   ms a record, the replay's and the recovery's ms; and a small synth
+   serve with every fault knob on, then a crash, each store recovered on
+   the other device, equal on the card and the CPU;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -128,7 +149,8 @@ Phases, each fatal on failure:
 
 Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
 sharded placement's launches and 4-shard hop time under ``sharded``, and
-phase 4d's launches path by path under ``phase_4d``),
+phases 4d's and 4e's launches path by path under ``phase_4d`` and
+``phase_4e``),
 then as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1722,6 +1744,40 @@ def check_sharded_hops(dev) -> tuple[int, float]:
     return len(cases), err
 
 
+def check_dead_shard_hops(dev) -> tuple[int, float]:
+    """Phase 3: both hops' shard grid axis with whole shards all PAD, as a
+    dead shard's seeds leave them in the degraded window: S = 4 with shard
+    1 all PAD, S = 3 with shards 0 and 2, S = 2 with both; W = 32 and 33,
+    256 queries, shard beams of 12 (state in shared memory) and 192 (in
+    global memory). Each against the plain sharded hop and S single-shard
+    launches; an all-PAD shard gives PAD ids, -inf sims, no scored lane
+    and (DMA hop) no byte moved."""
+    import numpy as np
+    import torch
+
+    from repro_torch.types import NEG_INF, PAD_ID
+
+    cases = [(S, dead, W, B) for W, B in ((32, 12), (33, 12), (32, 192))
+             for S, dead in ((4, [1]), (3, [0, 2]), (2, [0, 1]))]
+    err = 0.0
+    for S, dead, W, B in cases:
+        rng = np.random.default_rng(7 * S + W + B)
+        args = list(sharded_inputs(rng, dev, S, 2048, W, 30, 30, 256, B))
+        beam, sims = args[6].clone(), args[7].clone()
+        beam[dead] = PAD_ID
+        sims[dead] = NEG_INF
+        args[6], args[7] = beam, sims
+        err = check_sharded_case(f"shards {dead} of {S} all PAD", args, err)
+        for dma in (False, True):
+            out = sharded_kernel(args, dma)
+            if not (bool((out[0][dead] == PAD_ID).all())
+                    and bool(torch.isneginf(out[1][dead]).all())
+                    and all(not bool(x[dead].any()) for x in out[2:4])):
+                fail(f"{'DMA ' if dma else ''}hop, shards {dead} of {S} all "
+                     f"PAD: their outputs are not PAD / -inf / 0")
+    return len(cases), err
+
+
 SHARDED_PATHS = (  # (name, knn_serve flags, the hop kernel it must launch)
     ("wave x jnp", [], None),
     ("wave x pallas", ["--kernel"], "descent_hop"),
@@ -1879,10 +1935,13 @@ def main_queries():
     return make_dataset("ml1M", scale=1.0, seed=1)
 
 
-def first_sharded_hop(engine, n_shards: int, beam: int, q: int):
+def first_sharded_hop(engine, n_shards: int, beam: int, q: int,
+                      dead=None):
     """The first hop's inputs of a ``q``-query wave of the main path on a
     ``n_shards``-shard state of ``engine``'s index at fleet beam ``beam``:
-    each shard's owned seeds scored into its initial beams."""
+    each shard's owned seeds scored into its initial beams. With a
+    ``dead`` mask the dead shards' seeds are dropped, as in a degraded
+    window: their beams are all PAD."""
     import numpy as np
     import torch
 
@@ -1895,6 +1954,8 @@ def first_sharded_hop(engine, n_shards: int, beam: int, q: int):
     dev = engine.plan.device
     ix = engine.index
     sd = sharded.ShardedDescent(ix, n_shards, device=dev)
+    if dead is not None:
+        sd.set_dead(dead)
     qds = main_queries()
     items, offsets = profiles_to_csr([qds.profile(u) for u in range(q)])
     qgf = fingerprint_profiles(items, offsets, ix.n_bits, ix.fp_seed)
@@ -2460,6 +2521,416 @@ def slo_cache_rebalance(dev, run: dict, shard: dict) -> dict:
     return ctx
 
 
+# -- phase 4e: faults, degraded serving, failover, crash recovery ----------
+
+# ``kill:1@2`` under this health config masks shard 1 from step 2, declares
+# it dead at step 5 and swaps a fresh partition in at the end of step 7:
+# the degraded window and the failover both fall inside the serve of the
+# 2,048 profiles (32 waves of 64, or ~24 ticks of 256 slots).
+P4E = dict(kill="kill:1@2", fail="fail:2@1+2", crash="crash@5",
+           health=dict(max_retries=2, backoff_cap=2, recover_after=2),
+           qc=dict(max_wave=64, shards=4), inserts=256, snapshot_every=2,
+           crash_steps=6)
+P4E_WAVES = (("wave x jnp", None, {}), ("wave x pallas", FUSED,
+                                        dict(kernel=True)),
+             ("wave x pallas_dma", DMA, dict(kernel=True, dma=True)))
+P4E_CONT = (CONT_JNP, CONT_DMA)
+
+
+def device_sync(dev):
+    import torch
+
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+def injector(spec: str):
+    from repro_torch.faults import FaultInjector, FaultPlan, HealthConfig
+
+    return FaultInjector(FaultPlan.parse(spec),
+                         health=HealthConfig(**P4E["health"]))
+
+
+def serve4e(ctx, label, kernel, qc, spec, stream):
+    """One serve of the ``stream`` (rids 0..) through ``QueryEngine`` on a
+    fresh copy of the paper index at ``--shards 4``, with the fault plan
+    ``spec``: each step's host clock and completions, and each failover
+    swap's host clock, recorded; the launch counts from 0 and checked (the
+    hop through the sharded entry alone). Returns (engine, stats, steps,
+    failover ms) with steps [(seconds, requests completed, degraded)]."""
+    from repro_torch.query.engine import QueryConfig, QueryEngine, QueryRequest
+    from repro_torch.query.index import KNNIndex
+
+    engine = QueryEngine(KNNIndex.load(ctx["index_path"]),
+                         QueryConfig(**{**SERVE_QC, **P4E["qc"], **qc}),
+                         device=ctx["dev"], faults=injector(spec))
+    engine.plan.sync()
+    engine.index.path_lut()
+    sync = device_sync(ctx["dev"])
+    steps, swaps = [], []
+    plain_step, plain_maintain = engine.step, engine.failover.maintain
+
+    def step():
+        base = len(engine.done)
+        t0 = time.perf_counter()
+        n = plain_step()
+        sync()
+        new = engine.done[base:]
+        steps.append((time.perf_counter() - t0, len(new),
+                      any(r.degraded for r in new) if new
+                      else engine.degraded))
+        return n
+
+    def maintain():
+        sync()
+        t0 = time.perf_counter()
+        out = plain_maintain()
+        sync()
+        if out is not None:
+            swaps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.step, engine.failover.maintain = step, maintain
+    reset_launches()
+    for i, p in enumerate(stream):
+        engine.submit(QueryRequest(rid=i, profile=p))
+    stats = engine.run()
+    counts = read_launches()
+    check_sharded_launches(label, counts, kernel)
+    ctx["launches"][label] = counts
+    return engine, stats, steps, swaps
+
+
+def window_numbers(engine, steps, healthy_engine) -> dict:
+    """QPS of the steps that served degraded and of the others, and the
+    degraded requests' recall@10 beside the healthy fleet's on the same
+    rids."""
+    deg = [r for r in engine.done if r.degraded]
+    rids = {r.rid for r in deg}
+    same = [r for r in healthy_engine.done if r.rid in rids]
+    n_deg = sum(n for _, n, d in steps if d)
+    t_deg = sum(s for s, n, d in steps if d)
+    n_ok = sum(n for _, n, d in steps if not d)
+    t_ok = sum(s for s, n, d in steps if not d)
+    return {"degraded": len(deg), "qps_degraded": n_deg / max(t_deg, 1e-9),
+            "qps_healthy": n_ok / max(t_ok, 1e-9),
+            "steps_degraded": sum(1 for *_, d in steps if d),
+            "recall_degraded": engine.recall_vs_brute_force(deg),
+            "recall_healthy_same_rids":
+                healthy_engine.recall_vs_brute_force(same)}
+
+
+def check_fresh_shard_tables(engine, label: str) -> None:
+    """The shard tables equal a fresh ShardedDescent on the same plan."""
+    import numpy as np
+    import torch
+
+    from repro_torch.query import sharded
+
+    sd = engine.sharded_state()
+    fresh = sharded.ShardedDescent(sd.index, sd.n_shards, plan=sd.plan,
+                                   device=sd.device)
+    if not np.array_equal(fresh._g2l, sd._g2l) or not all(
+            a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(fresh._dev, sd._dev)):
+        fail(f"{label}: the tables after the failover differ from a fresh "
+             f"ShardedDescent on the same plan")
+
+
+def reserve(engine, profiles, label, healthy: dict) -> None:
+    """Serve the profiles again (rids 0..) on the recovered fleet: bitwise
+    the healthy fleet's answers, none degraded."""
+    from repro_torch.query.engine import QueryRequest
+
+    engine.done.clear()
+    for i, p in enumerate(profiles):
+        engine.submit(QueryRequest(rid=i, profile=p))
+    engine.run()
+    if any(r.degraded for r in engine.done):
+        fail(f"{label}: a request after the failover served degraded")
+    same_results(by_rid(engine), healthy, f"{label} after the failover",
+                 "the healthy --shards 4 serve of phase 4c")
+
+
+def kill_serves(ctx) -> None:
+    """(a) ``kill:1@2`` as wave x {jnp, pallas, pallas_dma} and continuous
+    x {jnp, pallas_dma}: equal rid by rid within a batching, with equal
+    fault stats; the tables after the failover a fresh ShardedDescent's;
+    a re-serve bitwise the healthy fleet's."""
+    profiles, healthy = ctx["profiles"], ctx["healthy"]
+    for paths in (P4E_WAVES, P4E_CONT):
+        base = None
+        for name, kernel, qc in paths:
+            label = f"kill {name}"
+            engine, stats, steps, swaps = serve4e(ctx, label, kernel, qc,
+                                                  P4E["kill"], profiles)
+            f = stats["faults"]
+            if (stats["requests"] != len(profiles) or f["failovers"] != 1
+                    or f["deaths"] != 1 or f["degraded_served"] < 1
+                    or f["merge"]["excluded"] != [1]):
+                fail(f"{label}: {stats['requests']} served, faults {f}")
+            if base is None:
+                base = (by_rid(engine), f, label)
+            else:
+                same_results(by_rid(engine), base[0], label, base[2])
+                if f != base[1]:
+                    fail(f"{label}: fault stats {f} != {base[2]}'s {base[1]}")
+            check_fresh_shard_tables(engine, label)
+            nums = window_numbers(engine, steps, ctx["healthy_engine"])
+            nums["failover_ms"] = swaps
+            ctx["numbers"][label] = nums
+            reserve(engine, profiles, label, healthy)
+            log(f"[faults] {label}: {stats['requests']} served in "
+                f"{stats['waves']} steps, {nums['degraded']} degraded over "
+                f"{nums['steps_degraded']} steps; QPS degraded "
+                f"{nums['qps_degraded']:.1f}, healthy {nums['qps_healthy']:.1f}"
+                f"; recall@10 degraded {nums['recall_degraded']:.4f} against "
+                f"{nums['recall_healthy_same_rids']:.4f} for the healthy "
+                f"fleet on the same rids; failover host ms "
+                f"{[round(x, 3) for x in swaps]}; faults {f}; launches "
+                f"{ctx['launches'][label]}"
+                + ("" if base[2] == label else f"; bitwise equal to "
+                   f"{base[2]}") + "; tables after the failover equal a "
+                "fresh ShardedDescent; re-serve bitwise the healthy fleet's")
+
+
+def transient_serve(ctx) -> None:
+    """(b) ``fail:2@1+2``: the shard is masked while it fails and comes
+    back without a death or a failover."""
+    name, kernel, qc = WAVE_PALLAS
+    label = f"fail {name}"
+    engine, stats, _, _ = serve4e(ctx, label, kernel, qc, P4E["fail"],
+                                  ctx["profiles"])
+    f = stats["faults"]
+    if (f["failovers"] != 0 or f["deaths"] != 0 or f["degraded_served"] < 1
+            or f["states"] != ["healthy"] * 4):
+        fail(f"{label}: faults {f}")
+    ctx["numbers"][label] = dict(f)
+    log(f"[faults] {label}: {f['degraded_served']} served degraded, "
+        f"{f['retries']} retries, {f['backoff_steps']} backoff steps, 0 "
+        f"deaths, 0 failovers; launches {ctx['launches'][label]}")
+
+
+def cache_window_serve(ctx) -> None:
+    """(c) A cache-on serve of the 2,048 profiles and the first 1,024 again
+    across ``kill:1@2``: degraded results are skipped, never stored, and
+    every repeat (hit or miss) is the healthy fleet's answer."""
+    name, kernel, qc = WAVE_PALLAS
+    label = f"kill cache 4096 {name}"
+    profiles, healthy = ctx["profiles"], ctx["healthy"]
+    n = len(profiles)
+    engine, stats, _, _ = serve4e(ctx, label, kernel,
+                                  {**qc, "cache": 4096}, P4E["kill"],
+                                  profiles + profiles[:P4D["repeats"]])
+    c, f = stats["cache"], stats["faults"]
+    if not (0 < c["degraded_skips"] <= f["degraded_served"]
+            and c["hits"] > 0 and f["failovers"] == 1):
+        fail(f"{label}: cache {c}, faults {f}")
+    first = {rid: v for rid, v in by_rid(engine).items() if rid < n}
+    repeats = {rid - n: v for rid, v in by_rid(engine).items() if rid >= n}
+    same_results(repeats, {rid: healthy[rid] for rid in repeats},
+                 f"{label} repeats", "the healthy fleet's answers")
+    ok = {r.rid for r in engine.done if r.rid < n and not r.degraded}
+    same_results({rid: first[rid] for rid in ok},
+                 {rid: healthy[rid] for rid in ok},
+                 f"{label} requests served healthy", "the healthy fleet")
+    ctx["numbers"][label] = dict(c)
+    log(f"[faults] {label}: cache {c}; {f['degraded_served']} served "
+        f"degraded, none stored; every repeat the healthy fleet's answer")
+
+
+def crash_recovery(ctx, tmp: Path) -> None:
+    """(d) ``--store DIR --snapshot-every 2`` with 256 inserts over the
+    first six steps and ``crash@5`` (wave x pallas_dma), beside a mirror
+    that never crashes (wave x jnp); ``QueryEngine.recover`` as wave x jnp
+    and wave x pallas_dma: the mirror's index (rows, cluster tables,
+    version) and its answers to the 2,048 profiles, bitwise. Times the
+    snapshots, the WAL records, the replay and the recovery."""
+    import numpy as np
+
+    from repro_torch.faults import (CrashStore, EngineCrash, FaultInjector,
+                                    FaultPlan, WriteAheadLog, replay)
+    from repro_torch.query.engine import QueryConfig, QueryEngine, QueryRequest
+    from repro_torch.query.index import KNNIndex
+
+    dev, sync = ctx["dev"], device_sync(ctx["dev"])
+    root = tmp / "crash_store"
+    qc = {**SERVE_QC, **P4E["qc"]}
+    store = CrashStore(root, every=P4E["snapshot_every"])
+    snaps = []
+    plain_snapshot = store.snapshot
+
+    def snapshot(engine):
+        sync()
+        t0 = time.perf_counter()
+        plain_snapshot(engine)
+        ms = (time.perf_counter() - t0) * 1e3
+        man = json.loads((root / "manifest.json").read_text())
+        snaps.append((ms, sum((root / man[k]).stat().st_size
+                              for k in ("snapshot", "plan") if man[k])))
+
+    store.snapshot = snapshot
+    spent = {"wal": 0.0}
+    plain_record = WriteAheadLog.record
+    WriteAheadLog.record = timed_calls(spent, "wal", plain_record)
+    try:
+        engine = QueryEngine(
+            KNNIndex.load(ctx["index_path"]),
+            QueryConfig(**qc, kernel=True, dma=True), device=dev,
+            faults=FaultInjector(FaultPlan.parse(P4E["crash"])), store=store)
+        mirror = QueryEngine(KNNIndex.load(ctx["index_path"]),
+                             QueryConfig(**qc), device=dev)
+        chunks = np.array_split(np.arange(P4E["inserts"]),
+                                P4E["crash_steps"])
+        crashed = None
+        for t, chunk in enumerate(chunks):
+            for e in (engine, mirror):
+                for m in chunk:
+                    e.insert(ctx["inserts"][m])
+                for i in range(64):
+                    e.submit(QueryRequest(rid=64 * t + i,
+                                          profile=ctx["profiles"][64 * t + i]))
+            try:
+                engine.step()
+            except EngineCrash as e:
+                crashed = (t, str(e))
+            mirror.step()  # the mirror also runs the step the crash ate
+            if crashed:
+                break
+    finally:
+        WriteAheadLog.record = plain_record
+    n_records = sum(len(WriteAheadLog.read(w))
+                    for w in sorted(root.glob("wal_*.jsonl")))
+    if crashed is None or crashed[0] != P4E["crash_steps"] - 1:
+        fail(f"crash recovery: the engine crashed at {crashed}")
+    # The replay alone, then the whole recovery (snapshot load, replay,
+    # the plan sidecar, the shard tables on the card) two ways.
+    man = json.loads((root / "manifest.json").read_text())
+    records = WriteAheadLog.read(root / man["wal"])
+    index = KNNIndex.load(root / man["snapshot"])
+    t0 = time.perf_counter()
+    replay(index, records)
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    recovered, recover_ms = {}, {}
+    for name, kernel, extra in (WAVE_JNP, P4E_WAVES[2]):
+        sync()
+        t0 = time.perf_counter()
+        rec = QueryEngine.recover(root, QueryConfig(**qc, **extra),
+                                  device=dev)
+        rec.sharded_state()
+        sync()
+        recover_ms[name] = (time.perf_counter() - t0) * 1e3
+        recovered[name] = (rec, kernel)
+    mirror.done.clear()
+    for i, p in enumerate(ctx["profiles"]):
+        mirror.submit(QueryRequest(rid=i, profile=p))
+    mirror.run()
+    for name, (rec, kernel) in recovered.items():
+        label = f"recovered {name}"
+        reset_launches()
+        for i, p in enumerate(ctx["profiles"]):
+            rec.submit(QueryRequest(rid=i, profile=p))
+        rec.run()
+        counts = read_launches()
+        check_sharded_launches(label, counts, kernel)
+        ctx["launches"][label] = counts
+        same_results(by_rid(rec), by_rid(mirror), label,
+                     "the mirror that never crashed")
+    state = index_state(mirror.index)
+    for name, (rec, _) in recovered.items():
+        bad = same_state(index_state(rec.index), state)
+        if bad:
+            fail(f"recovered {name}: the index differs from the mirror's in "
+                 f"{bad}")
+    wal_ms = spent["wal"] * 1e3 / max(n_records, 1)
+    ctx["numbers"]["crash"] = {
+        "crashed_at": crashed[0], "snapshots": snaps,
+        "wal_records": n_records, "wal_ms_per_record": wal_ms,
+        "replayed": len(records), "replay_ms": replay_ms,
+        "recover_ms": recover_ms, "version": state["version"]}
+    log(f"[faults] crash at step {crashed[0]} ({crashed[1]}); "
+        f"{len(snaps)} snapshots, ms {[round(s[0], 3) for s in snaps]}, "
+        f"bytes {[s[1] for s in snaps]}; {n_records} WAL records at "
+        f"{wal_ms:.4f} ms a record; replay of {len(records)} records "
+        f"{replay_ms:.3f} ms; recover ms "
+        f"{ {k: round(v, 3) for k, v in recover_ms.items()} }; the recovered "
+        f"index equals the mirror's (rows, cluster tables, version "
+        f"{state['version']}) and serves its {len(ctx['profiles'])} "
+        f"answers bitwise as wave x jnp and wave x pallas_dma (launches "
+        f"{ctx['launches']['recovered wave x pallas_dma']})")
+
+
+def fault_knobs_cpu_equals_card(ctx, tmp: Path) -> None:
+    """(e) A small synth serve with every fault knob on (a kill, a
+    transient failure, a slow shard, the crash store), then a crash and
+    its recovery, on the card and on the CPU, each store recovered on the
+    other device: equal results and counters."""
+    from repro_torch.launch import knn_serve
+
+    common = P4D["small"] + ["--shards", "2", "--kernel", "--dma"]
+    small = common + ["--insert", "20", "--snapshot-every", "2"]
+    flags = small + ["--queries", "96", "--continuous", "--slots", "16",
+                     "--cache", "64", "--fault-plan",
+                     "kill:1@2;fail:0@6+2;slow:1@3+1:1"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        reset_launches()
+        runs[device] = knn_serve.main(flags + [
+            "--store", str(tmp / f"knobs_{device}"), "--device", device])
+        if device == "cuda":
+            check_sharded_launches("the fault-knobs synth serve",
+                                   read_launches(), DMA)
+    card, cpu = runs["cuda"], runs["cpu"]
+    same_results(by_rid(card[2]), by_rid(cpu[2]),
+                 "the fault-knobs synth serve on the card", "the CPU's")
+    keys = ("requests", "served", "waves", "cache", "faults", "store")
+    if any(card[0][k] != cpu[0][k] for k in keys) or card[1] != cpu[1]:
+        fail(f"the fault-knobs synth serve: card "
+             f"{[card[0][k] for k in keys]} != CPU "
+             f"{[cpu[0][k] for k in keys]}")
+    crash = small + ["--queries", "64", "--max-wave", "8", "--fault-plan",
+                     "crash@3"]
+    for device in ("cuda", "cpu"):
+        out = knn_serve.main(crash + ["--store", str(tmp / f"crash_{device}"),
+                                      "--device", device])
+        if out[0] != {"requests": 0, "crashed": True}:
+            fail(f"the synth crash on {device}: {out[0]}")
+    rec = {device: knn_serve.main(
+        common + ["--queries", "64", "--recover",
+                      str(tmp / f"crash_{other}"), "--device", device])
+        for device, other in (("cuda", "cpu"), ("cpu", "cuda"))}
+    same_results(by_rid(rec["cuda"][2]), by_rid(rec["cpu"][2]),
+                 "the CPU's store recovered on the card",
+                 "the card's store recovered on the CPU")
+    if rec["cuda"][1] != rec["cpu"][1] or rec["cuda"][0]["requests"] != 64:
+        fail(f"synth recovery: recall {rec['cuda'][1]} != {rec['cpu'][1]}")
+    f = card[0]["faults"]
+    log(f"[faults] fault-knobs synth serve: card equals CPU (served "
+        f"{card[0]['served']}, faults {f}, cache {card[0]['cache']}, store "
+        f"{card[0]['store']}, recall@10 {card[1]:.4f}); crash@3 on both, "
+        f"each store recovered on the other device: equal (recall@10 "
+        f"{rec['cuda'][1]:.4f})")
+
+
+def faults_and_recovery(dev, run: dict, shard: dict, tmp: Path) -> dict:
+    """Phase 4e on the paper index of phase 4."""
+    qds = main_queries()
+    ctx = {"dev": dev, "index_path": run["index_path"], "launches": {},
+           "numbers": {}, "healthy": by_rid(shard["engine"]),
+           "healthy_engine": shard["engine"],
+           "profiles": [qds.profile(u) for u in range(P4D["queries"])],
+           "inserts": [qds.profile(qds.n_users - 1 - m)
+                       for m in range(P4E["inserts"])]}
+    t0 = time.perf_counter()
+    kill_serves(ctx)
+    transient_serve(ctx)
+    cache_window_serve(ctx)
+    crash_recovery(ctx, tmp)
+    fault_knobs_cpu_equals_card(ctx, tmp)
+    ctx["seconds"] = time.perf_counter() - t0
+    log(f"[faults] phase 4e: {ctx['seconds']:.1f} s")
+    return ctx
+
+
 # -- phase 5: timing at the main path's shapes -----------------------------
 
 def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
@@ -2612,9 +3083,12 @@ def time_sharded_hops(engine, launches: dict) -> tuple[dict, float]:
     """One 4-shard, 256-query hop of each kernel at the main path's first
     hop, held bitwise against the plain sharded hop, timed as device time
     (a sleep kernel holds the card while 20 calls queue) beside the plain
-    version, S single-shard launches and the bound; and the host clock a
-    wave spends in ``shard_seeds``."""
+    version, S single-shard launches and the bound, and in turns with the
+    same hop of a degraded window (shard 1 dead: its beams all PAD); and
+    the host clock a wave spends in ``shard_seeds``."""
     args, sd, seeds = first_sharded_hop(engine, 4, 32, 256)
+    dead_args, _, _ = first_sharded_hop(engine, 4, 32, 256,
+                                        dead=[False, True, False, False])
     host = []
     for _ in range(7):
         t0 = time.perf_counter()
@@ -2622,6 +3096,8 @@ def time_sharded_hops(engine, launches: dict) -> tuple[dict, float]:
         host.append((time.perf_counter() - t0) * 1e3)
     err = check_sharded_case("timed: ml1M@1.0 first hop, fleet beam 32",
                              args, 0.0)
+    err = check_sharded_case("timed: ml1M@1.0 first hop, fleet beam 32, "
+                             "shard 1 dead", dead_args, err)
     graph, rev, words, card, qw, qc, beam, sims, tomb = args
     S, q = beam.shape[:2]
     W = words.shape[-1]
@@ -2635,6 +3111,8 @@ def time_sharded_hops(engine, launches: dict) -> tuple[dict, float]:
                       hold=True)]
         loop = cuda_ms(lambda: shard_by_shard(args, dma), reps=7, inner=20,
                        hold=True)
+        dead_ms = [cuda_ms(lambda: sharded_kernel(dead_args, dma), reps=7,
+                           inner=20, hold=True) for _ in range(2)]
         ms.append(cuda_ms(lambda: sharded_kernel(args, dma), reps=7,
                           inner=20, hold=True))
         plain = cuda_ms(lambda: sharded_plain(args, dma), reps=5)
@@ -2646,13 +3124,16 @@ def time_sharded_hops(engine, launches: dict) -> tuple[dict, float]:
         out[name] = {"ms": statistics.median(ms), "shard_loop_ms": loop,
                      "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes", "launches": launches[name]}
+                     else "bytes", "launches": launches[name],
+                     "one_dead_ms": statistics.median(dead_ms)}
         log(f"[timing] sharded {name}, one launch for 4 shards x 256 "
             f"queries (shard beam {beam.shape[-1]}, {n_scored} lanes "
             f"scored): {ms[0]:.4f} / {ms[1]:.4f} ms device time; 4 "
             f"single-shard launches {loop:.4f} ms; plain {plain:.4f} ms; "
             f"bound {out[name]['bound_ms']:.5f} ms by "
-            f"{out[name]['bound_by']}")
+            f"{out[name]['bound_by']}; with shard 1 dead (its beams all PAD, "
+            f"{int(sharded_plain(dead_args, False)[2].sum())} lanes scored) "
+            f"{dead_ms[0]:.4f} / {dead_ms[1]:.4f} ms, timed between the two")
     log(f"[timing] shard_seeds of a 256-query wave (4 shards, "
         f"{seeds.shape[1]} seeds a query): {statistics.median(host):.3f} ms "
         f"host clock (median of 7)")
@@ -2949,10 +3430,12 @@ def main() -> int:
     n_dma, err_dma = check_dma_hop(dev)
     n_shapes, err_shapes = check_hop_shapes(dev)
     n_shard, err_shard = check_sharded_hops(dev)
+    n_dead, err_dead = check_dead_shard_hops(dev)
     n_mh, err_mh = check_minhash(dev)
     log(f"[kernels] {n_ck} cluster-KNN, {n_hop} hop, {n_dma} DMA-hop, "
-        f"{n_shapes} two-hop, {n_shard} sharded two-hop and {n_mh} minhash "
-        f"cases bitwise equal to the plain versions")
+        f"{n_shapes} two-hop, {n_shard} sharded two-hop, {n_dead} all-PAD-"
+        f"shard two-hop and {n_mh} minhash cases bitwise equal to the plain "
+        f"versions")
 
     small_build_matches_cpu()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2960,6 +3443,7 @@ def main() -> int:
         bf = mutable_index(dev, run, Path(tmp))
         shard = sharded_placement(dev, run)
         slice8 = slo_cache_rebalance(dev, run, shard)
+        slice9 = faults_and_recovery(dev, run, shard, Path(tmp))
         launches = run["launches"]
         ck_row, err_ck_main = time_cluster_knn(
             dev, run["built"], run["engine"].index, launches["goldfinger_knn"])
@@ -2978,9 +3462,9 @@ def main() -> int:
         build_stages(run["engine"])
     ck_row["max_abs_err"] = max(err_ck, err_ck_main, bf["err"])
     hop_row["max_abs_err"] = max(err_hop, err_shapes, err_hops, err_shard,
-                                 shard["err"], err_shard_main)
+                                 err_dead, shard["err"], err_shard_main)
     dma_row["max_abs_err"] = max(err_dma, err_shapes, err_hops, err_shard,
-                                 shard["err"], err_shard_main)
+                                 err_dead, shard["err"], err_shard_main)
     # The sharded placement's launches (its own path: --shards 4, wave x
     # pallas for the fused hop, continuous x pallas_dma for the DMA hop)
     # and its one-launch 4-shard hop's device time and bound.
@@ -2989,11 +3473,14 @@ def main() -> int:
         row["sharded"] = {"launches": sh["launches"], "ms": sh["ms"],
                           "plain_ms": sh["plain_ms"],
                           "bound_ms": sh["bound_ms"],
-                          "bound_by": sh["bound_by"]}
-    # Phase 4d's launches of each hop, path by path (each counted from 0).
+                          "bound_by": sh["bound_by"],
+                          "one_dead_ms": sh["one_dead_ms"]}
+    # Phases 4d's and 4e's launches of each hop, path by path (each counted
+    # from 0).
     for row in (hop_row, dma_row):
-        row["phase_4d"] = {label: c[row["name"]] for label, c in
-                           slice8["launches"].items() if c[row["name"]]}
+        for key, phase in (("phase_4d", slice8), ("phase_4e", slice9)):
+            row[key] = {label: c[row["name"]] for label, c in
+                        phase["launches"].items() if c[row["name"]]}
     mh_row["max_abs_err"] = max(err_mh, err_mh_main)
     rows = [ck_row, hop_row, dma_row, mh_row]
     for name, st in list(run["serves"].items()) + list(
@@ -3006,6 +3493,11 @@ def main() -> int:
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms by "
             f"{row['bound_by']}) over {row.pop('shape')}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    # Phase 4e's figures near the end, where the tail of a run's log keeps
+    # them.
+    print(json.dumps({"phase_4e": slice9["numbers"],
+                      "phase_4e_seconds": slice9["seconds"]},
+                     default=lambda o: o.tolist()))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,17 @@ tables, in-flight beams remapped, the cache flushed; a ``[serve]
 rebalance:`` line); ``--resident-configs M`` makes only clusters of the
 first M hash configurations shard residents (tiered residency).
 
-The fault flags are accepted by name and raise NotImplementedError
-naming the ROADMAP item that ports them when set.
+Fault flags (``repro_torch/faults/``): ``--fault-plan SPEC`` schedules
+deterministic faults at the scheduler-step boundary (``kill:S@T``,
+``fail:S@T+D``, ``slow:S@T+D:MS``, ``crash@T``, separated by ``;``);
+killed shards are masked out and served around (a ``[serve] faults:`` line
+with the degraded recall), then swapped back in under a fresh partition.
+``--store DIR --snapshot-every N`` keeps periodic index snapshots and a
+write-ahead journal of every mutation (a ``[serve] store:`` line); a
+``crash@T`` plan stops the serve with ``[serve] CRASHED:``, and
+``--recover DIR`` skips the build and restores the engine, bitwise, from
+the last snapshot and the journal's replay (a store written by either
+package).
 """
 from __future__ import annotations
 
@@ -59,16 +68,9 @@ import numpy as np
 from repro_torch.core.params import params_for
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.device import resolve_device
+from repro_torch.faults.plan import EngineCrash
 from repro_torch.query.engine import QueryConfig, QueryEngine, QueryRequest
 from repro_torch.query.index import KNNIndex, build_index
-
-# Reference flags outside this slice: (flag, type, default, ROADMAP item).
-_LATER = (
-    ("--fault-plan", str, None, "queue 1 item 9 (faults)"),
-    ("--store", str, None, "queue 1 item 9 (crash store)"),
-    ("--snapshot-every", int, 0, "queue 1 item 9 (crash store)"),
-    ("--recover", str, None, "queue 1 item 9 (crash recovery)"),
-)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -137,29 +139,41 @@ def _parser() -> argparse.ArgumentParser:
                     help="tiered residency: only clusters of the first M "
                          "hash configurations contribute shard residents "
                          "(0 = all t; needs --shards)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic fault schedule: kill:S@T, "
+                         "fail:S@T+D, slow:S@T+D:MS, crash@T "
+                         "(';'-separated; steps count scheduler steps)")
+    ap.add_argument("--store", default=None,
+                    help="crash-store directory: snapshots + write-ahead "
+                         "journal of every index mutation")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot cadence in scheduler steps (journal "
+                         "compaction; 0 = snapshot only at startup)")
+    ap.add_argument("--recover", default=None,
+                    help="recover the engine from this crash-store "
+                         "directory (skips the build; last snapshot + WAL "
+                         "replay, bitwise)")
     ap.add_argument("--index", default=None, help="load a saved index")
     ap.add_argument("--save-index", default=None, help="save the built index")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device the index and the descent live on")
-    for flag, typ, default, item in _LATER:
-        if typ is bool:
-            ap.add_argument(flag, action="store_true",
-                            help=f"not ported yet: ROADMAP {item}")
-        else:
-            ap.add_argument(flag, type=typ, default=default,
-                            help=f"not ported yet: ROADMAP {item}")
     return ap
 
 
 def main(argv=None):
     """Run the CLI; returns ``(stats, recall, engine)``."""
     args = _parser().parse_args(argv)
-    for flag, _, default, item in _LATER:
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            raise NotImplementedError(
-                f"{flag} is outside this port's slice: ROADMAP {item}")
     dev = resolve_device(args.device)
+    faults = None
+    if args.fault_plan:
+        from repro_torch.faults import FaultInjector, FaultPlan
+        faults = FaultInjector(FaultPlan.parse(args.fault_plan))
+        print(f"[serve] fault plan: {faults.plan.describe()}")
+    store = None
+    if args.store:
+        from repro_torch.faults import CrashStore
+        store = CrashStore(args.store, every=args.snapshot_every)
     qc = QueryConfig(k=args.k, beam=args.beam, hops=args.hops,
                      max_wave=args.max_wave, shards=args.shards,
                      continuous=args.continuous,
@@ -171,6 +185,14 @@ def main(argv=None):
                      rebalance_every=args.rebalance_every,
                      rebalance_threshold=args.rebalance_threshold)
     qc.spec()  # --dma without --kernel fails before any work
+
+    if args.recover:
+        engine = QueryEngine.recover(args.recover, qc, device=dev,
+                                     faults=faults, store=store)
+        index = engine.index
+        print(f"[serve] recovered from {args.recover}: {index.n} users, "
+              f"{index.n_clusters} clusters, version {index.version}")
+        return _serve(args, engine, index, dev)
 
     if args.index:
         index = KNNIndex.load(args.index)
@@ -190,7 +212,11 @@ def main(argv=None):
         index.save(args.save_index)
         print(f"[serve] index saved to {args.save_index}")
 
-    engine = QueryEngine(index, qc, device=dev)
+    engine = QueryEngine(index, qc, device=dev, faults=faults, store=store)
+    return _serve(args, engine, index, dev)
+
+
+def _serve(args, engine, index, dev):
     print(f"[serve] plan: {engine.plan.describe()} on {dev}")
 
     # Unseen profiles: the dataset's generator with the next seed. That
@@ -254,7 +280,16 @@ def main(argv=None):
         engine.submit(QueryRequest(
             rid=rid, profile=p,
             priority=0 if rid < n_high else 1, deadline=deadline))
-    stats = engine.run()
+    try:
+        stats = engine.run()
+    except EngineCrash as e:
+        # The injected crash lands between scheduler steps: every mutation
+        # is journaled, the requests in flight are lost (clients retry).
+        print(f"[serve] CRASHED: {e}")
+        if engine.store is not None:
+            print(f"[serve] recover with: --recover {args.store}  "
+                  f"(store: {engine.store.stats()})")
+        return {"requests": 0, "crashed": True}, 0.0, engine
     recall = engine.recall_vs_brute_force()
     unit = "ticks" if args.continuous else "waves"
     print(f"[serve] {stats['requests']} queries in {stats['waves']} {unit} "
@@ -288,6 +323,24 @@ def main(argv=None):
               f"entries, {c['flushes']} flushes")
     if "rebalance" in stats:
         print(f"[serve] rebalance: {stats['rebalance']}")
+    if "faults" in stats:
+        f = stats["faults"]
+        degraded = [r for r in engine.done if r.degraded]
+        deg_recall = (engine.recall_vs_brute_force(degraded)
+                      if degraded else None)
+        print(f"[serve] faults: {f.get('shards_down', 0)} shards down, "
+              f"{f.get('deaths', 0)} deaths, "
+              f"{f.get('retries', 0)} retries, "
+              f"{f.get('backoff_steps', 0)} backoff steps, "
+              f"{f.get('failovers', 0)} failovers | "
+              f"{len(degraded)} served degraded"
+              + (f" (degraded recall@{args.k} {deg_recall:.3f})"
+                 if deg_recall is not None else ""))
+    if "store" in stats:
+        s = stats["store"]
+        print(f"[serve] store: {s['snapshots']} snapshots, "
+              f"{s['wal_records']} WAL records since last "
+              f"(cadence {s['every']})")
     return stats, recall, engine
 
 

@@ -49,6 +49,10 @@ class ResultCache:
         self.misses = 0
         self.flushes = 0
         self.stale_drops = 0
+        # Results computed on a degraded (shard-masked) fleet are served
+        # but never stored: cached, they would outlive the failure window.
+        # The plan counts the skips here.
+        self.degraded_skips = 0
 
     @staticmethod
     def key(words_row: np.ndarray, card: int, k: int, hops: int) -> tuple:
@@ -129,4 +133,5 @@ class ResultCache:
             "hit_rate": round(self.hits / lookups, 4) if lookups else 0.0,
             "flushes": self.flushes,
             "stale_drops": self.stale_drops,
+            "degraded_skips": self.degraded_skips,
         }

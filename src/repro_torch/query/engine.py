@@ -26,8 +26,17 @@ imbalance after lifecycle maintenance and swaps in a fresh partition past
 ``rebalance_threshold``. SLO admission (``admission``, ``max_pending``,
 per-request ``priority`` and ``deadline``), adaptive hop budgets and the
 result cache are the plan's (``query/plan.py``). Every time stamp reads
-the injectable ``clock``. Faults are a later slice (ROADMAP queue 1 item
-9).
+the injectable ``clock``.
+
+Faults (``repro_torch/faults``): ``faults=`` takes a
+:class:`~repro_torch.faults.FaultInjector`, which brackets every step
+(``begin_step`` first, which may raise ``EngineCrash``; the failover
+manager's probe masks unhealthy shards before the plan step and swaps in
+a fresh partition after maintenance), and completions served while a
+shard is masked carry ``degraded``. ``store=`` takes a
+:class:`~repro_torch.faults.CrashStore`: a snapshot at attach, the
+index's mutations write-ahead logged, snapshots on its cadence after
+every step; :meth:`QueryEngine.recover` rebuilds an engine from one.
 """
 from __future__ import annotations
 
@@ -65,6 +74,9 @@ class QueryRequest:
     t_submit: float = 0.0
     t_done: float = 0.0
     status: str = "pending"              # pending | done | rejected
+    degraded: bool = False               # served while >=1 shard was
+                                         # masked out (bounded recall
+                                         # loss; never cached)
 
     @property
     def rejected(self) -> bool:
@@ -139,7 +151,7 @@ class QueryConfig:
 
 class QueryEngine:
     def __init__(self, index: KNNIndex, qc: QueryConfig | None = None, *,
-                 device="cuda", clock=None):
+                 device="cuda", clock=None, faults=None, store=None):
         self.index = index
         self.qc = qc or QueryConfig()
         if self.qc.rebalance_every > 0 and self.qc.shards <= 1:
@@ -164,6 +176,15 @@ class QueryEngine:
             self.plan, RebalanceConfig(
                 every=self.qc.rebalance_every,
                 threshold=self.qc.rebalance_threshold))
+        # Fault pipeline: injector → health and failover → crash store.
+        self.faults = faults
+        self.failover = None
+        if faults is not None:
+            from repro_torch.faults.failover import FailoverManager
+            self.failover = FailoverManager(self.plan, faults)
+        self.store = store
+        if store is not None:
+            store.attach(self)
 
     def submit(self, req: QueryRequest):
         req.t_submit = self.clock()
@@ -173,6 +194,11 @@ class QueryEngine:
     def n_ticks(self) -> int:
         """Continuous ticks that ran a hop (0 for wave plans)."""
         return self.plan.n_ticks
+
+    @property
+    def degraded(self) -> bool:
+        """True while the fleet serves with >=1 shard masked out."""
+        return self.failover is not None and self.failover.degraded
 
     def busy(self) -> bool:
         """True while requests are queued or (continuous) in flight."""
@@ -192,12 +218,27 @@ class QueryEngine:
         """Serve one step, a wave or a continuous tick; returns requests
         completed. Lifecycle maintenance (TTL expiry, churn repair) runs
         after it, between steps, so in-flight slots never see a
-        half-applied mutation; the shard re-balancer runs last, so it
+        half-applied mutation; the shard re-balancer runs after it, so it
         measures the step's mutations and any swap lands before the next
-        step."""
+        step.
+
+        The fault pipeline brackets all of it: the injector's
+        ``begin_step`` first (a ``crash@T`` lands before any work of step
+        T, the boundary the WAL is consistent at), then the failover probe
+        masks newly unhealthy shards before the plan step; the failover
+        swap and the crash store run last, so they see the step's
+        mutations journaled."""
+        if self.faults is not None:
+            self.faults.begin_step()  # may raise EngineCrash
+        if self.failover is not None:
+            self.failover.observe()
         n = self.plan.step(self.queue, self.done)
         self.lifecycle.maintain()
         self.rebalance.maintain()
+        if self.failover is not None:
+            self.failover.maintain()
+        if self.store is not None:
+            self.store.maintain(self)
         return n
 
     def tick(self) -> int:
@@ -251,6 +292,14 @@ class QueryEngine:
             stats["cache"] = self.plan.cache.stats()
         if self.rebalance.active:
             stats["rebalance"] = self.rebalance.stats()
+        if self.faults is not None:
+            faults = dict(self.faults.stats())
+            if self.failover is not None:
+                faults.update(self.failover.stats())
+            faults["degraded_served"] = sum(1 for r in recent if r.degraded)
+            stats["faults"] = faults
+        if self.store is not None:
+            stats["store"] = self.store.stats()
         return stats
 
     # -- online insertion --------------------------------------------------
@@ -309,6 +358,32 @@ class QueryEngine:
     def touch(self, u: int):
         """Record activity on ``u`` (resets its TTL window)."""
         self.lifecycle.touch(u)
+
+    # -- crash recovery (snapshot + WAL replay: repro_torch/faults/wal) -----
+
+    @classmethod
+    def recover(cls, path, qc: QueryConfig | None = None, *, device="cuda",
+                clock=None, faults=None, store=None) -> "QueryEngine":
+        """Rebuild an engine from a :class:`~repro_torch.faults.CrashStore`
+        directory (written by either package): load the last snapshot,
+        replay the WAL suffix, and, for a sharded config whose shard count
+        matches the store's, restore the frozen base plan from its sidecar,
+        so the partition extends the same lineage the crashed engine was
+        on (``extend_plan`` of the restored base over the replayed index
+        lands where the live plan was). ``store`` re-attaches persistence
+        after the plan restore: the recovered engine's first act is a fresh
+        snapshot, so a second crash replays from there.
+        """
+        from repro_torch.faults.wal import CrashStore
+        index, base_plan, manifest = CrashStore.load(path)
+        eng = cls(index, qc, device=device, clock=clock, faults=faults)
+        eng.lifecycle.clock = int(manifest.get("lifecycle_clock", 0))
+        if base_plan is not None:
+            eng.plan.restore_sharded(base_plan)
+        if store is not None:
+            eng.store = store
+            store.attach(eng)  # snapshot after the plan restore
+        return eng
 
     # -- quality -----------------------------------------------------------
 

@@ -36,8 +36,14 @@ serving plan scatters only the changed rows into its device copies
 (``query/plan.py``). Over their caps the oldest half is merged into one
 superset entry at the drop boundary; only when that entry would exceed
 ``_LOG_MERGE_MAX`` rows does the journal drop it and advance its base
-(readers below it resync in full). The reference's write-ahead-log hooks
-are ROADMAP queue 1 item 9.
+(readers below it resync in full).
+
+Write-ahead logging (``faults/wal.py``): with a WAL attached
+(:meth:`attach_wal`), every public mutator records its arguments, as host
+numpy, before it changes any state, so a crash between scheduler steps
+leaves each mutation in the journal whole or not at all, and the JSON
+lines match the reference's record for record. ``refresh_cohort``
+records its resolved ``max_cluster`` and suspends the WAL for its body.
 
 All of it is host numpy, copied from the reference so that every edge
 and sim it writes is bitwise the reference's.
@@ -136,6 +142,8 @@ class KNNIndex:
         self._free_rows: list[int] = [
             int(i) for i in np.flatnonzero(self._bufs["tombstone"][:self._n])]
         heapq.heapify(self._free_rows)
+        # Write-ahead log (faults/wal.py): records every mutation first.
+        self._wal = None
 
     # -- row buffers (views over spare capacity) ---------------------------
 
@@ -230,7 +238,20 @@ class KNNIndex:
             sizes[ci] += len(extra)
         return sizes
 
+    def attach_wal(self, wal) -> None:
+        """Start write-ahead logging every mutation into ``wal`` (an object
+        with ``record(op, **args)``: ``faults/wal.WriteAheadLog``)."""
+        self._wal = wal
+
+    def detach_wal(self):
+        """Stop logging; returns the detached WAL (or None)."""
+        wal, self._wal = self._wal, None
+        return wal
+
     def add_cluster_member(self, ci: int, user: int):
+        if self._wal is not None:
+            self._wal.record("add_cluster_member", ci=int(ci),
+                             user=int(user))
         self._extra_members.setdefault(ci, []).append(int(user))
         self._log_member(ci, user)
 
@@ -276,6 +297,10 @@ class KNNIndex:
         the row has a free lane), and the reverse rows follow. Tombstoned
         rows are recycled lowest id first.
         """
+        if self._wal is not None:
+            self._wal.record("append_user", words_row=np.asarray(words_row),
+                             card_row=card_row, nbr_ids=np.asarray(nbr_ids),
+                             nbr_sims=np.asarray(nbr_sims))
         reused = bool(self._free_rows)
         if reused:
             u = heapq.heappop(self._free_rows)
@@ -433,6 +458,8 @@ class KNNIndex:
         or returned. Cluster memberships are kept; the router filters dead
         members. The freed row joins the reuse list.
         """
+        if self._wal is not None:
+            self._wal.record("remove_user", u=int(u))
         u = self._check_live(u)
         bufs = self._bufs
         graph_ids, graph_sims = bufs["graph_ids"], bufs["graph_sims"]
@@ -467,6 +494,10 @@ class KNNIndex:
     def swap_profile(self, u: int, words_row: np.ndarray, card_row: int):
         """Replace ``u``'s fingerprint and re-score every edge incident to
         it; the topology is untouched (:meth:`relink_user` moves it)."""
+        if self._wal is not None:
+            self._wal.record("swap_profile", u=int(u),
+                             words_row=np.asarray(words_row),
+                             card_row=card_row)
         u = self._check_live(u)
         bufs = self._bufs
         bufs["words"][u] = np.asarray(words_row, np.uint32)
@@ -493,6 +524,10 @@ class KNNIndex:
                     nbr_sims: np.ndarray):
         """Replace ``u``'s forward row with a fresh search result and
         restore mutuality; ``u`` itself and tombstoned ids are dropped."""
+        if self._wal is not None:
+            self._wal.record("relink_user", u=int(u),
+                             nbr_ids=np.asarray(nbr_ids),
+                             nbr_sims=np.asarray(nbr_sims))
         u = self._check_live(u)
         bufs = self._bufs
         graph_ids, graph_sims = bufs["graph_ids"], bufs["graph_sims"]
@@ -547,7 +582,10 @@ class KNNIndex:
 
     def touch_row(self, u: int, clock: int):
         """Stamp ``u``'s TTL clock (host-only state: no journal entry and
-        no version bump)."""
+        no version bump, but write-ahead logged, since TTL expiry after a
+        recovery must match the engine that never crashed)."""
+        if self._wal is not None:
+            self._wal.record("touch_row", u=int(u), clock=int(clock))
         self._bufs["last_touch"][self._check_live(u)] = clock
 
     # -- cohort refresh (amortized re-clustering) --------------------------
@@ -570,7 +608,19 @@ class KNNIndex:
         if max_cluster is None:
             base_sizes = np.diff(self.cluster_offsets)
             max_cluster = int(base_sizes.max()) if len(base_sizes) else 64
-        return self._refresh_cohort(items, offsets, user_ids, max_cluster)
+        # The WAL records the resolved max_cluster (the default depends on
+        # consolidation, which a snapshot normalises) and is suspended for
+        # the body: its add_cluster_member calls follow from this record.
+        if self._wal is not None:
+            self._wal.record("refresh_cohort", items=np.asarray(items),
+                             offsets=np.asarray(offsets), user_ids=user_ids,
+                             max_cluster=int(max_cluster))
+        wal, self._wal = self._wal, None
+        try:
+            return self._refresh_cohort(items, offsets, user_ids,
+                                        max_cluster)
+        finally:
+            self._wal = wal
 
     def _refresh_cohort(self, items, offsets, user_ids: np.ndarray,
                         max_cluster: int) -> int:

@@ -335,10 +335,56 @@ class DescentPlan:
             self.sync_stats[self._sharded.sync()] += 1
         return self._sharded
 
-    def sharded_state(self):
+    def sharded_state(self, build: bool = True):
         """The delta-synced ShardedDescent, or None for the single
-        placement."""
+        placement. ``build=False`` only peeks: it returns the state as it
+        stands (None until something built it) without building or
+        syncing it."""
+        if not build:
+            return self._sharded
         return self._sync_sharded() if self.spec.placement > 1 else None
+
+    def restore_sharded(self, base_plan) -> None:
+        """Resume a frozen partition lineage (crash recovery): the sharded
+        state extends ``base_plan`` over the current index instead of
+        partitioning it afresh. A no-op unless the placement has
+        ``base_plan.n_shards`` shards."""
+        if self.spec.placement != base_plan.n_shards:
+            return
+        from repro_torch.query.sharded import ShardedDescent, extend_plan
+        self._sharded = ShardedDescent(
+            self.index, base_plan.n_shards,
+            plan=extend_plan(base_plan, self.index),
+            resident_configs=self.spec.resident_configs,
+            device=self.device)
+
+    def _degraded(self) -> bool:
+        """True while any shard is masked out of serving (the fault layer,
+        ``faults/failover.py``). Completions in a degraded window carry
+        ``req.degraded = True`` and are never cached."""
+        sd = self._sharded
+        return sd is not None and bool(sd.dead.any())
+
+    def mask_shard_slots(self, down) -> None:
+        """Wipe the in-flight slot beams of newly downed shards (bool[S]),
+        in place on the device: their lanes drop to PAD / -inf, so a dead
+        shard's beam from before the failure cannot win a release-time
+        merge. The survivors' beams are untouched. No-op for wave plans
+        and the single placement."""
+        if self._slots is None or self.spec.placement <= 1:
+            return
+        down = np.asarray(down, dtype=bool)
+        if not down.any():
+            return
+        st = self._slots
+        d = torch.from_numpy(down).to(self.device)[:, None, None]
+        st.beam_ids.masked_fill_(d, PAD_ID)
+        st.beam_sims.masked_fill_(d, NEG_INF)
+        if self.spec.adaptive > 0:
+            # The stored prefixes were taken on the whole fleet: restart
+            # every streak rather than free a slot on such a comparison.
+            st.streak[:] = 0
+            st.fresh[:] = True
 
     def note_replan(self):
         """A re-balance swap replaced the shard partition
@@ -388,9 +434,13 @@ class DescentPlan:
                           self.spec.seeds_per_config, placed=m_placed)
             m_ids, m_sims = self.descend_rows(qw[miss], qc[miss], seeds, k,
                                               hops=hops)
+            degraded = self._degraded()
             for j, i in enumerate(miss):
                 out_ids[i], out_sims[i] = m_ids[j], m_sims[j]
-                self.cache.put(keys[i], m_ids[j], m_sims[j])
+                if degraded:
+                    self.cache.degraded_skips += 1
+                else:
+                    self.cache.put(keys[i], m_ids[j], m_sims[j])
         return out_ids, out_sims
 
     def descend_rows(self, q_words, q_card, seeds, k: int, *,
@@ -480,10 +530,12 @@ class DescentPlan:
                    for r in wave)
         ids, sims = self.query_batch([r.profile for r in wave], hops=hops)
         now = self.clock()
+        degraded = self._degraded()
         for j, r in enumerate(wave):
             r.ids, r.sims = ids[j], sims[j]
             r.t_done = now
             r.status = "done"
+            r.degraded = degraded
             done.append(r)
         return len(wave) + n_done
 
@@ -679,15 +731,22 @@ class DescentPlan:
             return n_done
         ids, sims = self._slot_results(st)
         now = self.clock()
+        degraded = self._degraded()
         slots = np.flatnonzero(finished)
         for slot, req in zip(slots, sched.release_many(slots)):
             req.ids = ids[slot].copy()
             req.sims = sims[slot].copy()
             req.t_done = now
             req.status = "done"
+            req.degraded = degraded
             done.append(req)
             if (self.cache is not None and exact[slot]
                     and getattr(req, "_cache_flushes", -1)
                     == self.cache.flushes):
-                self.cache.put(req._cache_key, req.ids, req.sims)
+                if degraded:
+                    # A masked fleet's answer is not what a healthy descent
+                    # gives: cached, it would outlive the failure window.
+                    self.cache.degraded_skips += 1
+                else:
+                    self.cache.put(req._cache_key, req.ids, req.sims)
         return n_done + len(slots)

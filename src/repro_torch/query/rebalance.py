@@ -34,8 +34,10 @@ offline:
   flushed (``DescentPlan.note_replan``): a swap changes no index content,
   so no journal shows it, but placement changes results.
 
-Deferring a check while a shard is dead waits for the fault layer
-(ROADMAP queue 1 item 9, ``set_dead``).
+While any shard is dead (``ShardedDescent.dead``, set by the fault
+layer's ``faults/failover.py``) a check is deferred and counted
+(``deferred``); the failover's own swap audits the merge with the
+unhealthy shards excluded (:func:`merge_audit` ``exclude=``).
 """
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ def measured_imbalance(index, plan: ShardPlan) -> float:
     return float(loads.max() / max(loads.mean(), 1e-9))
 
 
-def merge_audit(sd: ShardedDescent) -> dict:
+def merge_audit(sd: ShardedDescent, exclude=()) -> dict:
     """The merge audit of the (synced) shard partition: how much of the
     index's adjacency a symmetric merge of the shard tables recovers.
 
@@ -81,11 +83,21 @@ def merge_audit(sd: ShardedDescent) -> dict:
     residency (``g2l``) on the host, never from the device tables.
     Returns ``rows``, ``lanes``, ``lanes_patched`` and ``merge_coverage``,
     the recovered share of the index's lanes.
+
+    ``exclude`` names shards whose tables the merge must not read (the
+    failover passes the unhealthy set): their residency is dropped, and
+    rows resident on no other shard are counted as ``rows_unseen`` (the
+    reference patches them whole from the index) beside the sorted
+    ``excluded`` shards. With an empty ``exclude`` the residency must
+    cover every user.
     """
     ix = sd.index
     n = ix.n
+    exclude = frozenset(int(s) for s in exclude)
     on = sd._g2l[:, :n] != PAD_ID  # [S, n] residency
-    if not on.any(axis=0).all():
+    if exclude:
+        on[sorted(exclude)] = False
+    elif not on.any(axis=0).all():
         raise AssertionError("shard residency no longer covers every user")
     total = patched = 0
     for ids in (ix.graph_ids, ix.rev_ids):
@@ -96,12 +108,16 @@ def merge_audit(sd: ShardedDescent) -> dict:
             kept |= on[s][:, None] & on[s][safe]
         total += int(live.sum())
         patched += int((live & ~kept).sum())
-    return {
+    stats = {
         "rows": int(n),
         "lanes": total,
         "lanes_patched": patched,
         "merge_coverage": round(1.0 - patched / max(total, 1), 4),
     }
+    if exclude:
+        stats["excluded"] = sorted(exclude)
+        stats["rows_unseen"] = int((~on.any(axis=0)).sum())
+    return stats
 
 
 class Rebalancer:
@@ -120,6 +136,7 @@ class Rebalancer:
         self.cadence = Cadence(cfg.every)
         self.n_checks = 0
         self.n_swaps = 0
+        self.n_deferred = 0  # checks skipped while a shard is dead
         self.last_imbalance: float | None = None
         self.merge_stats: dict = {}
 
@@ -137,6 +154,12 @@ class Rebalancer:
     def check(self) -> float | None:
         """Measure the imbalance; swap past the threshold."""
         sd = self.plan.sharded_state()  # delta sync: journals consumed
+        if sd.dead.any():
+            # Degraded fleet: a swap would reset the dead mask and rebuild
+            # around a shard the failover manager owns. Re-balancing
+            # resumes once every shard is healthy again.
+            self.n_deferred += 1
+            return None
         imb = measured_imbalance(sd.index, sd.plan)
         self.n_checks += 1
         self.last_imbalance = imb
@@ -166,6 +189,7 @@ class Rebalancer:
             "threshold": self.cfg.threshold,
             "checks": self.n_checks,
             "swaps": self.n_swaps,
+            "deferred": self.n_deferred,
             "imbalance": (round(self.last_imbalance, 4)
                           if self.last_imbalance is not None else None),
         }

@@ -47,8 +47,13 @@ Re-balancing (:meth:`ShardedDescent.adopt_plan`, driven by
 ``query/rebalance.py``) swaps in a freshly derived partition between
 scheduler steps: every table is rebuilt from the index, ``generation``
 counts the swaps, and in-flight beams follow through the old → new
-local-id map, rows evicted from a shard mapping to PAD. Dead shards
-(``set_dead``) are ROADMAP queue 1 item 9.
+local-id map, rows evicted from a shard mapping to PAD.
+
+Degraded serving (:meth:`ShardedDescent.set_dead`, driven by
+``faults/failover.py``): a dead shard's owned seeds are dropped and its
+merge lanes set to PAD / -inf. The mask lives on the host and stays out
+of the kernels: the one hop launch still covers all S shards, and a dead
+shard's blocks see all-PAD beams and score nothing.
 """
 from __future__ import annotations
 
@@ -64,7 +69,7 @@ from repro_torch.knn.topk import merge_topk
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.search import batched_descent_sharded
 from repro_torch.sketch.goldfinger import words_tensor
-from repro_torch.types import PAD_ID
+from repro_torch.types import NEG_INF, PAD_ID
 
 SHARD_OVERSAMPLE = 1.5  # the fleet's frontier vs the single placement's beam
 
@@ -246,6 +251,9 @@ class ShardedDescent:
         # ([S, cap at the snapshot] or None); see take_beam_remap().
         self._beam_remap: np.ndarray | None = None
         self.last_hop_stats: np.ndarray | None = None
+        # Degraded-serving mask (set_dead): True where a shard must not
+        # seed or contribute to merges.
+        self.dead = np.zeros(self.plan.n_shards, dtype=bool)
         self._materialize()
 
     # -- tensor materialisation / repair -----------------------------------
@@ -442,6 +450,9 @@ class ShardedDescent:
         self._materialize()
         self._record_remap(old_l2g)
         self.generation += 1
+        # Every shard's tables were rebuilt; the failover manager re-masks
+        # the shards that are still unhealthy.
+        self.dead = np.zeros(self.plan.n_shards, dtype=bool)
 
     def _record_remap(self, old_l2g: np.ndarray):
         """Accumulate an old-local → new-local id map after a reshard that
@@ -474,18 +485,30 @@ class ShardedDescent:
     def n_shards(self) -> int:
         return self.plan.n_shards
 
+    def set_dead(self, mask) -> None:
+        """Install the degraded-serving mask (bool[n_shards]): dead shards
+        stop receiving seeds and stop contributing to merges from the next
+        descent on."""
+        mask = np.asarray(mask, dtype=bool)
+        assert mask.shape == (self.plan.n_shards,), mask.shape
+        self.dead = mask.copy()
+
     def shard_seeds(self, seeds: np.ndarray) -> np.ndarray:
         """Partition routed global seeds by ownership and remap to local.
 
         Returns int32[S, q, cols]: each seed in shard-local ids on the one
         shard owning that user, PAD elsewhere, so the shards explore
-        disjoint basins.
+        disjoint basins. Seeds owned by a dead shard are dropped, not
+        re-homed (the survivors need not host those rows): their basins
+        are the degraded window's recall loss.
         """
         S = self.n_shards
         safe = np.where(seeds == PAD_ID, 0, seeds)
         owned = ((self.plan.owner[safe][None]
                   == np.arange(S)[:, None, None])
                  & (seeds[None] != PAD_ID))              # [S, q, cols]
+        if self.dead.any():
+            owned &= ~self.dead[:, None, None]
         local = self._g2l[:, safe]
         return np.where(owned, local, PAD_ID)
 
@@ -502,7 +525,7 @@ class ShardedDescent:
         all shards. Returns (ids int32[q, k], sims float32[q, k]) tensors
         on the device, in global ids. ``last_hop_stats`` holds the call's
         per-query ``(n_scored, dma_bytes, bytes_saved)`` int32[q, 3]
-        summed over the shards.
+        summed over the alive shards.
         """
         dev = self.device
         l_seeds = torch.from_numpy(
@@ -512,6 +535,13 @@ class ShardedDescent:
             torch.from_numpy(np.asarray(q_card, dtype=np.int32)).to(dev),
             l_seeds, k=k, beam=self.shard_beam(beam, k), hops=hops,
             kernel=kernel, dma=dma)
+        if self.dead.any():
+            # On top of the seed drop: a dead shard adds nothing to the
+            # merge or the counts, whatever its blocks computed.
+            alive = torch.from_numpy(~self.dead).to(dev)[:, None, None]
+            ids = torch.where(alive, ids, PAD_ID)
+            sims = torch.where(alive, sims, NEG_INF)
+            stats = torch.where(alive, stats, 0)
         self.last_hop_stats = stats.sum(dim=0, dtype=torch.int32) \
             .cpu().numpy()
         return _merge_shard_topk(ids, sims, k)

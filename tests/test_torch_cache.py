@@ -85,14 +85,6 @@ def _caches(artifact, profiles, capacity):
             r_ix, words, card)
 
 
-def _r_stats(cache) -> dict:
-    """The reference cache's stats without ``degraded_skips``, a count of
-    the fault layer (ROADMAP queue 1 item 9) the port does not keep yet."""
-    stats = cache.stats()
-    assert stats.pop("degraded_skips") == 0
-    return stats
-
-
 def _fill(caches, words, card, rows):
     """Put the same fake result under each row's key in both caches."""
     for c in caches:
@@ -127,7 +119,7 @@ def test_get_copies_lru_and_stats(artifact, profiles):
     for c in (cache, r_cache):
         assert c.get(c.key(words[1], card[1], 4, 3)) is None
         assert c.get(c.key(words[2], card[2], 4, 3)) is not None
-    assert cache.stats() == _r_stats(r_cache)
+    assert cache.stats() == r_cache.stats()
     assert cache.stats()["hits"] == 3 and cache.stats()["misses"] == 1
 
 
@@ -149,7 +141,7 @@ def test_flush_noop_bump_tombstone_and_straddle(artifact, profiles):
         assert c.get(c.key(words[3], card[3], 4, 3)) is not None
     for index in (ix, r_ix):
         index.tombstone[1] = False
-    assert cache.stats() == _r_stats(r_cache)
+    assert cache.stats() == r_cache.stats()
     assert cache.stats()["stale_drops"] == 2
     # A real mutation flushes wholesale; a result computed before it and
     # put after it is refused until the cache syncs.
@@ -165,7 +157,7 @@ def test_flush_noop_bump_tombstone_and_straddle(artifact, profiles):
     assert len(cache) == len(r_cache) == 1
     cache.invalidate()
     r_cache.invalidate()
-    assert cache.stats() == _r_stats(r_cache)
+    assert cache.stats() == r_cache.stats()
     assert cache.stats()["flushes"] == 2 and len(cache) == 0
 
 
@@ -221,7 +213,7 @@ def test_repeat_queries_hit_and_stay_bitwise(artifact, profiles, continuous,
     port, ref = runs["on"]
     _assert_order_equal(_done(port), _done(ref))
     _assert_rid_equal(_done(port), _done(runs["off"][0]))
-    assert port.plan.cache.stats() == _r_stats(ref.plan.cache)
+    assert port.plan.cache.stats() == ref.plan.cache.stats()
     assert port.plan.cache.hits == 8
     assert port.plan.descent_stats["hop_queries"] < \
         runs["off"][0].plan.descent_stats["hop_queries"]

@@ -230,7 +230,6 @@ def test_rebalancer_matches_reference(artifact, profiles, inserts,
     _assert_done(_done(port), _done(ref))
     stats = port.rebalance.stats()
     r_stats = ref.rebalance.stats()
-    r_stats.pop("deferred")  # the dead-shard deferral is the fault layer's
     assert stats == r_stats
     assert stats["swaps"] > 0
     _assert_tables(port.sharded_state(), ref.sharded_state())
@@ -298,7 +297,6 @@ def test_cache_across_swaps_matches_reference(artifact, profiles, inserts):
     _serve((port, ref), profiles[:12])
     _assert_done(_done(port), _done(ref))
     stats, r_stats = port.plan.cache.stats(), ref.plan.cache.stats()
-    assert r_stats.pop("degraded_skips") == 0  # the fault layer's count
     assert stats == r_stats
     assert stats["flushes"] >= 3 and stats["hits"] > 0
 
@@ -372,8 +370,7 @@ def test_knn_serve_rebalance_resident_configs_matches_reference(
     assert recall == r_recall
     for key in ("requests", "waves", "inserted", "refreshes", "shards"):
         assert stats[key] == r_stats[key], key
-    r_reb = dict(r_stats["rebalance"])
-    r_reb.pop("deferred")
+    r_reb = r_stats["rebalance"]
     assert stats["rebalance"] == r_reb and r_reb["swaps"] > 0
     assert f"[serve] rebalance: {stats['rebalance']}" in out
     ref = captured[0]

@@ -204,19 +204,6 @@ def test_knn_serve_cli_on_cpu(indexes, tmp_path, capsys):
     assert stats["requests"] == 40 and 0.5 < recall <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--fault-plan", "kill:1@40"],
-                                  ["--store", "crash_store"],
-                                  ["--snapshot-every", "3"],
-                                  ["--fault-plan", "crash@3"],
-                                  ["--recover", "crash_store"]])
-def test_knn_serve_flags_outside_slice_raise(flag):
-    # Only queue 1 item 9's flags (faults, crash store) remain unported;
-    # the SLO, cache and re-balance flags are served (test_torch_slo.py,
-    # test_torch_cache.py, test_torch_rebalance.py).
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        knn_serve.main(flag + ["--device", "cpu"])
-
-
 def test_plans_outside_slice_raise():
     # The sharded placement is ported: both batchings validate, and a
     # placement below one shard is refused, as the reference does.

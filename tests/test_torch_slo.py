@@ -392,7 +392,6 @@ def test_knn_serve_slo_cache_adaptive_matches_reference(artifact, capsys,
         assert lines(out, tag) == lines(r_out, tag) and lines(out, tag)
     assert "+ slo(max_pending=10), adaptive(1), cache(16)" in out
     assert recall == r_recall
-    assert r_stats["cache"].pop("degraded_skips") == 0  # the fault layer's
     for key in ("requests", "served", "shed", "waves", "cache"):
         assert stats[key] == r_stats[key], key
     assert stats["shed"] == 24 - 6 - 10
