@@ -15,7 +15,11 @@ Phases, each fatal on failure:
    and in global memory; k above a cluster's size), caps 32-2048, PAD
    ids at cluster ends and scattered, lone members, equal sims in every
    database tile, one call of 70,000 two-member clusters (more than the
-   65,535 of one launch), and ``knn`` at 17x1,000 and 1,000x17; the hop (ids,
+   65,535 of one launch), and ``knn`` at 17x1,000 and 1,000x17; cluster-KNN
+   at rows wider than a block holds whole (chunked rows): W = 1,105,
+   2,048, 4,236 (16-byte copies), 5,355 and 6,345 (4-byte copies), each at
+   k = 10, 30 and 100, caps 32-256, PAD ids at cluster ends and scattered,
+   planted equal sims, and ``knn`` at 17x1,000 with W = 5,355; the hop (ids,
    sims, scored lanes) over PAD rows, tombstones, planted equal sims and
    duplicate candidates at W = 32 and 64; the DMA hop against its plain
    version and against the hop kernel, with exact byte counters, at W =
@@ -133,6 +137,19 @@ Phases, each fatal on failure:
    ms a record, the replay's and the recovery's ms; and a small synth
    serve with every fault knob on, then a crash, each store recovered on
    the other device, equal on the card and the CPU;
+4f. baselines and raw mode — at k = 10 and the paper benches' scaling
+   (``bench/common.bench_params``: b ≈ n/16, N ≈ 3% of n, t = 8, ρ = 5):
+   one row of Table II on ml1M@1.0, brute force through the cluster-KNN
+   kernel as the exact graph, then Hyrec and NNDescent (30 iterations at
+   most, δ 0.001), LSH (t = 8; at least one bucket takes Alg. 2's Hyrec
+   branch) and C², each with its host clock, quality (Eq. 2), iterations
+   and updates, and C²'s speed-up over the best baseline; the same four
+   on ml1M@0.35 on the card and on the CPU, bitwise (ids, sims and
+   stats); Tables IV and V on AM@0.055 (171,356 items): C² with
+   FastRandomHash on 1,024-bit GoldFinger, with the MinHash plan and on
+   incidence rows (raw mode, W = 5,355), every Step-2 batch of the raw
+   build bitwise against the plain version and its edge sims equal to the
+   exact Jaccard, with the raw sweep's device time beside its bound;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -150,8 +167,11 @@ Phases, each fatal on failure:
 Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
 sharded placement's launches and 4-shard hop time under ``sharded``, and
 phases 4d's and 4e's launches path by path under ``phase_4d`` and
-``phase_4e``),
-then as the last line
+``phase_4e``; the cluster-KNN row the raw build's sweep under ``raw``)
+after a ``{"phase_4e": ...}`` and a ``{"phase_4f": ...}`` line; then the
+card's name and power limit; then phase 4f's times, qualities and counts
+and the cluster-KNN row's times under short keys (``tail_summary``), so
+that a short tail of the log still holds them; then as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -404,6 +424,83 @@ def check_cluster_knn(dev) -> tuple[int, float]:
         n_checked += 1
         log(f"[kernels] knn nq={nq} nd={nd} W={W} k={k}: bitwise ok")
     return n_checked, err
+
+
+def check_cluster_knn_wide(dev) -> tuple[int, float]:
+    """The cluster-KNN kernel at rows wider than a block holds whole (its
+    chunked instances), bitwise against its plain version: W = 1,105 (just
+    past the whole-row limit), 2,048 and 4,236 (16-byte copies; GW's raw
+    width), 5,355 and 6,345 (4-byte copies; AM's and DBLP's raw widths),
+    each at k = 10, 30 and 100, caps 32 to 256, PAD ids at cluster ends
+    and scattered, equal sims planted in every database tile; then ``knn``
+    at 17 x 1,000 rows of 5,355 words. Each case logs its launch
+    parameters."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.goldfinger_knn import ops, ref
+    from repro_torch.sketch.goldfinger import popcount_rows, words_tensor
+    from repro_torch.types import PAD_ID
+
+    caps = (32, 64, 128, 256)
+    n_checked, err = 0, 0.0
+    for wi, W in enumerate((1105, 2048, 4236, 5355, 6345)):
+        for ki, k in enumerate((10, 30, 100)):
+            cap = caps[(wi + ki) % len(caps)]
+            pad = ("tail", "scatter")[(wi + ki) % 2]
+            m = 3
+            rng = np.random.default_rng(W * 10 + k)
+            words = random_words(rng, (m, cap, W), density_rounds=4)
+            words[:, 1::7] = words[:, :1]
+            words[:, 5::32] = words[:, :1]
+            words[:, 17::32] = words[:, 3:4]
+            card = popcount_rows(words.reshape(-1, W)).reshape(m, cap)
+            ids = rng.permutation(m * cap * 4)[: m * cap].astype(
+                np.int32).reshape(m, cap)
+            for j, size in enumerate((cap, int(rng.integers(2, cap)), 1)):
+                if pad == "tail":
+                    ids[j, size:] = PAD_ID
+                    card[j, size:] = 0
+                    words[j, size:] = 0
+                else:
+                    ids[j, rng.permutation(cap)[: cap - size]] = PAD_ID
+            w = words_tensor(words, dev)
+            c = torch.from_numpy(card).to(dev)
+            i = torch.from_numpy(ids).to(dev)
+            ki_, ks = ops.cluster_knn(w, c, i, k)
+            pi, ps = ref.cluster_knn_ref(w, c, i, k)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(ks[..., :pi.shape[-1]], ps))
+            p = ops.launch_params(cap, cap, W, k)
+            if not same_knn(ki_, ks, pi, ps):
+                bad = ((ki_[..., :pi.shape[-1]] != pi)
+                       | (ks[..., :pi.shape[-1]] != ps))
+                fail(f"cluster-KNN cap={cap} W={W} k={k} PAD {pad} ({p}): "
+                     f"{int(bad.sum())} entries differ from the plain "
+                     f"version")
+            n_checked += 1
+            log(f"[kernels] cluster_knn cap={cap} W={W} k={k} m={m} PAD "
+                f"{pad} ({'16' if W % 4 == 0 else '4'}-byte copies; {p}): "
+                f"bitwise ok")
+    nq, nd, W, k = 17, 1000, 5355, 30
+    rng = np.random.default_rng(nq + nd + W)
+    qw, dw = random_words(rng, (nq, W), 4), random_words(rng, (nd, W), 4)
+    qw[::5] = dw[0]
+    di = np.arange(nd // 2, nd // 2 + nd, dtype=np.int32)
+    di[rng.random(nd) < 0.1] = PAD_ID
+    args = [words_tensor(qw, dev), torch.from_numpy(popcount_rows(qw)).to(dev),
+            torch.arange(nq, dtype=torch.int32, device=dev),
+            words_tensor(dw, dev), torch.from_numpy(popcount_rows(dw)).to(dev),
+            torch.from_numpy(di).to(dev)]
+    ki_, ks = ops.knn(*args, k)
+    pi, ps = ref.knn_ref(*args, k)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(ks, ps))
+    if not same_knn(ki_, ks, pi, ps):
+        fail(f"knn {nq}x{nd} W={W} k={k}: differs from the plain version")
+    log(f"[kernels] knn nq={nq} nd={nd} W={W} k={k} "
+        f"({ops.launch_params(nq, nd, W, k)}): bitwise ok")
+    return n_checked + 1, err
 
 
 def hop_inputs(rng, dev, n, W, kg, kr, q, B, tomb_frac=0.05):
@@ -2931,14 +3028,307 @@ def faults_and_recovery(dev, run: dict, shard: dict, tmp: Path) -> dict:
     return ctx
 
 
+# -- phase 4f: the paper's baselines and Table V's raw mode ----------------
+
+def synced(fn):
+    """(fn(), host seconds) between two synchronisations of the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def baseline_runs(ds, gf, params, device) -> dict:
+    """Table II's four builds of ``ds`` at the benches' parameters on
+    ``device``: Hyrec and NNDescent (30 iterations at most, δ 0.001), LSH
+    (t hash functions) and C²; per algorithm its graph, stats, host
+    seconds and cluster-KNN launches (counted from 0)."""
+    from repro_torch.core.pipeline import cluster_and_conquer
+    from repro_torch.knn.greedy import hyrec, nndescent
+    from repro_torch.knn.lsh import lsh_knn
+
+    k = params.k
+    builds = (
+        ("Hyrec", lambda: hyrec(gf, k=k, max_iters=30, delta=0.001,
+                                device=device)),
+        ("NNDescent", lambda: nndescent(gf, k=k, max_iters=30, delta=0.001,
+                                        device=device)),
+        ("LSH", lambda: lsh_knn(ds, gf, k=k, t=params.t, device=device)),
+        ("C2", lambda: cluster_and_conquer(ds, params, gf=gf,
+                                           device=device)))
+    runs = {}
+    for name, fn in builds:
+        reset_launches()
+        (graph, stats), secs = synced(fn)
+        counts = read_launches()
+        if any(v for key, v in counts.items() if key != "goldfinger_knn"):
+            fail(f"{name} on {device} launched {counts}")
+        runs[name] = {"graph": graph, "stats": stats, "seconds": secs,
+                      "launches": counts["goldfinger_knn"]}
+    return runs
+
+
+def stats_key(name: str, stats) -> tuple:
+    """What must agree between two runs of one algorithm."""
+    if name in ("Hyrec", "NNDescent"):
+        return stats.iters, stats.updates, stats.n_sims
+    if name == "LSH":
+        return stats["n_buckets"], stats["n_sims"], stats["max_bucket"]
+    return stats.n_clusters, stats.n_sims, stats.max_cluster
+
+
+def table2_row(dev, ds, gf, params, label: str) -> tuple[dict, dict]:
+    """One row of Table II on the card: brute force through the
+    cluster-KNN kernel as the exact graph, then the four builds with their
+    quality (Eq. 2), iterations and updates; C²'s speed-up over the best
+    baseline, as ``benchmarks/table2.py`` computes it."""
+    import math
+
+    from repro_torch.eval.metrics import quality
+    from repro_torch.knn.brute_force import brute_force_knn
+    from repro_torch.knn.lsh import lsh_plan
+
+    k = params.k
+    reset_launches()
+    exact, t_bf = synced(lambda: brute_force_knn(gf, k, device=dev))
+    bf_launches = read_launches()["goldfinger_knn"]
+    runs = baseline_runs(ds, gf, params, dev)
+    plan = lsh_plan(ds, params.t)
+    n_hyrec = int((plan.sizes >= params.bf_threshold).sum())
+    if n_hyrec < 1:
+        fail(f"{label}: no LSH bucket reached rho*k^2 = "
+             f"{params.bf_threshold}: the Hyrec branch was not exercised")
+    row = {"n_users": ds.n_users, "k": k, "b": params.b,
+           "N": params.max_cluster, "t": params.t,
+           "BruteForce": {"seconds": t_bf, "launches": bf_launches}}
+    for name, r in runs.items():
+        q = quality(ds, r["graph"], exact, device=dev)
+        if not (math.isfinite(q) and 0 < q <= 1.05):
+            fail(f"{label} {name}: quality {q} not in (0, 1.05]")
+        if name in ("LSH", "C2") and r["launches"] < 1:
+            fail(f"{label} {name} never launched the cluster-KNN kernel")
+        row[name] = {"seconds": r["seconds"], "quality": q,
+                     "launches": r["launches"]}
+        st = r["stats"]
+        extra = ""
+        if name in ("Hyrec", "NNDescent"):
+            row[name].update(iters=st.iters, updates=st.updates,
+                             n_sims=st.n_sims)
+            extra = f", {st.iters} iterations, updates {st.updates}"
+        elif name == "LSH":
+            row[name].update(n_buckets=st["n_buckets"],
+                             max_bucket=st["max_bucket"],
+                             hyrec_buckets=n_hyrec, n_sims=st["n_sims"])
+            extra = (f", {st['n_buckets']} buckets (largest "
+                     f"{st['max_bucket']}; {n_hyrec} took Hyrec)")
+        else:
+            row[name].update(n_clusters=st.n_clusters, n_sims=st.n_sims,
+                             t_cluster=st.t_cluster, t_local=st.t_local,
+                             t_merge=st.t_merge)
+            extra = (f", {st.n_clusters} clusters, {st.n_sims} sims; host "
+                     f"clustering {st.t_cluster * 1e3:.1f} ms, Step 2 "
+                     f"{st.t_local * 1e3:.1f} ms, merge "
+                     f"{st.t_merge * 1e3:.1f} ms")
+        log(f"[baselines] {label} {name}: {r['seconds']:.4f} s, quality "
+            f"{q:.4f}, {r['launches']} cluster-KNN launches{extra}")
+    best = min(runs[n]["seconds"] for n in ("Hyrec", "NNDescent", "LSH"))
+    row["C2"]["speedup_vs_best_baseline"] = best / runs["C2"]["seconds"]
+    log(f"[baselines] {label}: brute force {t_bf:.4f} s ({bf_launches} "
+        f"launches); C2 {runs['C2']['seconds']:.4f} s against the best "
+        f"baseline's {best:.4f} s: x{best / runs['C2']['seconds']:.2f}")
+    return row, runs
+
+
+def card_equals_cpu(ds, gf, params, card_runs: dict, label: str) -> dict:
+    """The four builds on the CPU, bitwise the card's: ids, sims and
+    stats."""
+    import numpy as np
+
+    cpu = baseline_runs(ds, gf, params, "cpu")
+    for name, r in card_runs.items():
+        c = cpu[name]
+        if not (np.array_equal(r["graph"].ids, c["graph"].ids)
+                and np.array_equal(r["graph"].sims, c["graph"].sims)):
+            fail(f"{label} {name}: the card's graph differs from the CPU's")
+        if stats_key(name, r["stats"]) != stats_key(name, c["stats"]):
+            fail(f"{label} {name}: stats {stats_key(name, r['stats'])} on "
+                 f"the card, {stats_key(name, c['stats'])} on the CPU")
+    log(f"[baselines] {label}: Hyrec, NNDescent, LSH and C2 bitwise equal "
+        f"on the card and the CPU, stats included (CPU "
+        + ", ".join(f"{n} {c['seconds']:.2f} s" for n, c in cpu.items())
+        + ")")
+    return {n: c["seconds"] for n, c in cpu.items()}
+
+
+def step2_bytes(mem, W: int, k: int) -> int:
+    """Bytes one cluster-KNN call over the batch ``mem`` ([m, cap] member
+    ids, PAD-padded) must move: each member's W words and card read once,
+    every slot's id read once, the [m, cap, k] ids and sims written once.
+    A PAD slot's words are never needed, so its row is not counted."""
+    from repro_torch.types import PAD_ID
+
+    live = int((mem != PAD_ID).sum())
+    return live * (4 * W + 4) + mem.size * (4 + 8 * k)
+
+
+def raw_sweep(dev, ds, gf_raw, params, launches: int) -> tuple[dict, float]:
+    """The raw build's Step-2 batches (incidence rows, W = ceil(|I| / 32)),
+    each held bitwise against the plain version on the card, then timed
+    beside the plain version and the sweep's bound."""
+    import torch
+
+    from repro_torch.core.clustering import build_plan
+    from repro_torch.core.local_knn import batch_inputs, group_batches
+    from repro_torch.kernels.goldfinger_knn import ops, ref
+    from repro_torch.sketch.goldfinger import words_tensor
+
+    plan = build_plan(ds, params)
+    words = words_tensor(gf_raw.words, dev)
+    card = torch.from_numpy(gf_raw.card).to(dev)
+    W, k = words.shape[1], params.k
+    batches, pairs, nbytes = [], 0, 0
+    for _, batch, mem in group_batches(plan, W, params.bf_threshold):
+        batches.append(batch_inputs(words, card, mem))
+        pairs += int(sum(s * (s - 1) for s in plan.sizes[batch]))
+        nbytes += step2_bytes(mem, W, k)
+    if len(batches) != launches:
+        fail(f"raw build: {launches} cluster-KNN launches for "
+             f"{len(batches)} Step-2 batches")
+    err = 0.0
+    for j, (w, c, i) in enumerate(batches):
+        ki, ks = ops.cluster_knn(w, c, i, k)
+        pi, ps = ref.cluster_knn_ref(w, c, i, k)
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            fail(f"raw build: Step-2 batch {j} (cap {w.shape[1]}, W={W}) "
+                 f"differs from the plain version")
+        err = max(err, max_abs_err(ks, ps))
+    ms = cuda_ms(lambda: [ops.cluster_knn(w, c, i, k) for w, c, i in batches],
+                 reps=5, hold=True)
+    plain_ms = cuda_ms(lambda: [ref.cluster_knn_ref(w, c, i, k)
+                                for w, c, i in batches], reps=1)
+    t_ops = 2 * pairs * W * 32 / INT8_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    p = ops.launch_params(32, 32, W, k)
+    log(f"[baselines] raw Step-2 sweep, W={W}: {len(batches)} batches "
+        f"bitwise equal to the plain version; {ms:.4f} ms of device time "
+        f"(plain {plain_ms:.4f} ms), bound {max(t_ops, t_bytes):.5f} ms "
+        f"(operations {t_ops:.5f}, bytes {t_bytes:.5f}); {pairs} ordered "
+        f"pairs; launch {p}")
+    return {"W": W, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs": pairs, "chunk": p.chunk, "warps": p.warps}, err
+
+
+def tables_4_and_5(dev) -> dict:
+    """Tables IV and V on AM@0.055 (all 171,356 items), k = 10: C² with
+    FastRandomHash on 1,024-bit GoldFinger, C² with the MinHash plan
+    (``lsh_plan`` + ``local_knn`` + ``merge_partial``) and C² on
+    incidence rows (raw mode, exact Jaccard)."""
+    import numpy as np
+
+    from repro_torch.core.local_knn import local_knn
+    from repro_torch.core.merge import merge_partial
+    from repro_torch.bench.common import BENCH_SCALES, bench_params
+    from repro_torch.core.pipeline import cluster_and_conquer
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.eval.metrics import quality
+    from repro_torch.knn.brute_force import brute_force_knn
+    from repro_torch.knn.lsh import lsh_plan
+    from repro_torch.sketch.exact import edge_jaccard
+    from repro_torch.sketch.goldfinger import (fingerprint_dataset,
+                                               incidence_fingerprint)
+    from repro_torch.types import PAD_ID
+
+    ds = make_dataset("AM", scale=BENCH_SCALES["AM"], seed=0)
+    p = bench_params("AM", ds.n_users)
+    gf = fingerprint_dataset(ds, n_bits=p.n_bits, seed=p.seed)
+    exact = brute_force_knn(gf, p.k, device=dev)
+    out = {"n_users": ds.n_users, "n_items": ds.n_items, "k": p.k, "b": p.b,
+           "N": p.max_cluster, "t": p.t}
+
+    def minhash():
+        plan = lsh_plan(ds, t=p.t)
+        ids, sims = local_knn(plan, gf, p, device=dev)
+        return merge_partial(ids, sims, p.k, device=dev), plan
+
+    gf_raw, t_fp = synced(lambda: incidence_fingerprint(ds))
+    builds = (("FRH", lambda: cluster_and_conquer(ds, p, gf=gf, device=dev)),
+              ("MinHash", minhash),
+              ("raw", lambda: cluster_and_conquer(ds, p, gf=gf_raw,
+                                                  device=dev)))
+    for name, fn in builds:
+        reset_launches()
+        (graph, st), secs = synced(fn)
+        launches = read_launches()["goldfinger_knn"]
+        if launches < 1:
+            fail(f"AM {name} never launched the cluster-KNN kernel")
+        q = quality(ds, graph, exact, device=dev)
+        if name == "MinHash":
+            n_clusters, sims = st.n_clusters, st.brute_force_sims()
+            hyrec = int((st.sizes >= p.bf_threshold).sum())
+        else:
+            n_clusters, sims, hyrec = st.n_clusters, st.n_sims, 0
+        wpu = (gf_raw if name == "raw" else gf).words.shape[1]
+        out[name] = {"seconds": secs, "quality": q, "n_clusters": n_clusters,
+                     "sims": sims, "words_per_user": wpu,
+                     "launches": launches, "hyrec_clusters": hyrec}
+        log(f"[baselines] AM@0.055 C2 {name}: {secs:.4f} s, quality {q:.4f}, "
+            f"{n_clusters} clusters ({hyrec} took Hyrec), {sims} Step-2 sims, "
+            f"{wpu} words a user, {launches} cluster-KNN launches")
+        if name == "raw":
+            raw_graph = graph
+    out["raw"]["incidence_seconds"] = t_fp
+    # Raw mode is exact Jaccard: every edge's sim is edge_jaccard's.
+    live = raw_graph.ids != PAD_ID
+    n, k = raw_graph.ids.shape
+    ej = edge_jaccard(ds, np.repeat(np.arange(n, dtype=np.int32), k),
+                      raw_graph.ids.reshape(-1), device=dev).reshape(n, k)
+    if not np.array_equal(raw_graph.sims[live], ej[live]):
+        fail(f"raw build: {int((raw_graph.sims[live] != ej[live]).sum())} "
+             f"edge sims differ from the exact Jaccard")
+    log(f"[baselines] raw build: all {int(live.sum())} edge sims equal the "
+        f"exact Jaccard (edge_jaccard); MinHash / FRH time "
+        f"x{out['MinHash']['seconds'] / out['FRH']['seconds']:.2f}, raw / "
+        f"FRH x{out['raw']['seconds'] / out['FRH']['seconds']:.2f}")
+    out["raw_sweep"], out["raw_err"] = raw_sweep(
+        dev, ds, gf_raw, p, out["raw"]["launches"])
+    return out
+
+
+def baselines_and_raw_mode(dev) -> dict:
+    """Phase 4f: one row of Tables II (ml1M@1.0 on the card; ml1M@0.35 on
+    the card and the CPU, bitwise), IV and V (AM@0.055)."""
+    from repro_torch.bench.common import BENCH_SCALES, bench_params
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.sketch.goldfinger import fingerprint_dataset
+
+    t0 = time.perf_counter()
+    numbers = {}
+    for scale in (1.0, BENCH_SCALES["ml1M"]):
+        label = f"ml1M@{scale}"
+        ds = make_dataset("ml1M", scale=scale, seed=0)
+        p = bench_params("ml1M", ds.n_users)
+        gf = fingerprint_dataset(ds, n_bits=p.n_bits, seed=p.seed)
+        numbers[label], runs = table2_row(dev, ds, gf, p, label)
+        if scale != 1.0:
+            numbers[label]["cpu_seconds"] = card_equals_cpu(ds, gf, p, runs,
+                                                            label)
+    numbers["AM@0.055"] = tables_4_and_5(dev)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[baselines] phase 4f: {numbers['seconds']:.1f} s")
+    return numbers
+
+
 # -- phase 5: timing at the main path's shapes -----------------------------
 
 def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
-    import numpy as np
     import torch
 
-    from repro_torch.core.clustering import ClusterPlan
-    from repro_torch.core.local_knn import batch_inputs, group_batches
+    from repro_torch.bench.step2_sweep import main_path_batches
     from repro_torch.kernels.goldfinger_knn import ops, ref
     from repro_torch.sketch.goldfinger import words_tensor
 
@@ -2947,18 +3337,11 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
     card = torch.from_numpy(index.card).to(dev)
     W = words.shape[1]
     batches, caps = [], []
-    in_bytes = out_bytes = 0
-    for i in range(plan.t):  # as knn_build: one map task per configuration
-        members = [m for m, c in zip(plan.members, plan.config_of) if c == i]
-        sub = ClusterPlan(members=members,
-                          config_of=np.zeros(len(members), np.int32),
-                          n_users=plan.n_users, t=1)
-        for cap, _, mem in group_batches(sub, W):
-            batches.append(batch_inputs(words, card, mem))
-            caps.append(cap)
-            m = mem.shape[0]
-            in_bytes += m * cap * (4 * W + 8)
-            out_bytes += m * cap * k * 8
+    bytes_count = 0
+    for cap, mem, batch in main_path_batches(plan, words, card):
+        batches.append(batch)
+        caps.append(cap)
+        bytes_count += step2_bytes(mem, W, k)
     pairs = int(sum(s * (s - 1) for s in plan.sizes))
     if len(batches) != launches:
         fail(f"timing sweep has {len(batches)} batches but the main path "
@@ -2979,9 +3362,8 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
         f"batches: bitwise equal to the plain version")
     ms = cuda_ms(sweep(ops.cluster_knn), reps=5)
     plain_ms = cuda_ms(sweep(ref.cluster_knn_ref), reps=3)
-    sweep_by_cap(batches, caps, k, ms)
+    launch_sum_ms = sweep_by_cap(batches, caps, k, ms)
     ops_count = 2 * pairs * W * 32
-    bytes_count = in_bytes + out_bytes
     t_ops = ops_count / INT8_OPS_PER_S * 1e3
     t_bytes = bytes_count / HBM_BYTES_PER_S * 1e3
     return {"name": "goldfinger_knn", "route": "cuda",
@@ -2989,19 +3371,19 @@ def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
             "launches": launches, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "library_ms": None, "launch_sum_ms": launch_sum_ms,
             "shape": f"Step-2 sweep of ml1M@1.0 k=30: {len(batches)} "
                      f"batches, {pairs} ordered pairs, W={W}"}, err
 
 
-def sweep_by_cap(batches, caps, k: int, sweep_ms: float) -> None:
+def sweep_by_cap(batches, caps, k: int, sweep_ms: float) -> float:
     """Where the Step-2 sweep's time goes: the device time of each launch
     (CUDA events around it; median of 5 sweeps), summed per capacity
     group, beside the blocks each launch runs. A sleep kernel ahead of each
     sweep holds the card while the host queues every launch, so an event
     pair spans its launch's device time and none of the host's. The sum
     over all groups against the whole sweep's time leaves the host gap
-    between launches."""
+    between launches. Returns that sum."""
     import torch
 
     from repro_torch.kernels.goldfinger_knn import ops
@@ -3043,6 +3425,7 @@ def sweep_by_cap(batches, caps, k: int, sweep_ms: float) -> None:
         torch.cuda.synchronize()
     log(f"[timing] cluster-KNN host clock to queue the {len(batches)} launches: "
         f"{statistics.median(host):.4f} ms (median of 5)")
+    return total
 
 
 def hop_bound(args, n_scored: int, n_counts: int) -> tuple[float, str]:
@@ -3397,6 +3780,39 @@ def tick_breakdown(engine) -> None:
         + f", other {rest / ticks * 1e3:.2f} ms")
 
 
+# Phase 4f's figures under short keys, for the line printed just before
+# the last, where the tail of a run's log keeps them.
+TAIL_KEYS = {"seconds": "s", "quality": "q", "launches": "n", "iters": "it",
+             "updates": "upd", "n_buckets": "buckets", "max_bucket": "max",
+             "hyrec_buckets": "hyrec", "n_clusters": "clusters",
+             "sims": "sims", "hyrec_clusters": "hyrec",
+             "speedup_vs_best_baseline": "x", "incidence_seconds": "inc_s"}
+
+
+def tail_summary(slice10: dict, ck_row: dict) -> dict:
+    """Phase 4f's times, qualities and counts, and the cluster-KNN row's
+    times (main-path sweep, its launches' device time, the raw sweep)."""
+    def r(x):
+        return round(x, 4) if isinstance(x, float) else x
+
+    out = {"s": r(slice10["seconds"])}
+    for label in ("ml1M@1.0", "ml1M@0.35", "AM@0.055"):
+        row = slice10[label]
+        out[label] = {name: {TAIL_KEYS[key]: r(v) for key, v in d.items()
+                             if key in TAIL_KEYS}
+                      for name, d in row.items()
+                      if isinstance(d, dict)
+                      and name not in ("raw_sweep", "cpu_seconds")}
+        if "cpu_seconds" in row:
+            out[label]["cpu_s"] = {n: r(v)
+                                   for n, v in row["cpu_seconds"].items()}
+    raw = ck_row["raw"]
+    return {"phase_4f": out, "goldfinger_knn": {
+        "ms": r(ck_row["ms"]), "launch_sum_ms": r(ck_row["launch_sum_ms"]),
+        "raw": {key: r(raw[key]) for key in ("launches", "ms", "plain_ms",
+                                             "bound_ms", "bound_by")}}}
+
+
 def main() -> int:
     import torch
 
@@ -3426,13 +3842,15 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     n_ck, err_ck = check_cluster_knn(dev)
+    n_wide, err_wide = check_cluster_knn_wide(dev)
     n_hop, err_hop = check_hop(dev)
     n_dma, err_dma = check_dma_hop(dev)
     n_shapes, err_shapes = check_hop_shapes(dev)
     n_shard, err_shard = check_sharded_hops(dev)
     n_dead, err_dead = check_dead_shard_hops(dev)
     n_mh, err_mh = check_minhash(dev)
-    log(f"[kernels] {n_ck} cluster-KNN, {n_hop} hop, {n_dma} DMA-hop, "
+    log(f"[kernels] {n_ck} cluster-KNN ({n_wide} more at chunked widths), "
+        f"{n_hop} hop, {n_dma} DMA-hop, "
         f"{n_shapes} two-hop, {n_shard} sharded two-hop, {n_dead} all-PAD-"
         f"shard two-hop and {n_mh} minhash cases bitwise equal to the plain "
         f"versions")
@@ -3444,6 +3862,7 @@ def main() -> int:
         shard = sharded_placement(dev, run)
         slice8 = slo_cache_rebalance(dev, run, shard)
         slice9 = faults_and_recovery(dev, run, shard, Path(tmp))
+        slice10 = baselines_and_raw_mode(dev)
         launches = run["launches"]
         ck_row, err_ck_main = time_cluster_knn(
             dev, run["built"], run["engine"].index, launches["goldfinger_knn"])
@@ -3460,7 +3879,11 @@ def main() -> int:
         mh_row, err_mh_main = time_minhash(dev, launches["frh_minhash"])
         tick_breakdown(run["cont_engine"])
         build_stages(run["engine"])
-    ck_row["max_abs_err"] = max(err_ck, err_ck_main, bf["err"])
+    ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
+                                slice10["AM@0.055"].pop("raw_err"))
+    # Phase 4f: the raw-mode build's Step-2 sweep (W = 5,355 on AM@0.055),
+    # its launches counted from 0 on that build.
+    ck_row["raw"] = slice10["AM@0.055"]["raw_sweep"]
     hop_row["max_abs_err"] = max(err_hop, err_shapes, err_hops, err_shard,
                                  err_dead, shard["err"], err_shard_main)
     dma_row["max_abs_err"] = max(err_dma, err_shapes, err_hops, err_shard,
@@ -3498,8 +3921,11 @@ def main() -> int:
     print(json.dumps({"phase_4e": slice9["numbers"],
                       "phase_4e_seconds": slice9["seconds"]},
                      default=lambda o: o.tolist()))
-    print(smi)
+    print(json.dumps({"phase_4f": slice10}, default=lambda o: o.tolist()))
     print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps(tail_summary(slice10, ck_row), separators=(",", ":"),
+                     default=lambda o: o.tolist()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,1 +1,2 @@
-"""Measurement scripts for the card (not on any path of the port)."""
+"""Measurement scripts for the card, and the paper benches' scaling
+(not on any path of the port)."""

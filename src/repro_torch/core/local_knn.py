@@ -7,10 +7,11 @@ the CUDA kernel on a GPU, its plain version on the CPU. Batches are
 bounded by the reference's memory budget, so the same clusters land in the
 same batches.
 
-The paper switches clusters with |C| ≥ ρk² to Hyrec. Hyrec is not ported
-yet (ROADMAP queue 1 item 2), so such a cluster raises
-NotImplementedError; the paper configurations never reach it (the
-recursive split keeps clusters far below ρk² = 4500 at k = 30).
+Alg. 2 switches clusters with |C| ≥ ρk² to Hyrec restricted to the cluster
+(:func:`_hyrec_cluster`, ``knn/greedy.hyrec`` on ``device``, at most ρ
+iterations). C²'s recursive split keeps the paper configurations' clusters
+below ρk²; the unbounded buckets of LSH / MinHash plans (``knn/lsh``) reach
+it.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.core.clustering import ClusterPlan
 from repro_torch.core.params import C2Params
 from repro_torch.device import resolve_device
 from repro_torch.kernels.goldfinger_knn import ops as gk_ops
+from repro_torch.knn.greedy import hyrec
 from repro_torch.sketch.goldfinger import GoldFinger, words_tensor
 from repro_torch.types import NEG_INF, PAD_ID
 
@@ -34,17 +36,21 @@ def capacity_of(size: int, minimum: int = 32) -> int:
     return c
 
 
-def group_batches(plan: ClusterPlan, W: int):
+def group_batches(plan: ClusterPlan, W: int, greedy_from: int | None = None):
     """Yield ``(cap, batch, members)`` per kernel call: ``batch`` the
     cluster indices, ``members`` int32[len(batch), cap] PAD_ID-padded.
 
     Capacity groups ascend; within a group, batches of at most
     ``SIM_BUDGET // max(cap²·4, cap·W·16)`` clusters (the reference's
-    budget on the sims tile and the gathered fingerprints).
+    budget on the sims tile and the gathered fingerprints). Clusters of
+    ``greedy_from`` members or more (Alg. 2's ρk²) are left out: they take
+    the Hyrec branch.
     """
     sizes = plan.sizes
     caps = np.array([capacity_of(int(s)) for s in sizes], dtype=np.int64)
-    for cap in np.unique(caps):
+    if greedy_from is not None:
+        caps[sizes >= greedy_from] = -1
+    for cap in np.unique(caps[caps >= 0]):
         idx = np.flatnonzero(caps == cap)
         m_max = max(1, int(SIM_BUDGET // max(cap * cap * 4, cap * W * 4 * 4)))
         for s in range(0, len(idx), m_max):
@@ -65,9 +71,31 @@ def batch_inputs(words: torch.Tensor, card: torch.Tensor,
     return words[safe], torch.where(pad, 0, card[safe]), ids
 
 
+def _hyrec_cluster(members: np.ndarray, gf: GoldFinger, k: int,
+                   max_iters: int, device):
+    """Alg. 2's greedy branch: Hyrec restricted to one (huge) cluster, its
+    local ids mapped back to global ones and narrow lists padded to k."""
+    sub = GoldFinger(words=np.asarray(gf.words)[members],
+                     card=np.asarray(gf.card)[members])
+    graph, _ = hyrec(sub, k=min(k, len(members) - 1), max_iters=max_iters,
+                     device=device)
+    nbr = np.where(graph.ids == PAD_ID, PAD_ID,
+                   members[np.where(graph.ids == PAD_ID, 0, graph.ids)])
+    sims = graph.sims
+    if nbr.shape[1] < k:  # pad narrow neighborhoods up to k
+        pad = k - nbr.shape[1]
+        nbr = np.pad(nbr, ((0, 0), (0, pad)), constant_values=PAD_ID)
+        sims = np.pad(sims, ((0, 0), (0, pad)), constant_values=NEG_INF)
+    return nbr.astype(np.int32), sims.astype(np.float32)
+
+
 def local_knn(plan: ClusterPlan, gf: GoldFinger, params: C2Params,
               device="cuda"):
     """Compute partial KNNs for every cluster; scatter per configuration.
+
+    Implements Alg. 2's hybrid: clusters with |C| < ρk² go through the
+    batched brute-force path (the cluster-KNN kernel); larger ones run
+    Hyrec restricted to the cluster, for at most ρ iterations.
 
     Returns (ids int32[t, n, k], sims float32[t, n, k]) — for each hash
     configuration, each user's neighbors within its cluster (PAD_ID where
@@ -75,18 +103,17 @@ def local_knn(plan: ClusterPlan, gf: GoldFinger, params: C2Params,
     """
     dev = resolve_device(device)
     t, n, k = plan.t, plan.n_users, params.k
-    sizes = plan.sizes
-    big = np.flatnonzero(sizes >= params.bf_threshold)
-    if len(big):
-        raise NotImplementedError(
-            f"{len(big)} cluster(s) of size >= rho*k^2 = {params.bf_threshold} "
-            f"(largest {int(sizes[big].max())}) need the Hyrec branch of "
-            f"Alg. 2, which is not ported yet (ROADMAP queue 1 item 2)")
     out_ids = np.full((t, n, k), PAD_ID, dtype=np.int32)
     out_sims = np.full((t, n, k), NEG_INF, dtype=np.float32)
+    for ci in np.flatnonzero(plan.sizes >= params.bf_threshold):
+        users = plan.members[ci]
+        nbr, sims = _hyrec_cluster(users, gf, k, params.rho, dev)
+        out_ids[plan.config_of[ci], users] = nbr
+        out_sims[plan.config_of[ci], users] = sims
     words = words_tensor(gf.words, dev)
     card = torch.from_numpy(np.asarray(gf.card, dtype=np.int32)).to(dev)
-    for _, batch, members in group_batches(plan, words.shape[1]):
+    for _, batch, members in group_batches(plan, words.shape[1],
+                                           params.bf_threshold):
         nbr, sims = gk_ops.cluster_knn(*batch_inputs(words, card, members), k)
         nbr, sims = nbr.cpu().numpy(), sims.cpu().numpy()
         # Scatter back per configuration (each user appears in exactly

@@ -54,6 +54,16 @@
 //      moves to its rank in the merged list, found by binary search).
 // Calls of more than 65,535 clusters, the grid's y limit, are split into
 // launches by the wrapper; where a cluster lands does not enter its result.
+// Rows too wide for this layout (W above ~1,100 words, as raw incidence
+// rows are: 5,355 words on AM) take the WIDE instances: the words axis
+// streams through the block in chunks of `chunk` words (a multiple of 8,
+// so every m16n8k256 k-step is whole). Query chunks and each warp's tile
+// chunks share the `stages`-deep ring, one block barrier on either side of
+// each chunk; the four int32 C fragments of a tile accumulate over the
+// chunks, so the intersection is the same exact integer and keys and
+// top-k are as above. Words past W in the last chunk are zero in the query
+// chunk, so the stale words beside them in the ring add 0. Shared memory
+// then does not grow with W.
 // At the end each warp flushes its rows' buffers and writes the rows out.
 // The order is total (no two candidates share a column), so the top-k does
 // not depend on the order in which candidates arrive or on the filtering
@@ -82,9 +92,10 @@ using repro::sort_asc;
 
 // Byte offsets of the block's dynamic shared memory.
 struct Layout {
-  int ws;              // words per staged row: W padded to 8, plus 4
+  int ws;              // words per staged row: W (or the chunk) padded to
+                       // 8, plus 4
   int ks;              // keys per row of a key tile: 32 per warp, plus 8
-  size_t q_words;      // uint32 [16][ws]
+  size_t q_words;      // uint32 [16][ws]; chunked: [stages][16][ws]
   size_t q_id;         // int [16]
   size_t q_card;       // int [16]
   size_t live;         // int [2][warps]: the step's tile of warp w has ids
@@ -106,14 +117,17 @@ __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
+// chunk == 0: whole rows are staged; else `chunk` words of them at a time.
 __host__ __device__ inline Layout layout(int W, int k, int warps,
-                                         int stages, bool lists_global) {
+                                         int stages, bool lists_global,
+                                         int chunk) {
   Layout o;
   const int kp = list_width(k);
-  o.ws = ((W + 7) & ~7) + 4;
+  o.ws = (chunk > 0 ? chunk : ((W + 7) & ~7)) + 4;
   o.ks = warps * kTile + 8;
   o.q_words = 0;
-  o.q_id = o.q_words + sizeof(uint32_t) * kRows * o.ws;
+  o.q_id = o.q_words +
+           sizeof(uint32_t) * kRows * o.ws * (chunk > 0 ? stages : 1);
   o.q_card = o.q_id + sizeof(int) * kRows;
   o.live = o.q_card + sizeof(int) * kRows;
   o.keys = align16(o.live + sizeof(int) * 2 * warps);
@@ -146,6 +160,48 @@ __device__ __forceinline__ Key make_key(int inter, int qid, int qcard,
   const uint32_t hi = __float_as_uint(sim) | 0x80000000u;
   return (static_cast<Key>(hi) << 32) |
          (0xffffffffu - static_cast<uint32_t>(col));
+}
+
+// The keys of a warp's 16 x 32 intersections, in the fragments' layout
+// (rows g and g + 8, columns j * 8 + 2 tig + e), into its 32 columns of
+// the key tile `kt`.
+__device__ __forceinline__ void write_keys(const int (&c)[4][4], Key* kt,
+                                           int ks, int warp, int g, int tig,
+                                           const int* sid, const int* scard,
+                                           int col0, int qid_lo, int qcard_lo,
+                                           int qid_hi, int qcard_hi) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int cc = j * 8 + tig * 2;
+    const int2 id2 = *reinterpret_cast<const int2*>(sid + cc);
+    const int2 cd2 = *reinterpret_cast<const int2*>(scard + cc);
+    Key* lo_row = kt + g * ks + warp * kTile + cc;
+    Key* hi_row = kt + (g + 8) * ks + warp * kTile + cc;
+    *reinterpret_cast<ulonglong2*>(lo_row) = make_ulonglong2(
+        make_key(c[j][0], qid_lo, qcard_lo, id2.x, cd2.x, col0 + cc),
+        make_key(c[j][1], qid_lo, qcard_lo, id2.y, cd2.y, col0 + cc + 1));
+    *reinterpret_cast<ulonglong2*>(hi_row) = make_ulonglong2(
+        make_key(c[j][2], qid_hi, qcard_hi, id2.x, cd2.x, col0 + cc),
+        make_key(c[j][3], qid_hi, qcard_hi, id2.y, cd2.y, col0 + cc + 1));
+  }
+}
+
+// 16 x 32 intersections of k-steps [0, kend) on the tensor cores, added to
+// c: the query rows at sq, the tile's rows at sd, both `ws` words apart.
+__device__ __forceinline__ void intersect(int (&c)[4][4], const uint32_t* sq,
+                                          const uint32_t* sd, int ws,
+                                          int kend, int g, int tig) {
+  for (int kk = 0; kk < kend; kk += 8) {
+    const uint32_t a0 = sq[g * ws + kk + tig];
+    const uint32_t a1 = sq[(g + 8) * ws + kk + tig];
+    const uint32_t a2 = sq[g * ws + kk + tig + 4];
+    const uint32_t a3 = sq[(g + 8) * ws + kk + tig + 4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t* d = sd + (j * 8 + g) * ws + kk + tig;
+      mma_b1(c[j], a0, a1, a2, a3, d[0], d[4]);
+    }
+  }
 }
 
 // The k-th key of list i of x.
@@ -254,7 +310,7 @@ __device__ __forceinline__ void flush_rows(Key* list, Key* buf,
   }
 }
 
-template <int L, int NW>
+template <int L, int NW, bool WIDE>
 __global__ void __launch_bounds__(NW * 32)
 goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
                       const int* __restrict__ q_card,
@@ -264,12 +320,13 @@ goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
                       const int* __restrict__ d_ids,
                       int* __restrict__ out_ids, float* __restrict__ out_sims,
                       int nq, int nd, int W, int k, int stages, int vec16,
-                      Key* __restrict__ g_lists) {
+                      Key* __restrict__ g_lists, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int KP = L ? 32 * L : list_width(k);
   constexpr int R = kRows / NW;     // rows whose top-k this warp keeps
   constexpr int G = R < 4 ? R : 4;  // rows flushed together
-  const Layout lo = layout(W, k, NW, stages, L == 0 && g_lists != nullptr);
+  const Layout lo =
+      layout(W, k, NW, stages, L == 0 && g_lists != nullptr, WIDE ? chunk : 0);
   const int ws = lo.ws, ks = lo.ks;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -312,21 +369,24 @@ goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
     return;
   }
   // The query tile by cp.async; its padding words and missing rows are 0.
+  // (WIDE: its chunks are copied with the database tiles' below.)
   const int nrows = min(kRows, nq - row0);
   const int step = vec16 ? 4 : 1;
-  for (int i = tid * step; i < kRows * ws; i += blockDim.x * step) {
-    const int r = i / ws, w = i - r * ws;
-    uint32_t* dst = sq + i;
-    const uint32_t* src = q_words + (qbase + row0 + r) * W + w;
-    if (r >= nrows || w >= W) {
-      for (int e = 0; e < step; ++e) dst[e] = 0u;
-    } else if (vec16) {
-      repro::cp_async_16(dst, src);
-    } else {
-      repro::cp_async_4(dst, src);
+  if constexpr (!WIDE) {
+    for (int i = tid * step; i < kRows * ws; i += blockDim.x * step) {
+      const int r = i / ws, w = i - r * ws;
+      uint32_t* dst = sq + i;
+      const uint32_t* src = q_words + (qbase + row0 + r) * W + w;
+      if (r >= nrows || w >= W) {
+        for (int e = 0; e < step; ++e) dst[e] = 0u;
+      } else if (vec16) {
+        repro::cp_async_16(dst, src);
+      } else {
+        repro::cp_async_4(dst, src);
+      }
     }
+    repro::cp_async_commit();
   }
-  repro::cp_async_commit();
   for (int i = tid; i < kRows * KP; i += blockDim.x) list[i] = 0;
 
   // Copy database tile t (words, ids, cards) into ring slot `slot`.
@@ -355,18 +415,78 @@ goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
       }
     }
   };
+  // WIDE: the same for words [w0, w0 + wn) of the rows. The whole-row
+  // instances keep their own copy of the tile copy, the intersections and
+  // the keys: routed through the chunked path's helpers they compiled to
+  // more instructions and a slower main-path sweep (PERF.md §6).
+  auto issue_words = [&](int t, int slot, int w0, int wn) {
+    const int col0 = t * kTile;
+    const int rows = min(kTile, nd - col0);
+    uint32_t* dst = ring + slot * kTile * ws;
+    if (lane < rows) {
+      repro::cp_async_4(ring_id + slot * kTile + lane, d_ids + dbase + col0 + lane);
+      repro::cp_async_4(ring_card + slot * kTile + lane,
+                        d_card + dbase + col0 + lane);
+    } else {
+      ring_id[slot * kTile + lane] = repro::kPadId;
+    }
+    const uint32_t* src = d_words + (dbase + col0) * W + w0;
+    if (vec16) {
+      const int per = wn >> 2;
+      for (int i = lane; i < rows * per; i += 32) {
+        const int r = i / per, c = (i - r * per) << 2;
+        repro::cp_async_16(dst + r * ws + c, src + static_cast<long long>(r) * W + c);
+      }
+    } else {
+      for (int i = lane; i < rows * wn; i += 32) {
+        const int r = i / wn, c = i - r * wn;
+        repro::cp_async_4(dst + r * ws + c, src + static_cast<long long>(r) * W + c);
+      }
+    }
+  };
 
   // Step s: warp w computes the keys of database tile s * NW + w, then
   // every warp filters the step's NW tiles into its R rows (rows warp,
   // warp + NW, ...). Warp w's next tiles are copied `stages` - 1 steps ahead.
   const int ntiles = (nd + kTile - 1) / kTile;
   const int nsteps = (ntiles + NW - 1) / NW;
-  for (int p = 0; p + 1 < stages; ++p) {
-    if (warp + p * NW < ntiles) issue(warp + p * NW, p);
-    repro::cp_async_commit();
+  // WIDE: item e = s * nch + ch is chunk ch of step s: the query rows'
+  // words [ch * chunk, + chunk), copied by the whole block, and those of
+  // warp w's tile of step s, copied by warp w, into slot e % stages.
+  const int nch = WIDE ? (W + chunk - 1) / chunk : 1;
+  const int nitems = nsteps * nch;
+  auto issue_chunk = [&](int item) {
+    const int s = item / nch, ch = item - s * nch, slot = item % stages;
+    const int w0 = ch * chunk, wn = min(chunk, W - w0);
+    uint32_t* dq = sq + slot * kRows * ws;
+    for (int i = tid * step; i < kRows * chunk; i += blockDim.x * step) {
+      const int r = i / chunk, w = i - r * chunk;
+      uint32_t* dst = dq + r * ws + w;
+      const uint32_t* src = q_words + (qbase + row0 + r) * W + w0 + w;
+      if (r >= nrows || w >= wn) {
+        for (int e = 0; e < step; ++e) dst[e] = 0u;
+      } else if (vec16) {
+        repro::cp_async_16(dst, src);
+      } else {
+        repro::cp_async_4(dst, src);
+      }
+    }
+    const int t = warp + s * NW;
+    if (t < ntiles) issue_words(t, slot, w0, wn);
+  };
+  if constexpr (WIDE) {
+    for (int p = 0; p + 1 < stages; ++p) {
+      if (p < nitems) issue_chunk(p);
+      repro::cp_async_commit();
+    }
+  } else {
+    for (int p = 0; p + 1 < stages; ++p) {
+      if (warp + p * NW < ntiles) issue(warp + p * NW, p);
+      repro::cp_async_commit();
+    }
+    repro::cp_async_wait<0>();  // the query tile (and the first tiles)
+    __syncthreads();
   }
-  repro::cp_async_wait<0>();  // the query tile (and the first tiles)
-  __syncthreads();
 
   const int qid_lo = s_qid[g], qid_hi = s_qid[g + 8];
   const int qcard_lo = s_qcard[g], qcard_hi = s_qcard[g + 8];
@@ -379,54 +499,86 @@ goldfinger_knn_kernel(const uint32_t* __restrict__ q_words,
     cnt[i] = 0;
   }
   for (int s = 0; s < nsteps; ++s) {
-    const int ahead = warp + (s + stages - 1) * NW;
-    if (ahead < ntiles) issue(ahead, (s + stages - 1) % stages);
-    repro::cp_async_commit();
-    if (stages == 1) {
-      repro::cp_async_wait<0>();
-    } else {
-      repro::cp_async_wait<1>();
-    }
-    __syncwarp();
     Key* kt = keys + (s & 1) * kRows * ks;
-    const int t = warp + s * NW;
-    const int slot = s % stages;
-    const int* sid = ring_id + slot * kTile;
-    // A tile past the end or whose ids are all PAD is skipped.
-    const bool has =
-        t < ntiles && __ballot_sync(kFull, sid[lane] != repro::kPadId) != 0;
-    if (has) {
-      const uint32_t* sd = ring + slot * kTile * ws;
-      const int* scard = ring_card + slot * kTile;
-      const int col0 = t * kTile;
-      // 16 x 32 intersections on the tensor cores.
+    bool has;
+    if constexpr (WIDE) {
+      const int t = warp + s * NW;
       int c[4][4] = {};
-      for (int kk = 0; kk < ws - 4; kk += 8) {
-        const uint32_t a0 = sq[g * ws + kk + tig];
-        const uint32_t a1 = sq[(g + 8) * ws + kk + tig];
-        const uint32_t a2 = sq[g * ws + kk + tig + 4];
-        const uint32_t a3 = sq[(g + 8) * ws + kk + tig + 4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t* d = sd + (j * 8 + g) * ws + kk + tig;
-          mma_b1(c[j], a0, a1, a2, a3, d[0], d[4]);
+      int slot = 0;
+      has = false;
+      for (int ch = 0; ch < nch; ++ch) {
+        const int item = s * nch + ch;
+        __syncthreads();  // every warp is done with the slot refilled here
+        if (item + stages - 1 < nitems) issue_chunk(item + stages - 1);
+        repro::cp_async_commit();
+        if (stages == 1) {
+          repro::cp_async_wait<0>();
+        } else {
+          repro::cp_async_wait<1>();
+        }
+        __syncthreads();  // item's query chunk, copied by every thread
+        slot = item % stages;
+        // A tile past the end or whose ids are all PAD is skipped.
+        has = t < ntiles &&
+              __ballot_sync(kFull, ring_id[slot * kTile + lane] !=
+                                       repro::kPadId) != 0;
+        if (has) {
+          const int wn = min(chunk, W - ch * chunk);
+          intersect(c, sq + slot * kRows * ws, ring + slot * kTile * ws, ws,
+                    (wn + 7) & ~7, g, tig);
         }
       }
-      // Keys in the fragments' layout (rows g and g + 8, columns
-      // j * 8 + 2 tig + e) into this warp's 32 columns of the key tile.
+      if (has)
+        write_keys(c, kt, ks, warp, g, tig, ring_id + slot * kTile,
+                   ring_card + slot * kTile, t * kTile, qid_lo, qcard_lo,
+                   qid_hi, qcard_hi);
+    } else {
+      const int ahead = warp + (s + stages - 1) * NW;
+      if (ahead < ntiles) issue(ahead, (s + stages - 1) % stages);
+      repro::cp_async_commit();
+      if (stages == 1) {
+        repro::cp_async_wait<0>();
+      } else {
+        repro::cp_async_wait<1>();
+      }
+      __syncwarp();
+      const int t = warp + s * NW;
+      const int slot = s % stages;
+      const int* sid = ring_id + slot * kTile;
+      // A tile past the end or whose ids are all PAD is skipped.
+      has = t < ntiles &&
+            __ballot_sync(kFull, sid[lane] != repro::kPadId) != 0;
+      if (has) {
+        const uint32_t* sd = ring + slot * kTile * ws;
+        const int* scard = ring_card + slot * kTile;
+        const int col0 = t * kTile;
+        // 16 x 32 intersections on the tensor cores.
+        int c[4][4] = {};
+        for (int kk = 0; kk < ws - 4; kk += 8) {
+          const uint32_t a0 = sq[g * ws + kk + tig];
+          const uint32_t a1 = sq[(g + 8) * ws + kk + tig];
+          const uint32_t a2 = sq[g * ws + kk + tig + 4];
+          const uint32_t a3 = sq[(g + 8) * ws + kk + tig + 4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cc = j * 8 + tig * 2;
-        const int2 id2 = *reinterpret_cast<const int2*>(sid + cc);
-        const int2 cd2 = *reinterpret_cast<const int2*>(scard + cc);
-        Key* lo_row = kt + g * ks + warp * kTile + cc;
-        Key* hi_row = kt + (g + 8) * ks + warp * kTile + cc;
-        *reinterpret_cast<ulonglong2*>(lo_row) = make_ulonglong2(
-            make_key(c[j][0], qid_lo, qcard_lo, id2.x, cd2.x, col0 + cc),
-            make_key(c[j][1], qid_lo, qcard_lo, id2.y, cd2.y, col0 + cc + 1));
-        *reinterpret_cast<ulonglong2*>(hi_row) = make_ulonglong2(
-            make_key(c[j][2], qid_hi, qcard_hi, id2.x, cd2.x, col0 + cc),
-            make_key(c[j][3], qid_hi, qcard_hi, id2.y, cd2.y, col0 + cc + 1));
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t* d = sd + (j * 8 + g) * ws + kk + tig;
+            mma_b1(c[j], a0, a1, a2, a3, d[0], d[4]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int cc = j * 8 + tig * 2;
+          const int2 id2 = *reinterpret_cast<const int2*>(sid + cc);
+          const int2 cd2 = *reinterpret_cast<const int2*>(scard + cc);
+          Key* lo_row = kt + g * ks + warp * kTile + cc;
+          Key* hi_row = kt + (g + 8) * ks + warp * kTile + cc;
+          *reinterpret_cast<ulonglong2*>(lo_row) = make_ulonglong2(
+              make_key(c[j][0], qid_lo, qcard_lo, id2.x, cd2.x, col0 + cc),
+              make_key(c[j][1], qid_lo, qcard_lo, id2.y, cd2.y, col0 + cc + 1));
+          *reinterpret_cast<ulonglong2*>(hi_row) = make_ulonglong2(
+              make_key(c[j][2], qid_hi, qcard_hi, id2.x, cd2.x, col0 + cc),
+              make_key(c[j][3], qid_hi, qcard_hi, id2.y, cd2.y, col0 + cc + 1));
+        }
       }
     }
     if (lane == 0) s_live[(s & 1) * NW + warp] = has;
@@ -518,18 +670,22 @@ REPRO_DEFINE_ERROR_STRING
 
 // Dynamic shared memory of one block (kernels/goldfinger_knn/ops.py
 // smem_bytes computes the same total; the wrapper checks that they agree).
-// lists_global != 0: the rows' lists (k > 64 only) are in global memory.
+// lists_global != 0: the rows' lists (k > 64 only) are in global memory;
+// chunk > 0: rows stream through in chunks of that many words.
 REPRO_EXPORT size_t repro_goldfinger_knn_smem_bytes(int W, int k, int warps,
                                                     int stages,
-                                                    int lists_global) {
-  return layout(W, k, warps, stages, lists_global != 0).total;
+                                                    int lists_global,
+                                                    int chunk) {
+  return layout(W, k, warps, stages, lists_global != 0, chunk).total;
 }
 
 // q_* are [batches, nq, ...] and d_* are [batches, nd, ...], row-major and
 // contiguous (words as uint32 bit patterns); outputs are [batches, nq, k].
 // `warps` warps per block (1, 2, 4 or 8), a `stages`-deep cp.async ring
 // per warp (1 or 2); vec16 != 0 allows 16-byte copies (W % 4 == 0, q_words
-// and d_words 16-byte aligned). k >= 1: up to 64, each row's list lives in
+// and d_words 16-byte aligned). chunk: 0 stages whole rows; a positive
+// multiple of 8 streams them in chunks of that many words (the WIDE
+// instances). k >= 1: up to 64, each row's list lives in
 // its warp's registers while it merges (one or two keys a lane); above 64
 // it is merged in memory, in shared memory or, given `lists` (a workspace
 // of 16 * ((k + 31) & ~31) keys for each of the ceil(nq / 16) * batches
@@ -541,23 +697,28 @@ REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
                                       void* out_ids, void* out_sims,
                                       int batches, int nq, int nd, int W,
                                       int k, int warps, int stages, int vec16,
-                                      void* lists, void* stream) {
+                                      int chunk, void* lists, void* stream) {
   if (stages < 1 || stages > 2 || k < 1 || batches > 65535 ||
-      (lists != nullptr && k <= 64))
+      (lists != nullptr && k <= 64) || chunk < 0 || chunk % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // One instance per (list kind, warps); the largest dynamic shared
-  // memory each was allowed so far.
-  static void (*const kernels[3][4])(const uint32_t*, const int*, const int*,
-                                     const uint32_t*, const int*, const int*,
-                                     int*, float*, int, int, int, int, int,
-                                     int, Key*) = {
-      {goldfinger_knn_kernel<1, 1>, goldfinger_knn_kernel<1, 2>,
-       goldfinger_knn_kernel<1, 4>, goldfinger_knn_kernel<1, 8>},
-      {goldfinger_knn_kernel<2, 1>, goldfinger_knn_kernel<2, 2>,
-       goldfinger_knn_kernel<2, 4>, goldfinger_knn_kernel<2, 8>},
-      {goldfinger_knn_kernel<0, 1>, goldfinger_knn_kernel<0, 2>,
-       goldfinger_knn_kernel<0, 4>, goldfinger_knn_kernel<0, 8>}};
-  static size_t allowed[3][4] = {};
+  // One instance per (whole or chunked rows, list kind, warps); the
+  // largest dynamic shared memory each was allowed so far.
+  static void (*const kernels[2][3][4])(
+      const uint32_t*, const int*, const int*, const uint32_t*, const int*,
+      const int*, int*, float*, int, int, int, int, int, int, Key*, int) = {
+      {{goldfinger_knn_kernel<1, 1, false>, goldfinger_knn_kernel<1, 2, false>,
+        goldfinger_knn_kernel<1, 4, false>, goldfinger_knn_kernel<1, 8, false>},
+       {goldfinger_knn_kernel<2, 1, false>, goldfinger_knn_kernel<2, 2, false>,
+        goldfinger_knn_kernel<2, 4, false>, goldfinger_knn_kernel<2, 8, false>},
+       {goldfinger_knn_kernel<0, 1, false>, goldfinger_knn_kernel<0, 2, false>,
+        goldfinger_knn_kernel<0, 4, false>, goldfinger_knn_kernel<0, 8, false>}},
+      {{goldfinger_knn_kernel<1, 1, true>, goldfinger_knn_kernel<1, 2, true>,
+        goldfinger_knn_kernel<1, 4, true>, goldfinger_knn_kernel<1, 8, true>},
+       {goldfinger_knn_kernel<2, 1, true>, goldfinger_knn_kernel<2, 2, true>,
+        goldfinger_knn_kernel<2, 4, true>, goldfinger_knn_kernel<2, 8, true>},
+       {goldfinger_knn_kernel<0, 1, true>, goldfinger_knn_kernel<0, 2, true>,
+        goldfinger_knn_kernel<0, 4, true>, goldfinger_knn_kernel<0, 8, true>}}};
+  static size_t allowed[2][3][4] = {};
   int wi;
   switch (warps) {
     case 1: wi = 0; break;
@@ -566,22 +727,24 @@ REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
     case 8: wi = 3; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int ci = chunk > 0 ? 1 : 0;
   const int li = k <= 32 ? 0 : k <= 64 ? 1 : 2;
-  const size_t smem = layout(W, k, warps, stages, lists != nullptr).total;
-  if (smem > 48 * 1024 && smem > allowed[li][wi]) {
+  const size_t smem =
+      layout(W, k, warps, stages, lists != nullptr, chunk).total;
+  if (smem > 48 * 1024 && smem > allowed[ci][li][wi]) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernels[li][wi], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernels[ci][li][wi], cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    allowed[li][wi] = smem;
+    allowed[ci][li][wi] = smem;
   }
   const dim3 grid((nq + kRows - 1) / kRows, batches);
-  kernels[li][wi]<<<grid, warps * 32, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  kernels[ci][li][wi]<<<grid, warps * 32, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(q_words), static_cast<const int*>(q_card),
       static_cast<const int*>(q_ids), static_cast<const uint32_t*>(d_words),
       static_cast<const int*>(d_card), static_cast<const int*>(d_ids),
       static_cast<int*>(out_ids), static_cast<float*>(out_sims), nq, nd, W, k,
-      stages, vec16, static_cast<Key*>(lists));
+      stages, vec16, static_cast<Key*>(lists), chunk);
   return static_cast<int>(cudaGetLastError());
 }

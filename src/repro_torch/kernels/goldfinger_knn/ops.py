@@ -25,6 +25,8 @@ TILE = 32            # database rows per warp tile: one per lane
 MIN_WARPS = 4        # warps per block: a power of two, 4 to 8
 MAX_WARPS = 8
 STAGES = 2           # cp.async ring depth per warp: copy one tile ahead
+CHUNK = 128          # words of a staged row chunk where whole rows fit no
+                     # block (a multiple of 8: whole mma k-steps)
 
 launches = 0
 
@@ -36,12 +38,15 @@ class LaunchParams:
     every ``warps``-th row, a ``stages``-deep copy ring per warp, and
     ``smem`` bytes of dynamic shared memory; ``lists`` says where the rows'
     top-k lists lie ("shared", or "global" for k > 64 lists that do not
-    fit a block beside its tiles)."""
+    fit a block beside its tiles); ``chunk`` is 0 where whole rows are
+    staged, else the words of a staged row chunk (rows too wide for a
+    block stream through it chunk by chunk)."""
     rows: int
     warps: int
     stages: int
     smem: int
     lists: str = "shared"
+    chunk: int = 0
 
     def blocks(self, m: int, nq: int) -> int:
         """Blocks of a launch over ``m`` batches of ``nq`` query rows."""
@@ -58,19 +63,21 @@ def list_width(k: int) -> int:
 
 
 def smem_bytes(W: int, k: int, warps: int, stages: int,
-               lists: str = "shared") -> int:
+               lists: str = "shared", chunk: int = 0) -> int:
     """The block's dynamic shared memory, from the kernel's layout: the
-    query tile (W padded to 8 words, plus 4, per row; ids and cards) and a
+    query tile (W padded to 8 words, plus 4, per row; with ``chunk``, one
+    tile of ``chunk`` + 4 words a row per ring stage; ids and cards) and a
     flag per warp and step; two key tiles of 16 rows × (32 per warp + 8)
     keys; per query row a sorted list of k rounded up to 32 keys (unless
     ``lists`` is "global") and a 32-key buffer, keys 8 bytes; then per warp
-    its copy ring of ``stages`` database tiles of 32 rows (words, ids and
-    cards). ``repro_goldfinger_knn_smem_bytes`` in the kernel computes the
-    same."""
-    ws = ((W + 7) & ~7) + 4
+    its copy ring of ``stages`` database tiles of 32 rows (their words, or
+    ``chunk`` words of them, ids and cards).
+    ``repro_goldfinger_knn_smem_bytes`` in the kernel computes the same."""
+    ws = (chunk if chunk else (W + 7) & ~7) + 4
     ks = warps * TILE + 8
     kp = 0 if lists == "global" else list_width(k)
-    head = _align16(ROWS * ws * 4 + 2 * ROWS * 4 + 2 * warps * 4)
+    q_tiles = stages if chunk else 1
+    head = _align16(ROWS * ws * 4 * q_tiles + 2 * ROWS * 4 + 2 * warps * 4)
     tiles = 2 * ROWS * ks * 8 + ROWS * (kp + TILE) * 8
     ring = _align16(stages * TILE * (ws + 2) * 4)
     return head + tiles + warps * ring
@@ -84,37 +91,40 @@ def launch_params(nq: int, nd: int, W: int, k: int) -> LaunchParams:
     the 16 rows' top-k, so a block has at least ``MIN_WARPS``), two ring
     stages; then fewer warps, and one stage, until the block fits
     ``SMEM_LIMIT``. Above k = 64, where even that does not fit, the rows'
-    lists move to global memory and the search starts again. Raises
-    ValueError if nothing fits."""
+    lists move to global memory and the search starts again. Where whole
+    rows fit no block, the same search runs with rows staged ``CHUNK``
+    words at a time, which fits any W: one warp, one stage and global lists
+    take under 48 KB."""
     del nq  # every shape takes 16-row query tiles
     tiles = -(-nd // TILE)
     start = MIN_WARPS
     while start < MAX_WARPS and start < tiles:
         start *= 2
-    for lists in ("shared", "global") if k > REG_K else ("shared",):
-        warps, stages = start, STAGES
-        while smem_bytes(W, k, warps, stages, lists) > SMEM_LIMIT:
-            if warps > 1:
-                warps //= 2
-            elif stages > 1:
-                stages -= 1
-            else:
-                break
-        smem = smem_bytes(W, k, warps, stages, lists)
-        if smem <= SMEM_LIMIT:
-            return LaunchParams(ROWS, warps, stages, smem, lists)
-    raise ValueError(f"cluster-KNN needs {smem} B of shared memory at W={W}, "
-                     f"k={k}; the limit is {SMEM_LIMIT}")
+    for chunk in (0, CHUNK):
+        for lists in ("shared", "global") if k > REG_K else ("shared",):
+            warps, stages = start, STAGES
+            while True:
+                smem = smem_bytes(W, k, warps, stages, lists, chunk)
+                if smem <= SMEM_LIMIT:
+                    return LaunchParams(ROWS, warps, stages, smem, lists,
+                                        chunk)
+                if warps > 1:
+                    warps //= 2
+                elif stages > 1:
+                    stages -= 1
+                else:
+                    break
+    raise AssertionError("unreachable: chunked rows fit a block at any W")
 
 
 def _lib():
     lib = build.load(KERNEL)
     fn = lib.repro_goldfinger_knn
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
-        lib.repro_goldfinger_knn_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.repro_goldfinger_knn_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.repro_goldfinger_knn_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -146,7 +156,7 @@ def _launch(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
     p = launch_params(nq, nd, W, k)
     glob = p.lists == "global"
     smem = lib.repro_goldfinger_knn_smem_bytes(W, k, p.warps, p.stages,
-                                               int(glob))
+                                               int(glob), p.chunk)
     if smem != p.smem:
         raise RuntimeError(f"cluster-KNN layout mismatch at W={W}, k={k}: "
                            f"the kernel needs {smem} B, smem_bytes says "
@@ -163,7 +173,7 @@ def _launch(q_words, q_card, q_ids, d_words, d_card, d_ids, k: int):
                     and part[3].data_ptr() % 16 == 0)
         args = ([t.data_ptr() for t in part]
                 + [out_ids[b0:].data_ptr(), out_sims[b0:].data_ptr(), mb, nq,
-                   nd, W, k, p.warps, p.stages, vec16,
+                   nd, W, k, p.warps, p.stages, vec16, p.chunk,
                    None if lists is None else lists.data_ptr(), stream])
         if dev.index == torch.cuda.current_device():
             err = lib.repro_goldfinger_knn(*args)

@@ -30,11 +30,17 @@ from repro_torch.types import Dataset
 DEFAULT_BITS = 1024
 
 # The reference scores sketches at least this many uint32 words wide
-# through an int8 bit-plane matmul instead of popcount. The intersection
-# is an exact integer either way, so the port runs popcount at every
-# width (CPU plain versions and CUDA kernels alike) and its sims match the
-# reference on both sides of this width.
+# through an int8 bit-plane matmul instead of popcount
+# (``jaccard_pairwise_mxu`` / ``jaccard_pairwise_auto``, bitwise its
+# popcount form by its own docstring). The intersection is an exact
+# integer either way, so the port has one plain form,
+# :func:`jaccard_pairwise`, and the cluster-KNN kernel, both popcount at
+# every width; their sims match the reference on both sides of this width.
 MXU_MIN_WORDS = 64
+
+# Elements of the [..., n_a, n_b, words] AND tensor that
+# :func:`jaccard_pairwise` materializes at a time.
+PAIR_WORDS_BUDGET = 1 << 22
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
 
@@ -82,6 +88,24 @@ def popcount_rows(words: np.ndarray) -> np.ndarray:
     return np.unpackbits(words.view(np.uint8), axis=-1).sum(axis=-1).astype(np.int32)
 
 
+def incidence_fingerprint(ds: Dataset) -> GoldFinger:
+    """Full-universe incidence vectors ("raw data" mode, Table V).
+
+    One bit per item of the universe, so the popcount Jaccard over these
+    rows is the *exact* set Jaccard (no hash collisions), at |I|/n_bits
+    times a GoldFinger sketch's memory and work: W = ceil(|I| / 32) words,
+    5,355 on AM. The cluster-KNN kernel streams such rows in chunks.
+    """
+    W = (ds.n_items + 31) // 32
+    words = np.zeros((ds.n_users, W), dtype=np.uint32)
+    user_of = np.repeat(np.arange(ds.n_users, dtype=np.int64),
+                        ds.profile_sizes)
+    pos = ds.items.astype(np.int64)
+    np.bitwise_or.at(words, (user_of, pos // 32),
+                     np.uint32(1) << (pos % 32).astype(np.uint32))
+    return GoldFinger(words=words, card=popcount_rows(words))
+
+
 # --------------------------------------------------------------------------
 # Torch side: int32 bit-views, SWAR popcount, the shared f32 epilogue.
 # --------------------------------------------------------------------------
@@ -122,15 +146,22 @@ def jaccard_pairwise(words_a: torch.Tensor, card_a: torch.Tensor,
     """Estimated Jaccard sims for all pairs: float32[..., n_a, n_b].
 
     ``words_*`` int32[..., n, W] bit-views with matching leading (batch)
-    dims; ``card_*`` int32[..., n]. The intersection is accumulated one
-    word at a time, so the temporary is [..., n_a, n_b], never
-    [..., n_a, n_b, W].
+    dims; ``card_*`` int32[..., n]. The intersection is accumulated over
+    chunks of words, each chunk's AND tensor [..., n_a, n_b, chunk] held
+    to ``PAIR_WORDS_BUDGET`` elements, so wide rows (raw incidence: W in
+    the thousands) never materialize [..., n_a, n_b, W]. The count is an
+    exact integer whatever the chunking.
     """
     W = words_a.shape[-1]
-    inter = torch.zeros(words_a.shape[:-1] + (words_b.shape[-2],),
-                        dtype=torch.int32, device=words_a.device)
-    for w in range(W):
-        inter += popcount32(words_a[..., :, None, w] & words_b[..., None, :, w])
+    shape = torch.broadcast_shapes(words_a.shape[:-2], words_b.shape[:-2]) \
+        + (words_a.shape[-2], words_b.shape[-2])
+    inter = torch.zeros(shape, dtype=torch.int32, device=words_a.device)
+    pairs = max(1, inter.numel())
+    chunk = max(1, min(W, PAIR_WORDS_BUDGET // pairs))
+    for w0 in range(0, W, chunk):
+        a = words_a[..., :, None, w0:w0 + chunk]
+        b = words_b[..., None, :, w0:w0 + chunk]
+        inter += popcount32(a & b).sum(-1, dtype=torch.int32)
     return jaccard_epilogue(inter, card_a[..., :, None], card_b[..., None, :])
 
 

@@ -4,8 +4,8 @@ The plain cluster-KNN (what the CUDA kernel is checked against on the
 card) against the Pallas kernel run in interpret mode and against
 ``local_knn._group_knn``; the whole pipeline on ml1M@0.05 and
 synth@0.2; the
-``knn_build`` CLI's artifact; and the Hyrec threshold the port does not
-cross yet.
+``knn_build`` CLI's artifact; and Alg. 2's Hyrec branch above the
+ρk² threshold.
 """
 import pytest
 
@@ -15,7 +15,10 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.core.clustering import ClusterPlan as RPlan  # noqa: E402
 from repro.core.local_knn import _group_knn as r_group_knn  # noqa: E402
+from repro.core.local_knn import local_knn as r_local_knn  # noqa: E402
+from repro.core.params import C2Params as RParams  # noqa: E402
 from repro.core.params import params_for as r_params_for  # noqa: E402
 from repro.core.pipeline import cluster_and_conquer as r_c2  # noqa: E402
 from repro.data.synthetic import make_dataset as r_make_dataset  # noqa: E402
@@ -23,6 +26,7 @@ from repro.kernels import config as r_kernel_config  # noqa: E402
 from repro.kernels.goldfinger_knn import ops as r_gk_ops  # noqa: E402
 from repro.query.index import KNNIndex as RIndex  # noqa: E402
 from repro.query.index import build_index as r_build_index  # noqa: E402
+from repro.sketch.goldfinger import GoldFinger as RGF  # noqa: E402
 from repro_torch.core.clustering import ClusterPlan  # noqa: E402
 from repro_torch.core.local_knn import local_knn  # noqa: E402
 from repro_torch.core.params import C2Params, params_for  # noqa: E402
@@ -121,20 +125,27 @@ def test_cluster_and_conquer_matches_reference(name, scale, seed, overrides):
 
 
 def test_hyrec_threshold_raises():
-    """Clusters with |C| >= rho*k^2 need Hyrec, which is not ported."""
+    """Clusters with |C| >= rho*k^2 take Alg. 2's Hyrec branch: bitwise the
+    reference's ``local_knn`` on the same plan (one cluster above the
+    threshold, one just below it)."""
     params = C2Params(k=2, rho=5)  # bf_threshold = 20
     rng = np.random.default_rng(0)
-    words = rng.integers(0, 2**32, size=(30, 4), dtype=np.uint64).astype(
+    words = rng.integers(0, 2**32, size=(60, 4), dtype=np.uint64).astype(
         np.uint32)
-    gf = GoldFinger(words=words, card=np.full(30, 64, np.int32))
-    plan = ClusterPlan(members=[np.arange(30)],
-                       config_of=np.zeros(1, np.int32), n_users=30, t=1)
-    with pytest.raises(NotImplementedError, match="Hyrec"):
-        local_knn(plan, gf, params, device="cpu")
-    small = ClusterPlan(members=[np.arange(19)],
-                        config_of=np.zeros(1, np.int32), n_users=30, t=1)
-    ids, _ = local_knn(small, gf, params, device="cpu")
-    assert (ids[0, :19] != PAD_ID).all() and (ids[0, 19:] == PAD_ID).all()
+    words &= rng.integers(0, 2**32, size=(60, 4), dtype=np.uint64).astype(
+        np.uint32)
+    card = np.unpackbits(words.view(np.uint8), axis=-1).sum(-1).astype(
+        np.int32)
+    gf = GoldFinger(words=words, card=card)
+    members = [np.arange(30), np.arange(30, 49)]
+    plan = ClusterPlan(members=members, config_of=np.zeros(2, np.int32),
+                       n_users=60, t=1)
+    ids, sims = local_knn(plan, gf, params, device="cpu")
+    r_ids, r_sims = r_local_knn(
+        RPlan(members=members, config_of=np.zeros(2, np.int32), n_users=60,
+              t=1), RGF(words=words, card=card), RParams(k=2, rho=5))
+    assert np.array_equal(ids, r_ids) and np.array_equal(sims, r_sims)
+    assert (ids[0, :49] != PAD_ID).all() and (ids[0, 49:] == PAD_ID).all()
 
 
 def test_knn_build_cli_index_loads_in_reference(tmp_path, capsys):

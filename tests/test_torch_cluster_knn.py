@@ -74,8 +74,21 @@ def test_launch_params_wide_k(k, lists, warps):
 
 
 def test_launch_params_raise_when_nothing_fits():
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.launch_params(64, 64, 2000, 64)
+    """Rows too wide for a block (raw incidence rows: 4,236 words on GW,
+    5,355 on AM, 6,345 on DBLP) stream through it in chunks, so every
+    width fits; at 1,104 words and k = 30 whole rows still fit as before."""
+    for W in (1105, 2000, 4236, 5355, 6345):
+        for k in (10, 30, 100, 2048):
+            for cap in (32, 256, 2048):
+                p = ops.launch_params(cap, cap, W, k)
+                assert p.smem == ops.smem_bytes(W, k, p.warps, p.stages,
+                                                p.lists, p.chunk)
+                assert p.smem <= ops.SMEM_LIMIT
+                assert p.chunk in (0, ops.CHUNK) and ops.CHUNK % 8 == 0
+                # Above k = 64 whole rows may still fit beside global lists.
+                assert p.chunk == ops.CHUNK or (k > ops.REG_K
+                                                and p.lists == "global")
+    assert ops.launch_params(64, 64, 1104, 30).chunk == 0
 
 
 # Step-2 batches of the ml1M@1.0 paper build (k = 30), per capacity:
