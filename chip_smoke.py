@@ -150,6 +150,24 @@ Phases, each fatal on failure:
    incidence rows (raw mode, W = 5,355), every Step-2 batch of the raw
    build bitwise against the plain version and its edge sims equal to the
    exact Jaccard, with the raw sweep's device time beside its bound;
+4g. LM serving (the dense family; no C² kernel runs, none may launch;
+   run after phase 5, whose conditions stay as they were) —
+   (a) Llama-3.2-1B at its full published config (16 layers, d 2,048,
+   vocab 128,256, bf16 compute, f32 parameters, seed 0 on the card)
+   through ``launch/serve``'s own ``build`` and ``run``: ``--requests 32
+   --max-batch 8 --max-prompt 512 --max-new 64`` in waves, then the same
+   requests with ``--continuous --slots 8``; every request completes with
+   its budget of 2-64 tokens and every logit the engine reads is finite;
+   (b) at full width, a B = 4, S = 512 prefill and one decode step
+   against ``forward`` (the reference test's check, 0.15 bound); (c)
+   Llama-3.2-1B's and Gemma-2B's full widths at 2 layers, weights made on
+   the CPU and copied to the card: prefill and decode logits (1e-4) and
+   engine tokens rid by rid in waves and in continuous slots at f32
+   compute (a token may differ only at a near tie), and bf16 logits
+   (0.15) with ``allow_bf16_reduced_precision_reduction`` as set and
+   flipped; (d) one 8 x 512 prefill, a decode step at batch 8 and at 8
+   slots (CUDA events, held and host-paced), tokens/s of both serves,
+   peak memory and the decode step's bytes bound;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -168,7 +186,8 @@ Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
 sharded placement's launches and 4-shard hop time under ``sharded``, and
 phases 4d's and 4e's launches path by path under ``phase_4d`` and
 ``phase_4e``; the cluster-KNN row the raw build's sweep under ``raw``)
-after a ``{"phase_4e": ...}`` and a ``{"phase_4f": ...}`` line; then the
+after a ``{"phase_4e": ...}``, a ``{"phase_4f": ...}`` and an
+``{"lm_serve": ...}`` line (phase 4g's figures and checks); then the
 card's name and power limit; then phase 4f's times, qualities and counts
 and the cluster-KNN row's times under short keys (``tail_summary``), so
 that a short tail of the log still holds them; then as the last line
@@ -3323,6 +3342,428 @@ def baselines_and_raw_mode(dev) -> dict:
     return numbers
 
 
+# -- phase 4g: LM serving (the dense family) -------------------------------
+
+# Phase 4g's full-width serve: Llama-3.2-1B's published config (16 layers,
+# d 2048, vocab 128,256, bf16 compute, f32 parameters), seed 0 on the card.
+LM_SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "32",
+                 "--max-batch", "8", "--max-prompt", "512", "--max-new", "64",
+                 "--seed", "0"]
+# Card against the port's CPU path at f32 compute: logits of order 1 within
+# 1e-4 absolute (cuBLAS and the CPU's BLAS sum in other orders; no TF32).
+# bf16 logits within the reference's own bf16 bound (test_arch_smoke.py:96).
+LM_F32_TOL = 1e-4
+LM_BF16_TOL = 0.15
+# A greedy token may differ only where the reference side's top-2 logit
+# margin is under twice the tolerance (each side may move by it).
+
+
+def watch_logits(engine) -> "torch.Tensor":
+    """Wrap the engine's prefill and decode so the last-position logits of
+    every call are checked; returns the card-side count of non-finite
+    values (read once, after the serve)."""
+    import torch
+
+    bad = torch.zeros((), dtype=torch.int64, device=engine.device)
+
+    def wrap(fn):
+        def call(*args):
+            logits, cache = fn(*args)
+            bad.add_((~torch.isfinite(logits[:, -1])).sum())
+            return logits, cache
+        return call
+
+    engine._prefill = wrap(engine._prefill)
+    engine._decode = wrap(engine._decode)
+    return bad
+
+
+def lm_full_serves() -> dict:
+    """(a) Full-width Llama-3.2-1B through ``launch/serve``: 32 requests in
+    waves of 8, then the same requests through 8 continuous slots. Every
+    request completes with its own budget (2-64 tokens), every logit the
+    engine reads is finite, and no C² kernel launches."""
+    import torch
+
+    from repro_torch.launch import serve as serve_cli
+
+    out = {}
+    for label, extra in (("wave", []),
+                         ("continuous", ["--continuous", "--slots", "8"])):
+        torch.cuda.reset_peak_memory_stats()
+        engine = serve_cli.build(LM_SERVE_ARGV + extra)
+        if engine.device.type != "cuda":
+            fail(f"LM {label} serve built on {engine.device}")
+        bad = watch_logits(engine)
+        budgets = {r.rid: r.max_new for r in engine.queue}
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        serve_cli.report(stats)
+        done = {r.rid: r.output for r in engine.done}
+        if sorted(done) != list(range(32)) or stats["completed"] != 32:
+            fail(f"LM {label} serve completed {sorted(done)}")
+        for rid, o in done.items():
+            if not (1 <= len(o) <= 64 and len(o) == budgets[rid]
+                    and (o >= 0).all() and (o < 128_256).all()):
+                fail(f"LM {label} serve: request {rid} gave {o} "
+                     f"(budget {budgets[rid]})")
+        if int(bad):
+            fail(f"LM {label} serve read {int(bad)} non-finite logits")
+        if any(launches.values()):
+            fail(f"LM {label} serve launched C² kernels: {launches}")
+        out[label] = {key: stats[key] for key in (
+            "requests", "waves", "tokens", "tokens_per_s", "decode_steps",
+            "prefills", "mean_latency_s", "p95_latency_s")}
+        out[label].update(wall_s=wall, outputs=done,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"[lm] {label}: {stats['tokens']} tokens, "
+            f"{stats['tokens_per_s']:.1f} tok/s, {stats['decode_steps']} "
+            f"decode steps, {stats['prefills']} prefills, {wall:.2f} s, "
+            f"peak {out[label]['peak_gb']:.2f} GB")
+        del engine
+        torch.cuda.empty_cache()
+    # Wave and continuous compute each row alike, but cuBLAS picks its
+    # kernels by batch shape, so bf16 rounding may tip a near tie: counted,
+    # not required.
+    same = sum(bool(len(a) == len(out["continuous"]["outputs"][rid])
+                    and (a == out["continuous"]["outputs"][rid]).all())
+               for rid, a in out["wave"]["outputs"].items())
+    for label in ("wave", "continuous"):
+        out[label].pop("outputs")
+    out["modes_equal_rids"] = same
+    log(f"[lm] wave and continuous tokens equal in {same} of 32 requests "
+        f"(bf16)")
+    return out
+
+
+def lm_decode_vs_forward(dev):
+    """(b) Full width: prefill B = 4, S = 512, decode one token, against
+    ``forward`` over 1,024 positions (the prompt, the token, then padding:
+    causal, so position 512 sees only the first 513; a forward over 513
+    would break the online softmax's 512-multiple rule). The reference
+    test's check (test_arch_smoke.py:83-96) at its 0.15 bound. Returns the
+    error and the serving model, reused by (d)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.steps import decode_step, prefill_step
+
+    cfg = get_config("llama3.2-1b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_params(cfg, gen, dev).serving_copy()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 512)).astype(np.int32)).to(dev)
+    _, cache = prefill_step(model, toks, s_alloc=514)
+    lg, _ = decode_step(model, cache, toks[:, :1], 512)
+    full = torch.zeros((4, 1024), dtype=torch.int32, device=dev)
+    full[:, :512] = toks
+    full[:, 512] = toks[:, 0]
+    with torch.inference_mode():
+        lf, _ = model(tokens=full)
+    err = float((lg[:, 0] - lf[:, 512]).abs().max())
+    if not (err <= LM_BF16_TOL and torch.isfinite(lf).all()):
+        fail(f"LM decode against forward at full width: {err}")
+    log(f"[lm] decode against forward, B 4, S 512, full width: max abs "
+        f"err {err:.5f} (bound {LM_BF16_TOL})")
+    return err, model
+
+
+def lm_margins(model, prompts, outs, max_prompt: int, max_new: int):
+    """Top-2 logit margin at every generated step of each request, from one
+    forward over its left-padded prompt and its tokens."""
+    import numpy as np
+    import torch
+
+    seq = np.zeros((len(prompts), max_prompt + max_new), np.int32)
+    for j, (p, o) in enumerate(zip(prompts, outs)):
+        seq[j, max_prompt - len(p):max_prompt] = p
+        seq[j, max_prompt:max_prompt + len(o) - 1] = o[:-1]
+    with torch.inference_mode():
+        logits, _ = model(tokens=torch.from_numpy(seq).to(model.device))
+    top2 = torch.topk(logits[:, max_prompt - 1:], 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+def lm_compared_steps(margins, ref_outs, got_outs, label: str) -> int:
+    """Greedy steps equal rid by rid before any divergence; a divergence is
+    allowed only where the reference side's margin is under 2 tolerances."""
+    import numpy as np
+
+    compared = 0
+    for j, (ref, got) in enumerate(zip(ref_outs, got_outs)):
+        n = min(len(ref), len(got))
+        diff = np.flatnonzero(ref[:n] != got[:n])
+        stop = int(diff[0]) if len(diff) else n
+        if stop < max(len(ref), len(got)) and \
+                not margins[j, stop] < 2 * LM_F32_TOL:
+            fail(f"{label}: request {j} diverges at step {stop} with "
+                 f"margin {margins[j, stop]}: {ref} vs {got}")
+        compared += stop
+    return compared
+
+
+def lm_engine_tokens(cpu, card, label: str) -> dict:
+    """The same requests through the CPU and the card engines, in waves of
+    3 and through 3 continuous slots, at f32 compute: equal tokens rid by
+    rid (the margin rule above), equal stats."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    S, N = 16, 8
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cpu.cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(3, S + 1, 6)]
+    budgets = [8, 3, 6, 1, 5, 8]
+    probe = Engine(cpu, ServeConfig(max_batch=6, max_prompt=S, max_new=N))
+    for rid, p in enumerate(prompts):
+        probe.submit(Request(rid=rid, prompt=p, max_new=2))
+    probe.run()
+    eos = {r.rid: int(r.output[1]) for r in probe.done if r.rid in (2, 5)}
+    out = {}
+    for mode, kw in (("wave", {}), ("continuous", {"continuous": True,
+                                                   "slots": 3})):
+        runs = []
+        for model in (cpu, card):
+            eng = Engine(model, ServeConfig(max_batch=3, max_prompt=S,
+                                            max_new=N, **kw))
+            for rid, (p, mn) in enumerate(zip(prompts, budgets)):
+                eng.submit(Request(rid=rid, prompt=p, max_new=mn,
+                                   eos_id=eos.get(rid, -1)))
+            stats = eng.run()
+            runs.append((stats, [r.output for r in sorted(
+                eng.done, key=lambda r: r.rid)]))
+        (cs, co), (gs, go) = runs
+        margins = lm_margins(cpu, prompts, co, S, N)
+        compared = lm_compared_steps(margins, co, go, f"{label} {mode}")
+        keys = ("requests", "waves", "tokens", "decode_steps", "prefills")
+        if compared != cs["tokens"] or any(cs[k] != gs[k] for k in keys):
+            log(f"[lm] {label} {mode}: compared {compared} of "
+                f"{cs['tokens']} tokens; stats cpu {cs} card {gs}")
+        out[mode] = {"compared": compared, "tokens": cs["tokens"],
+                     "min_margin": float(min(
+                         margins[j, :len(o)].min() for j, o in enumerate(co)))}
+    return out
+
+
+def lm_card_vs_cpu(dev) -> dict:
+    """(c) Llama-3.2-1B's and Gemma-2B's full widths at 2 layers, weights
+    made on the CPU and copied to the card: prefill and decode logits and
+    engine tokens at f32 compute; prefill logits at bf16, with
+    ``allow_bf16_reduced_precision_reduction`` as set and flipped."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM, init_params
+    from repro_torch.serve.steps import decode_step, prefill_step
+
+    matmul = torch.backends.cuda.matmul
+    if matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("f32 products must run in full f32 on the card (TF32 is on)")
+    out = {}
+    for arch in ("llama3.2-1b", "gemma-2b"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype="float32")
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        state = cpu.state_dict()
+        card = LM(cfg, {k: v.to(dev) for k, v in state.items()})
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        nxt = rng.integers(0, cfg.vocab_size, (3, 2, 1)).astype(np.int32)
+        errs = []
+        caches = []
+        for model in (cpu, card):
+            lg, cache = prefill_step(
+                model, torch.from_numpy(toks).to(model.device), s_alloc=20)
+            steps = [lg.cpu()]
+            for i in range(3):
+                lg, cache = decode_step(model, cache, torch.from_numpy(
+                    nxt[i]).to(model.device), 16 + i)
+                steps.append(lg.cpu())
+            caches.append(steps)
+        errs = [float((a - b).abs().max()) for a, b in zip(*caches)]
+        scale = float(caches[0][0].abs().max())
+        if not max(errs) <= LM_F32_TOL:
+            fail(f"{arch} 2 layers: card against CPU logits at f32 {errs}")
+        tokens = lm_engine_tokens(cpu, card, f"{arch} 2 layers")
+        bf16 = {}
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        ref16, _ = LM(cfg16, state)(tokens=torch.from_numpy(toks))
+        card16 = LM(cfg16, {k: v.to(dev) for k, v in state.items()})
+        default = matmul.allow_bf16_reduced_precision_reduction
+        for flag in (default, not default):
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            with torch.inference_mode():
+                lg16, _ = card16(tokens=torch.from_numpy(toks).to(dev))
+            bf16[str(flag)] = float((lg16.cpu() - ref16).abs().max())
+        matmul.allow_bf16_reduced_precision_reduction = default
+        if not max(bf16.values()) <= LM_BF16_TOL:
+            fail(f"{arch} 2 layers: card against CPU logits at bf16 {bf16}")
+        out[arch] = {"f32_prefill_err": errs[0], "f32_decode_err": errs[1:],
+                     "logit_scale": scale, "tokens": tokens,
+                     "bf16_err_by_reduced_precision_reduction": bf16,
+                     "seconds": time.perf_counter() - t0}
+        log(f"[lm] {arch} 2 layers, card against CPU: f32 prefill err "
+            f"{errs[0]:.2e}, decode {max(errs[1:]):.2e} (logits up to "
+            f"{scale:.2f}); tokens {tokens}; bf16 err {bf16}; "
+            f"{out[arch]['seconds']:.1f} s")
+        del cpu, card, card16, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_device_ms(fn, reps: int) -> float:
+    """Median device time of one call of ``fn``: a sleep of ~8 x
+    ``SLEEP_CYCLES`` (~0.2 s) holds the card while the call is queued (an
+    LM step queues hundreds of small kernels, longer than ``cuda_ms``'s
+    hold)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(8 * SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def lm_profile(fn, steps: int = 3) -> dict:
+    """Device kernels of ``fn`` per call from ``torch.profiler``: their
+    count, summed duration and the six longest by name (ms per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / steps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"kernels": n / steps, "kernel_ms": sum(by_name.values()),
+            "top": [[name[:80], ms] for name, ms in top]}
+
+
+def lm_numbers(model, serves: dict) -> dict:
+    """(d) Full-width Llama-3.2-1B: one 8 x 512 prefill and a decode step
+    at batch 8 (scalar position) and at 8 slots (per-row positions), by
+    CUDA events (device time held by a sleep kernel; host-paced beside
+    it) and their device kernels by ``torch.profiler``, tokens/s of both
+    serves, peak memory, and the decode step's bytes bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.steps import decode_step, prefill_step
+
+    cfg = model.cfg
+    dev = model.device
+    B, S, alloc = 8, 512, 576
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    prefill_ms = lm_device_ms(
+        lambda: prefill_step(model, toks, s_alloc=alloc), reps=5)
+    _, cache = prefill_step(model, toks, s_alloc=alloc)
+    tok = toks[:, -1:].contiguous()
+    ccache = {name: {"k": sub["k"].clone(), "v": sub["v"].clone(),
+                     "pos": sub["pos"][:, None, :].expand(
+                         -1, B, -1).clone()}
+              for name, sub in cache.items()}
+    rows = torch.full((B,), S, dtype=torch.int32, device=dev)
+    def wave():
+        return decode_step(model, cache, tok, S)
+
+    def slots():
+        return decode_step(model, ccache, tok, rows)
+
+    wave_ms, slots_ms = lm_device_ms(wave, 7), lm_device_ms(slots, 7)
+    wave_paced = cuda_ms(wave, reps=7, inner=5)
+    slots_paced = cuda_ms(slots, reps=7, inner=5)
+    profiles = {"decode_batch8": lm_profile(wave),
+                "decode_slots8": lm_profile(slots)}
+    n_params = cfg.param_count()
+    kv = 2 * cfg.n_layers * B * (S + 1) * cfg.n_kv_heads * cfg.head_dim_ * 2
+    port_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) + kv
+    bound = {"bf16_weights_ms": (2 * n_params + kv) / HBM_BYTES_PER_S * 1e3,
+             "port_reads_ms": port_bytes / HBM_BYTES_PER_S * 1e3,
+             "f32_params_ms": 4 * n_params / HBM_BYTES_PER_S * 1e3}
+    return {"prefill_8x512_ms": prefill_ms,
+            "decode_batch8_ms": wave_ms, "decode_batch8_paced_ms": wave_paced,
+            "decode_slots8_ms": slots_ms,
+            "decode_slots8_paced_ms": slots_paced,
+            "tokens_per_s": {label: serves[label]["tokens_per_s"]
+                             for label in ("wave", "continuous")},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_bytes": {"bf16_weights_and_kv": 2 * n_params + kv,
+                             "port_reads": port_bytes,
+                             "f32_params": 4 * n_params},
+            "decode_bound_ms": bound, "bound_by": "bytes",
+            "param_count": n_params, "profile": profiles}
+
+
+def lm_serving(dev, smi: str) -> dict:
+    """Phase 4g: the LM stack's serving path (dense family) on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serves = lm_full_serves()
+    err, model = lm_decode_vs_forward(dev)
+    numbers = lm_numbers(model, serves)
+    del model
+    torch.cuda.empty_cache()
+    card_cpu = lm_card_vs_cpu(dev)
+    numbers.update(serves=serves, decode_vs_forward_err=err,
+                   card_vs_cpu=card_cpu, card=smi,
+                   allow_bf16_reduced_precision_reduction=(
+                       torch.backends.cuda.matmul.
+                       allow_bf16_reduced_precision_reduction),
+                   seconds=time.perf_counter() - t0)
+    log(f"[lm] prefill 8 x 512 {numbers['prefill_8x512_ms']:.3f} ms; "
+        f"decode batch 8 {numbers['decode_batch8_ms']:.3f} ms "
+        f"(paced {numbers['decode_batch8_paced_ms']:.3f}), 8 slots "
+        f"{numbers['decode_slots8_ms']:.3f} ms (paced "
+        f"{numbers['decode_slots8_paced_ms']:.3f}); bound "
+        f"{numbers['decode_bound_ms']['bf16_weights_ms']:.3f} ms (bf16 "
+        f"weights), {numbers['decode_bound_ms']['port_reads_ms']:.3f} "
+        f"(what the port reads), "
+        f"{numbers['decode_bound_ms']['f32_params_ms']:.3f} (f32 params); "
+        f"peak {numbers['peak_gb']:.2f} GB; {smi}")
+    for label, prof in numbers["profile"].items():
+        log(f"[lm] {label} profile: {prof['kernels']:.0f} kernels, "
+            f"{prof['kernel_ms']:.3f} ms of them a step; longest "
+            + "; ".join(f"{name} {ms:.3f}" for name, ms in prof["top"]))
+    log(f"[lm] phase 4g: {numbers['seconds']:.1f} s")
+    return numbers
+
+
 # -- phase 5: timing at the main path's shapes -----------------------------
 
 def time_cluster_knn(dev, built, index, launches: int) -> tuple[dict, float]:
@@ -3789,9 +4230,10 @@ TAIL_KEYS = {"seconds": "s", "quality": "q", "launches": "n", "iters": "it",
              "speedup_vs_best_baseline": "x", "incidence_seconds": "inc_s"}
 
 
-def tail_summary(slice10: dict, ck_row: dict) -> dict:
-    """Phase 4f's times, qualities and counts, and the cluster-KNN row's
-    times (main-path sweep, its launches' device time, the raw sweep)."""
+def tail_summary(slice10: dict, ck_row: dict, lm: dict) -> dict:
+    """Phase 4f's times, qualities and counts, the cluster-KNN row's times
+    (main-path sweep, its launches' device time, the raw sweep) and phase
+    4g's LM serving figures."""
     def r(x):
         return round(x, 4) if isinstance(x, float) else x
 
@@ -3807,7 +4249,12 @@ def tail_summary(slice10: dict, ck_row: dict) -> dict:
             out[label]["cpu_s"] = {n: r(v)
                                    for n, v in row["cpu_seconds"].items()}
     raw = ck_row["raw"]
-    return {"phase_4f": out, "goldfinger_knn": {
+    lm_short = {key: r(lm[key]) for key in (
+        "prefill_8x512_ms", "decode_batch8_ms", "decode_slots8_ms",
+        "peak_gb")}
+    lm_short["tok_s"] = {k: r(v) for k, v in lm["tokens_per_s"].items()}
+    lm_short["bound_ms"] = r(lm["decode_bound_ms"]["bf16_weights_ms"])
+    return {"phase_4f": out, "lm_serve": lm_short, "goldfinger_knn": {
         "ms": r(ck_row["ms"]), "launch_sum_ms": r(ck_row["launch_sum_ms"]),
         "raw": {key: r(raw[key]) for key in ("launches", "ms", "plain_ms",
                                              "bound_ms", "bound_by")}}}
@@ -3879,6 +4326,7 @@ def main() -> int:
         mh_row, err_mh_main = time_minhash(dev, launches["frh_minhash"])
         tick_breakdown(run["cont_engine"])
         build_stages(run["engine"])
+    lm = lm_serving(dev, smi)
     ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
                                 slice10["AM@0.055"].pop("raw_err"))
     # Phase 4f: the raw-mode build's Step-2 sweep (W = 5,355 on AM@0.055),
@@ -3922,10 +4370,11 @@ def main() -> int:
                       "phase_4e_seconds": slice9["seconds"]},
                      default=lambda o: o.tolist()))
     print(json.dumps({"phase_4f": slice10}, default=lambda o: o.tolist()))
+    print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"kernels": rows}))
     print(smi)
-    print(json.dumps(tail_summary(slice10, ck_row), separators=(",", ":"),
-                     default=lambda o: o.tolist()))
+    print(json.dumps(tail_summary(slice10, ck_row, lm),
+                     separators=(",", ":"), default=lambda o: o.tolist()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

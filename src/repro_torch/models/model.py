@@ -1,0 +1,333 @@
+"""Decoder-only LM assembly: init / forward / prefill / decode (torch port
+of ``repro.models.model`` for the dense block kinds).
+
+``LM`` is one ``nn.Module``: ``embed``, ``final_norm``, ``lm_head`` when
+embeddings are untied, and ``layers``, a ``ModuleList`` over pattern
+groups (one group is one layer for the dense family) whose entries hold
+each block's ``norm`` and ``block`` parameters under the reference's keys
+(``_flat_pattern``). ``forward`` loops over the groups where the
+reference scans them. Its state-dict keys are ``embed``,
+``final_norm.scale``, ``lm_head`` and ``layers.{g}.{key}.{norm|block}.{w}``;
+``params_from_jax`` maps the reference's group-stacked pytree onto them.
+
+Caches keep the reference's layout, stacked over groups: ``{key: {"k":
+[G, B, alloc, KV, hd], "v": ..., "pos": int32[G, alloc]}}`` (``pos``
+[G, B, alloc] for per-row decode), so ``cache_from_jax`` and
+``cache_to_numpy`` move a cache between the packages unchanged. Decode
+writes into the cache in place.
+
+Only ``attn``, ``local_attn`` and ``mlp`` are ported. ``moe``, ``rglru``,
+``mlstm`` and ``slstm`` raise ``NotImplementedError`` naming their ROADMAP
+item; ``remat`` and ``forward_trunk`` wait for training (item 11.4).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+BLOCK_INIT = {
+    "attn": L.init_attn,
+    "local_attn": L.init_attn,
+    "mlp": L.init_mlp,
+}
+
+# Block kinds of the reference not ported yet, by ROADMAP item.
+UNPORTED = {
+    "moe": "11.2 (MoE serving)",
+    "rglru": "11.3 (the recurrent blocks)",
+    "mlstm": "11.3 (the recurrent blocks)",
+    "slstm": "11.3 (the recurrent blocks)",
+}
+
+ATTN_KINDS = ("attn", "local_attn")
+
+
+def _unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported to repro_torch yet: ROADMAP "
+        f"item {UNPORTED[kind]}")
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for _, kind in _flat_pattern(cfg):
+        if kind in UNPORTED:
+            raise _unported(kind)
+
+
+def _flat_pattern(cfg: ModelConfig):
+    """[(key, kind), ...] across one pattern period; key is unique."""
+    out = []
+    for li, grp in enumerate(cfg.block_pattern):
+        for bi, kind in enumerate(grp):
+            out.append((f"l{li}b{bi}_{kind}", kind))
+    return out
+
+
+def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                             for k, t in tensors.items()})
+
+
+class Block(nn.Module):
+    """One block's parameters: ``norm`` (RMSNorm scale) and ``block``."""
+
+    def __init__(self, norm: Mapping[str, torch.Tensor],
+                 block: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.norm = _frozen(norm)
+        self.block = _frozen(block)
+
+
+def _apply_block(kind: str, bp: Block, x: torch.Tensor, cfg: ModelConfig,
+                 *, cache, cur_index, positions, want_cache, s_alloc):
+    """Pre-norm + residual around one block; returns (x, cache)."""
+    if kind in UNPORTED:
+        raise _unported(kind)
+    h = L.apply_rmsnorm(bp.norm, x)
+    new_cache = None
+    if kind in ATTN_KINDS:
+        window = cfg.window if kind == "local_attn" else 0
+        y, new_cache = L.apply_attn(
+            bp.block, h, cfg, window=window, cache=cache,
+            cur_index=cur_index, positions=positions,
+            want_cache=want_cache, s_alloc=s_alloc)
+    elif kind == "mlp":
+        y = L.apply_mlp(bp.block, h, cfg)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return x + y, new_cache
+
+
+class LM(nn.Module):
+    """A decoder-only LM built from a state dict (see the module doc).
+
+    ``serving`` marks a copy made by :meth:`serving_copy`, whose weights
+    already hold the values the forward pass computes with."""
+
+    def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.serving = False
+        self.embed = nn.Parameter(state["embed"], requires_grad=False)
+        self.final_norm = _frozen({"scale": state["final_norm.scale"]})
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(state["lm_head"], requires_grad=False)
+        groups = []
+        for g in range(cfg.n_groups):
+            blocks = {}
+            for name, _ in _flat_pattern(cfg):
+                parts = {}
+                for part in ("norm", "block"):
+                    prefix = f"layers.{g}.{name}.{part}."
+                    parts[part] = {key[len(prefix):]: t
+                                   for key, t in state.items()
+                                   if key.startswith(prefix)}
+                blocks[name] = Block(parts["norm"], parts["block"])
+            groups.append(nn.ModuleDict(blocks))
+        self.layers = nn.ModuleList(groups)
+        have, given = set(self.state_dict()), set(state)
+        if have != given:
+            raise KeyError(f"state dict does not fit {cfg.name}: missing "
+                           f"{sorted(have - given)}, unexpected "
+                           f"{sorted(given - have)}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def serving_copy(self) -> "LM":
+        """The weights cast once to the values the forward pass reads.
+
+        The reference casts every f32 parameter to ``cfg.dtype`` on each
+        call; a cast is deterministic, so casting once gives identical
+        values. Block matrices and the embedding are stored in
+        ``cfg.dtype``; the unembedding head (``embed`` when tied, else
+        ``lm_head``) in f32 holding the ``cfg.dtype``-rounded values, since
+        its product accumulates into f32; norm scales stay as they are
+        (the norm reads them in f32). Costs the copy's bytes beside the
+        original: 3.0 GB for Llama-3.2-1B in bf16 (its embedding, the
+        tied head, at 4 bytes)."""
+        if self.serving:
+            return self
+        dt = L.compute_dtype(self.cfg)
+        head = "embed" if self.cfg.tie_embeddings else "lm_head"
+        state = {}
+        for key, t in self.state_dict().items():
+            if key.endswith("norm.scale"):
+                state[key] = t
+            elif key == head:
+                state[key] = t.to(dt).float()
+            else:
+                state[key] = t.to(dt)
+        lm = LM(self.cfg, state)
+        lm.serving = True
+        return lm
+
+    def embed_inputs(self, tokens: Optional[torch.Tensor] = None,
+                     input_embeds: Optional[torch.Tensor] = None):
+        """The residual stream's input [B, S, D] in the compute dtype:
+        embedded ``tokens``, or ``input_embeds`` from a stub frontend."""
+        cfg = self.cfg
+        dt = L.compute_dtype(cfg)
+        if input_embeds is not None:
+            x = input_embeds.to(dt)
+        else:
+            x = self.embed[tokens].to(dt)
+        if cfg.scale_embed:
+            # The reference rounds sqrt(d) to the compute dtype first; a
+            # Python scalar keeps the multiply free of a host-to-device copy.
+            x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dt))
+        return x
+
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                input_embeds: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[dict] = None, cur_index=None,
+                want_cache: bool = False, s_alloc: int = 0):
+        """Returns (logits f32[B, S, V], cache).
+
+        Train: ``tokens`` [B, S] (or ``input_embeds`` [B, S, D] for stub
+        frontends), no cache. Prefill: ``want_cache=True``, ``s_alloc`` =
+        cache allocation. Decode: ``cache`` (updated in place) and
+        ``cur_index`` (a scalar, or int[B] per row); ``tokens`` [B, 1]."""
+        cfg = self.cfg
+        dt = L.compute_dtype(cfg)
+        x = self.embed_inputs(tokens, input_embeds)
+        B, S, _ = x.shape
+        if positions is None:
+            if cur_index is None:
+                positions = torch.arange(S, dtype=torch.int32,
+                                         device=x.device).expand(B, S)
+            elif torch.is_tensor(cur_index) and cur_index.dim() == 1:
+                positions = cur_index.to(x.device, torch.int32)[
+                    :, None].expand(B, S)
+            else:  # a scalar: filled on the device, no host-to-device copy
+                positions = torch.full((B, S), int(cur_index),
+                                       dtype=torch.int32, device=x.device)
+
+        entries = _flat_pattern(cfg)
+        built: dict[str, list] = {}
+        for g, group in enumerate(self.layers):
+            for name, kind in entries:
+                bc = None
+                if cache is not None and name in cache:
+                    bc = {key: leaf[g] for key, leaf in cache[name].items()}
+                x, nc = _apply_block(
+                    kind, group[name], x, cfg, cache=bc, cur_index=cur_index,
+                    positions=positions, want_cache=want_cache,
+                    s_alloc=s_alloc)
+                if want_cache and nc is not None:
+                    built.setdefault(name, []).append(nc)
+        new_cache = cache
+        if want_cache:
+            new_cache = {name: {key: torch.stack([c[key] for c in per])
+                                for key in per[0]}
+                         for name, per in built.items()}
+
+        x = L.apply_rmsnorm(self.final_norm, x)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        if not self.serving:
+            head = head.to(dt)
+        logits = x.float() @ head.float()
+        return logits, new_cache
+
+
+# ------------------------------------------------------------------ init
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> LM:
+    """Random parameters drawn from ``generator`` on ``device`` (the
+    generator must live there). Its draws are not the reference's
+    ``jax.random`` bits; ``params_from_jax`` carries those across."""
+    _check_ported(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    pd = L.param_dtype(cfg)
+    state = {"embed": (torch.randn((V, D), generator=generator,
+                                   dtype=torch.float32, device=device)
+                       * 0.02).to(pd),
+             "final_norm.scale": L.init_rmsnorm(cfg, device)["scale"]}
+    if not cfg.tie_embeddings:
+        state["lm_head"] = L.dense_init(generator, (D, V), D, pd, device)
+    for g in range(cfg.n_groups):
+        for name, kind in _flat_pattern(cfg):
+            for part, tensors in (
+                    ("norm", L.init_rmsnorm(cfg, device)),
+                    ("block", BLOCK_INIT[kind](generator, cfg, device))):
+                for w, t in tensors.items():
+                    state[f"layers.{g}.{name}.{part}.{w}"] = t
+    return LM(cfg, state)
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_alloc: int,
+               device=None) -> dict:
+    """Decode cache, leaves stacked over groups: [n_groups, ...]."""
+    cache = {}
+    for name, kind in _flat_pattern(cfg):
+        if kind in UNPORTED:
+            raise _unported(kind)
+        if kind in ATTN_KINDS:
+            window = cfg.window if kind == "local_attn" else 0
+            one = L.init_attn_cache(cfg, batch, s_alloc, window, device)
+            cache[name] = {key: leaf.expand(cfg.n_groups, *leaf.shape)
+                           .clone() for key, leaf in one.items()}
+    return cache
+
+
+# ------------------------------------------------------ crossing packages
+
+def _tensor(x) -> torch.Tensor:
+    """A numpy array (any float dtype, bfloat16 included) as a tensor."""
+    x = np.asarray(x)
+    if x.dtype.kind == "V" or x.dtype.name == "bfloat16":
+        x = x.astype(np.float32)
+    return torch.from_numpy(np.array(x))  # a writable copy
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict:
+    """The reference's parameter pytree (numpy leaves; group-stacked
+    ``[n_groups, ...]`` under ``groups``) as the port's state dict, in
+    ``cfg.param_dtype`` on the CPU: ``LM(cfg, params_from_jax(tree,
+    cfg))``."""
+    _check_ported(cfg)
+    pd = L.param_dtype(cfg)
+    state = {"embed": _tensor(tree["embed"]).to(pd),
+             "final_norm.scale": _tensor(tree["final_norm"]["scale"]).to(pd)}
+    if not cfg.tie_embeddings:
+        state["lm_head"] = _tensor(tree["lm_head"]).to(pd)
+    for name, _ in _flat_pattern(cfg):
+        for part in ("norm", "block"):
+            for w, stacked in tree["groups"][name][part].items():
+                arr = _tensor(stacked).to(pd)
+                for g in range(cfg.n_groups):
+                    state[f"layers.{g}.{name}.{part}.{w}"] = arr[g].clone()
+    return state
+
+
+def cache_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
+                   device=None) -> dict:
+    """A cache pytree written by the reference (numpy leaves) as the
+    port's cache: k/v in ``cfg.dtype`` (exact: the reference stores them
+    in that dtype), ``pos`` int32."""
+    dt = L.compute_dtype(cfg)
+    return {name: {key: (_tensor(leaf).to(torch.int32) if key == "pos"
+                         else _tensor(leaf).to(dt)).to(device)
+                   for key, leaf in sub.items()}
+            for name, sub in tree.items()}
+
+
+def cache_to_numpy(cache: Mapping[str, Any]) -> dict:
+    """The port's cache as numpy leaves in the reference's layout. numpy
+    has no bfloat16: bf16 k/v come out as float32 holding the same
+    values (``jnp.asarray(x, jnp.bfloat16)`` restores them exactly)."""
+    return {name: {key: (leaf.cpu().numpy() if key == "pos"
+                         else leaf.float().cpu().numpy())
+                   for key, leaf in sub.items()}
+            for name, sub in cache.items()}

@@ -219,6 +219,10 @@ class SlotScheduler:
         given slot order (one completion batch of a continuous tick)."""
         return [self.release(int(s)) for s in slots]
 
+    def occupant(self, slot: int) -> Optional[Any]:
+        """The request in ``slot``, or None when the slot is free."""
+        return self._occupant[slot]
+
     @property
     def active_slots(self) -> list[int]:
         return [s for s, it in enumerate(self._occupant) if it is not None]

@@ -1,0 +1,58 @@
+"""The port imports neither JAX nor the reference package.
+
+In a fresh interpreter, ``jax`` and ``repro`` are blocked
+(``sys.modules[name] = None`` makes any import of them raise), then every
+module of ``repro_torch`` found by ``pkgutil.walk_packages`` is imported.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import repro_torch
+failed = []
+seen = []
+def onerror(name):
+    failed.append((name, repr(sys.exc_info()[1])))
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.",
+                                  onerror=onerror):
+    seen.append(info.name)
+    try:
+        importlib.import_module(info.name)
+    except Exception as exc:
+        failed.append((info.name, repr(exc)))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                and sys.modules[m] is not None)
+print(json.dumps([seen, failed, leaked]))
+"""
+
+
+def test_repro_torch_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(SRC.parent))
+    assert out.returncode == 0, out.stderr
+    seen, failed, leaked = json.loads(out.stdout.strip().splitlines()[-1])
+    assert failed == [], failed
+    assert leaked == [], leaked
+    # Every module of the port was walked, the LM stack's included.
+    on_disk = {p.relative_to(SRC).with_suffix("").as_posix()
+               .replace("/", ".").removesuffix(".__init__")
+               for p in (SRC / "repro_torch").rglob("*.py")}
+    assert set(seen) | {"repro_torch"} == on_disk
+    for name in ("repro_torch.models.model", "repro_torch.configs.shapes",
+                 "repro_torch.serve.engine", "repro_torch.launch.serve"):
+        assert name in seen
