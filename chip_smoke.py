@@ -168,6 +168,30 @@ Phases, each fatal on failure:
    flipped; (d) one 8 x 512 prefill, a decode step at batch 8 and at 8
    slots (CUDA events, held and host-paced), tokens/s of both serves,
    peak memory and the decode step's bytes bound;
+4h. LM serving, the MoE and recurrent families (no C² kernel launches
+   in the phase; one model on the card at a time) — (a) OLMoE-1B-7B at
+   its full published config (16 layers, d 2,048, 16 heads of 128, 64
+   experts top-8 of d_ff 1,024, vocab 50,304; f32 parameters, bf16
+   compute, seed 0 on the card) through ``launch/serve``'s ``build`` and
+   ``run`` with phase 4g's flags, in waves, then through 8 continuous
+   slots: every request completes with its budget, every logit the
+   engine reads is finite; tokens equal across modes are counted, not
+   required (the expert capacity follows each call's token count), and
+   each prefill's capacity drops are printed by layer; (b) RecurrentGemma-
+   2B and xLSTM-125M at their full published configs served the same
+   way, their tokens equal across modes; (c) the three models' full widths
+   at 2 layers (one layer of each block kind), weights made on the CPU
+   and copied to the card: prefill and 3 decode steps at f32 (1e-4; for
+   OLMoE the (token, layer) expert choices compared first, a differing
+   one allowed only where the CPU side's 8th/9th router probabilities lie
+   within 1e-5, the logits held while every choice agrees), engine tokens
+   rid by rid per mode (phase 4g's near-tie rule) and bf16 prefill
+   logits (0.15); (d) for each model one 8 x 512 prefill (CUDA events and
+   its kernels by ``torch.profiler``), a decode step at batch 8 and at 8
+   slots (held and host-paced, kernels a step), tokens/s of both serves,
+   peak memory serving and building, and the decode step's bytes bound
+   (for OLMoE also the least: only the experts the step chose, with the
+   distinct experts per layer);
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -186,11 +210,13 @@ Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
 sharded placement's launches and 4-shard hop time under ``sharded``, and
 phases 4d's and 4e's launches path by path under ``phase_4d`` and
 ``phase_4e``; the cluster-KNN row the raw build's sweep under ``raw``)
-after a ``{"phase_4e": ...}``, a ``{"phase_4f": ...}`` and an
-``{"lm_serve": ...}`` line (phase 4g's figures and checks); then the
-card's name and power limit; then phase 4f's times, qualities and counts
-and the cluster-KNN row's times under short keys (``tail_summary``), so
-that a short tail of the log still holds them; then as the last line
+after a ``{"phase_4e": ...}``, a ``{"phase_4f": ...}``, an
+``{"lm_serve": ...}`` (phase 4g's figures and checks) and an
+``{"lm_serve_4h": ...}`` line (phase 4h's); then the card's name and
+power limit; then phase 4f's times, qualities and counts, the cluster-KNN
+row's times and OLMoE's tokens/s, decode ms and bounds under short keys
+(``tail_summary``), so that a short tail of the log still holds them;
+then as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3653,8 +3679,9 @@ def lm_profile(fn, steps: int = 3) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Device activity alone: a host-side record of every op (tens of
+    # thousands in xLSTM's prefill) would cost more than the call itself.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
@@ -3762,6 +3789,480 @@ def lm_serving(dev, smi: str) -> dict:
             + "; ".join(f"{name} {ms:.3f}" for name, ms in prof["top"]))
     log(f"[lm] phase 4g: {numbers['seconds']:.1f} s")
     return numbers
+
+
+# -- phase 4h: LM serving (the MoE and recurrent families) -----------------
+
+# Phase 4h's full-width models: the published configs (``configs/*.py``),
+# f32 parameters, bf16 compute, seed 0 on the card, served with phase 4g's
+# flags.
+PHASE_4H_ARCHS = ("olmoe-1b-7b", "recurrentgemma-2b", "xlstm-125m")
+# Card against CPU at full widths and 2 layers: one layer of each of the
+# model's block kinds (RecurrentGemma's own period is 13 layers, xLSTM's 6).
+PHASE_4H_CUTS = {
+    "olmoe-1b-7b": {},
+    "recurrentgemma-2b": {"block_pattern": (("rglru", "mlp"),
+                                            ("local_attn", "mlp"))},
+    "xlstm-125m": {"block_pattern": (("mlstm",), ("slstm",))},
+}
+# An expert choice may differ between the card and the CPU only where the
+# CPU side's k-th and (k+1)-th router probabilities lie this close: at
+# f32, where the router's input differs by sums in other orders; at bf16,
+# where it also rounds to bf16 at other places (one bf16 step of a
+# normalised activation moves a router logit by ~2e-3 and a probability
+# by ~1e-4, so a tenth of this bound).
+ROUTER_TIE = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+@contextlib.contextmanager
+def record_moe(calls: list, logits: bool = False, prefill_only=False):
+    """Wrap ``layers.apply_moe`` (the model calls it through the module):
+    each call appends its ``gate_e`` (and router logits with ``logits``),
+    cloned on the card; with ``prefill_only`` only calls over more than
+    one position a row."""
+    from repro_torch.models import layers as L
+
+    apply = L.apply_moe
+
+    def recorded(p, x, cfg):
+        y, (lg, gate_e) = apply(p, x, cfg)
+        if not prefill_only or x.shape[1] > 1:
+            calls.append((lg.clone() if logits else None, gate_e.clone(),
+                          x.shape[0] * x.shape[1]))
+        return y, (lg, gate_e)
+
+    L.apply_moe = recorded
+    try:
+        yield calls
+    finally:
+        L.apply_moe = apply
+
+
+def moe_drops(cfg, calls: list) -> list:
+    """Dropped (token, expert) choices of each recorded call, computed
+    from its ``gate_e`` and the capacity of its token count."""
+    from repro_torch.models import layers as L
+
+    return [int((~L.moe_kept(gate_e, L.moe_capacity(T, cfg),
+                             cfg.n_experts)).sum())
+            for _, gate_e, T in calls]
+
+
+def phase4h_serves(arch: str):
+    """(a)/(b) ``arch`` at its published width through ``launch/serve``'s
+    own ``build`` and ``run``: 32 requests in waves of 8, then the same
+    requests through 8 continuous slots. Every request completes with its
+    budget, every logit the engine reads is finite, no C² kernel
+    launches. Returns (figures, the continuous engine, whose serving
+    model (d) times)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import layers as L
+
+    argv = ["--arch", arch] + LM_SERVE_ARGV[2:]
+    out, outputs = {}, {}
+    engine = None
+    for label, extra in (("wave", []),
+                         ("continuous", ["--continuous", "--slots", "8"])):
+        # ``watch_logits`` ties the engine into a reference cycle: collect
+        # it, so the next build does not count the last serving copy.
+        engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = serve_cli.build(argv + extra)
+        cfg = engine.cfg
+        if engine.device.type != "cuda":
+            fail(f"{arch} {label} serve built on {engine.device}")
+        # The build holds the f32 parameters and the serving copy at once.
+        build_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        bad = watch_logits(engine)
+        budgets = {r.rid: r.max_new for r in engine.queue}
+        calls: list = []
+        reset_launches()
+        t0 = time.perf_counter()
+        with record_moe(calls, prefill_only=True):
+            stats = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        serve_cli.report(stats)
+        done = {r.rid: r.output for r in engine.done}
+        if sorted(done) != list(range(32)) or stats["completed"] != 32:
+            fail(f"{arch} {label} serve completed {sorted(done)}")
+        for rid, o in done.items():
+            if not (len(o) == budgets[rid] and (o >= 0).all()
+                    and (o < cfg.vocab_size).all()):
+                fail(f"{arch} {label} serve: request {rid} gave {o} "
+                     f"(budget {budgets[rid]})")
+        if int(bad):
+            fail(f"{arch} {label} serve read {int(bad)} non-finite logits")
+        if any(launches.values()):
+            fail(f"{arch} {label} serve launched C² kernels: {launches}")
+        out[label] = {key: stats[key] for key in (
+            "requests", "waves", "tokens", "tokens_per_s", "decode_steps",
+            "prefills", "mean_latency_s", "p95_latency_s")}
+        out[label].update(wall_s=wall, build_peak_gb=build_gb,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if calls:
+            # Capacity drops of each prefill, layer by layer (a wave's 8 x
+            # 512 tokens; a slot's 1 x 512).
+            drops = np.array(moe_drops(cfg, calls)).reshape(
+                -1, cfg.n_layers)
+            out[label]["prefill_drops_by_layer"] = {
+                "first": drops[0].tolist(), "sum": drops.sum(0).tolist(),
+                "choices_per_prefill": int(calls[0][2]
+                                           * cfg.experts_per_token),
+                "capacity": L.moe_capacity(calls[0][2], cfg)}
+        outputs[label] = done
+        prompts = {r.rid: r.prompt for r in engine.done}
+        log(f"[lm4h] {arch} {label}: {stats['tokens']} tokens, "
+            f"{stats['tokens_per_s']:.1f} tok/s, {stats['decode_steps']} "
+            f"decode steps, {stats['prefills']} prefills, {wall:.2f} s, "
+            f"peak {out[label]['peak_gb']:.2f} GB serving, "
+            f"{build_gb:.2f} GB building")
+    wave, cont = outputs["wave"], outputs["continuous"]
+    diverged = {}
+    for rid, a in wave.items():
+        diff = np.flatnonzero(a != cont[rid])
+        if len(diff):
+            diverged[rid] = int(diff[0])
+    out["modes_equal_rids"] = same = 32 - len(diverged)
+    if cfg.n_experts:
+        # The expert capacity follows each call's token count, so the two
+        # modes may drop different tokens: counted, not required.
+        log(f"[lm4h] {arch}: wave and continuous tokens equal in {same} of "
+            f"32 requests (bf16; capacity depends on the batch)")
+        for label in ("wave", "continuous"):
+            d = out[label]["prefill_drops_by_layer"]
+            log(f"[lm4h] {arch} {label} prefill capacity drops by layer "
+                f"(capacity {d['capacity']}, {d['choices_per_prefill']} "
+                f"choices a prefill): first {d['first']}, all prefills "
+                f"{d['sum']}")
+    else:
+        # Both modes compute each row alike, but cuBLAS picks its kernels
+        # by batch shape (a wave prefills 8 rows, a slot one), so bf16
+        # rounds at other places: a request may change tokens only from a
+        # step whose top-2 logit margin lies under 2 x LM_BF16_TOL.
+        margins = mode_margins(engine.model, prompts, wave, diverged)
+        wide = {rid: m for rid, m in margins.items()
+                if not m < 2 * LM_BF16_TOL}
+        if wide:
+            fail(f"{arch}: wave and continuous tokens part away from a "
+                 f"near tie (request: margin) {wide}")
+        out["mode_divergence_margins"] = margins
+        log(f"[lm4h] {arch}: wave and continuous tokens equal in {same} of "
+            f"32 requests (bf16); the others part at top-2 margins "
+            f"{sorted(round(m, 4) for m in margins.values())}")
+    return out, engine
+
+
+def mode_margins(model, prompts: dict, outs: dict, steps: dict) -> dict:
+    """Top-2 logit margin, by request, at the step where its tokens part
+    between the modes: one forward (rows batched) over the prompt
+    left-padded to 512, the tokens before that step, then padding to
+    1,024 (causal, so the padding does not reach the step; a multiple of
+    the attention's 512-position blocks)."""
+    import numpy as np
+    import torch
+
+    margins = {}
+    rids = sorted(steps)
+    # As many rows a forward as keep its f32 logits near 4 GB.
+    rows = max(1, int(4e9 // (1024 * model.cfg.vocab_size * 4)))
+    for i in range(0, len(rids), rows):
+        part = rids[i:i + rows]
+        seq = np.zeros((len(part), 1024), np.int32)
+        for j, rid in enumerate(part):
+            seq[j, 512 - len(prompts[rid]):512] = prompts[rid]
+            seq[j, 512:512 + steps[rid]] = outs[rid][:steps[rid]]
+        with torch.inference_mode():
+            logits, _ = model(tokens=torch.from_numpy(seq).to(model.device))
+        for j, rid in enumerate(part):
+            top2 = torch.topk(logits[j, 511 + steps[rid]], 2).values
+            margins[rid] = float(top2[0] - top2[1])
+        del logits
+    return margins
+
+
+def decode_bytes(model, cache: dict, B: int, S: int) -> int:
+    """Bytes one decode step at ``B`` rows and position ``S`` must move as
+    the port holds the model: every parameter the step reads (the block
+    weights in the compute dtype, the f32 router / ``lam`` / ``r_z`` and
+    norms, the f32 head; the embedding only for its B rows when untied),
+    the valid attention cache read, the recurrent states read and
+    written."""
+    cfg = model.cfg
+    total = 0
+    for name, p in model.named_parameters():
+        if name == "embed" and not cfg.tie_embeddings:
+            total += B * p.shape[1] * p.element_size()
+        else:
+            total += p.numel() * p.element_size()
+    for sub in cache.values():
+        if "pos" in sub:
+            alloc = sub["k"].shape[2]
+            valid = min(S + 1, alloc)
+            for key in ("k", "v"):
+                leaf = sub[key]
+                total += (leaf.numel() // alloc * valid
+                          * leaf.element_size())
+        else:
+            total += sum(2 * leaf.numel() * leaf.element_size()
+                         for leaf in sub.values())
+    return total
+
+
+def phase4h_numbers(model, serves: dict) -> dict:
+    """(d) One 8 x 512 prefill (CUDA events; its kernels by
+    ``torch.profiler``), a decode step at batch 8 (scalar position) and at
+    8 slots (per-row positions), held and host-paced, with its kernels a
+    step; tokens/s of both serves; the decode step's bytes bound; for MoE
+    also the least bytes, only the experts the step's tokens chose."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.steps import decode_step, prefill_step
+
+    cfg = model.cfg
+    dev = model.device
+    B, S, alloc = 8, 512, 576
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    prefill = functools.partial(prefill_step, model, toks, s_alloc=alloc)
+    prefill_ms = lm_device_ms(prefill, reps=2)
+    prefill_prof = lm_profile(prefill, steps=1)
+    logits, cache = prefill()
+    # The same rows prefilled alone: how far bf16 rounding moves the last
+    # position's logits when only the batch shape changes.
+    alone = [float((prefill_step(model, toks[j:j + 1], s_alloc=alloc)[0][
+        0, -1] - logits[j, -1]).abs().max()) for j in range(2)]
+    del logits
+    tok = toks[:, -1:].contiguous()
+    ccache = {name: {key: (leaf[:, None, :].expand(-1, B, -1).clone()
+                           if key == "pos" else leaf.clone())
+                     for key, leaf in sub.items()}
+              for name, sub in cache.items()}
+    rows = torch.full((B,), S, dtype=torch.int32, device=dev)
+
+    def wave():
+        return decode_step(model, cache, tok, S)
+
+    def slots():
+        return decode_step(model, ccache, tok, rows)
+
+    out = {"prefill_8x512_ms": prefill_ms, "prefill_profile": prefill_prof,
+           "prefill_batch8_vs_alone_logit_diff": alone,
+           "decode_batch8_ms": lm_device_ms(wave, 5),
+           "decode_slots8_ms": lm_device_ms(slots, 5),
+           "decode_batch8_paced_ms": cuda_ms(wave, reps=5, inner=3),
+           "decode_slots8_paced_ms": cuda_ms(slots, reps=5, inner=3),
+           "profile": {"decode_batch8": lm_profile(wave),
+                       "decode_slots8": lm_profile(slots)},
+           "tokens_per_s": {label: serves[label]["tokens_per_s"]
+                            for label in ("wave", "continuous")},
+           "peak_gb": max(serves[label]["peak_gb"]
+                          for label in ("wave", "continuous")),
+           "build_peak_gb": serves["wave"]["build_peak_gb"],
+           "param_count": cfg.param_count(), "bound_by": "bytes"}
+    port_bytes = decode_bytes(model, cache, B, S)
+    out["decode_bytes"] = {"port_reads": port_bytes}
+    out["decode_bound_ms"] = {"port_reads_ms":
+                              port_bytes / HBM_BYTES_PER_S * 1e3}
+    if cfg.n_experts:
+        calls: list = []
+        with record_moe(calls):
+            wave()
+        distinct = [int(gate_e.unique().numel()) for _, gate_e, _ in calls]
+        expert_bytes = 3 * cfg.d_model * cfg.d_ff * 2  # one bf16 expert
+        least = port_bytes - sum(cfg.n_experts - d
+                                 for d in distinct) * expert_bytes
+        out["decode_distinct_experts_by_layer"] = distinct
+        out["decode_bytes"]["chosen_experts_only"] = least
+        out["decode_bound_ms"]["chosen_experts_only_ms"] = (
+            least / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def phase4h_card_vs_cpu(dev, arch: str) -> dict:
+    """(c) ``arch``'s full widths at 2 layers, weights made on the CPU and
+    copied to the card: prefill and 3 decode steps at f32 compute (logits
+    within ``LM_F32_TOL``; for MoE the expert choices compared first, a
+    differing choice allowed only at a router near tie and the logits
+    held while every choice agrees), engine tokens rid by rid per mode
+    (phase 4g's near-tie rule), prefill logits at bf16."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM, init_params
+    from repro_torch.serve.steps import decode_step, prefill_step
+
+    matmul = torch.backends.cuda.matmul
+    if matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("f32 products must run in full f32 on the card (TF32 is on)")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
+                              **PHASE_4H_CUTS[arch])
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = cpu.state_dict()
+    card = LM(cfg, {k: v.to(dev) for k, v in state.items()})
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (3, 2, 1)).astype(np.int32)
+    runs = []
+    for model in (cpu, card):
+        calls: list = []
+        with record_moe(calls, logits=True):
+            lg, cache = prefill_step(
+                model, torch.from_numpy(toks).to(model.device), s_alloc=20)
+            steps = [lg.cpu()]
+            for i in range(3):
+                lg, cache = decode_step(model, cache, torch.from_numpy(
+                    nxt[i]).to(model.device), 16 + i)
+                steps.append(lg.cpu())
+        runs.append((steps, calls))
+    (cpu_steps, cpu_calls), (card_steps, card_calls) = runs
+    errs = [float((a - b).abs().max()) for a, b in zip(cpu_steps, card_steps)]
+    out = {"f32_prefill_err": errs[0], "f32_decode_err": errs[1:],
+           "logit_scale": float(cpu_steps[0].abs().max())}
+    held = len(errs)
+    if cfg.n_experts:
+        agree, total, first_bad = routing_agreement(
+            cfg, cpu_calls, card_calls, f"{arch} 2 layers at f32")
+        if first_bad is not None:
+            held = first_bad
+        out["expert_choices_agree"] = [agree, total]
+    if not max(errs[:held], default=0.0) <= LM_F32_TOL:
+        fail(f"{arch} 2 layers: card against CPU logits at f32 {errs}")
+    out["f32_steps_held"] = held
+    out["tokens"] = lm_engine_tokens(cpu, card, f"{arch} 2 layers")
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    runs16 = []
+    for model in (LM(cfg16, state),
+                  LM(cfg16, {k: v.to(dev) for k, v in state.items()})):
+        calls = []
+        with torch.inference_mode(), record_moe(calls, logits=True):
+            lg16, _ = model(tokens=torch.from_numpy(toks).to(model.device))
+        runs16.append((lg16.cpu(), calls))
+    (ref16, cpu_calls), (lg16, card_calls) = runs16
+    out["bf16_prefill_err"] = float((lg16 - ref16).abs().max())
+    bf16_held = True
+    if cfg.n_experts:
+        agree, total, first_bad = routing_agreement(
+            cfg16, cpu_calls, card_calls, f"{arch} 2 layers at bf16")
+        out["bf16_expert_choices_agree"] = [agree, total]
+        bf16_held = first_bad is None
+    if bf16_held and not out["bf16_prefill_err"] <= LM_BF16_TOL:
+        fail(f"{arch} 2 layers: card against CPU logits at bf16 "
+             f"{out['bf16_prefill_err']}")
+    out["bf16_held"] = bf16_held
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[lm4h] {arch} 2 layers, card against CPU: f32 prefill err "
+        f"{errs[0]:.2e}, decode {max(errs[1:]):.2e} (logits up to "
+        f"{out['logit_scale']:.2f}; {held} of 4 steps held); tokens "
+        f"{out['tokens']}; bf16 err {out['bf16_prefill_err']:.4f} "
+        f"({'held' if bf16_held else 'not held: routing differs'}); "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def routing_agreement(cfg, cpu_calls: list, card_calls: list, label: str):
+    """(token, layer) expert choices of the CPU and the card, call by
+    call (layer by layer, step by step). A differing choice fails unless
+    the CPU side's k-th and (k+1)-th router probabilities lie within
+    ``ROUTER_TIE``. Returns (agreeing, compared, the first step with a
+    difference or None)."""
+    import torch
+
+    k = cfg.experts_per_token
+    agree = total = 0
+    first_bad = None
+    widest = 0.0
+    for j, ((lg_c, ge_c, _), (_, ge_g, _)) in enumerate(
+            zip(cpu_calls, card_calls, strict=True)):
+        ge_c, ge_g = ge_c.cpu(), ge_g.cpu()
+        same = (ge_c.sort(1).values == ge_g.sort(1).values).all(1)
+        agree += int(same.sum())
+        total += same.numel()
+        if not same.all():
+            probs = torch.softmax(lg_c.float(), dim=-1).sort(
+                dim=-1, descending=True).values
+            margin = (probs[:, k - 1] - probs[:, k])[~same]
+            widest = max(widest, float(margin.max()))
+            if not (margin < ROUTER_TIE[cfg.dtype]).all():
+                fail(f"{label}: card and CPU choose other experts away "
+                     f"from a router tie (margins {margin.tolist()})")
+            if first_bad is None:
+                first_bad = j // cfg.n_layers
+    log(f"[lm4h] {label}: {agree} of {total} (token, layer) expert choices "
+        f"agree, card against CPU"
+        + (f" (widest margin where they differ {widest:.2e})"
+           if agree < total else ""))
+    return agree, total, first_bad
+
+
+def lm_moe_recurrent(dev, smi: str) -> dict:
+    """Phase 4h: the LM stack's serving path for the MoE and recurrent
+    families on the card, one model at a time (each freed before the
+    next loads)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    reset_launches()
+    out = {}
+    for arch in PHASE_4H_ARCHS:
+        ta = time.perf_counter()
+        torch.cuda.empty_cache()
+        serves, engine = phase4h_serves(arch)
+        numbers = phase4h_numbers(engine.model, serves)
+        numbers["serves"] = serves
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        numbers["card_vs_cpu"] = phase4h_card_vs_cpu(dev, arch)
+        numbers["seconds"] = time.perf_counter() - ta
+        out[arch] = numbers
+        bound = numbers["decode_bound_ms"]
+        log(f"[lm4h] {arch}: prefill 8 x 512 "
+            f"{numbers['prefill_8x512_ms']:.3f} ms "
+            f"({numbers['prefill_profile']['kernels']:.0f} kernels, "
+            f"{numbers['prefill_profile']['kernel_ms']:.3f} ms of them); "
+            f"decode batch 8 {numbers['decode_batch8_ms']:.3f} ms (paced "
+            f"{numbers['decode_batch8_paced_ms']:.3f}), 8 slots "
+            f"{numbers['decode_slots8_ms']:.3f} ms (paced "
+            f"{numbers['decode_slots8_paced_ms']:.3f}); bound "
+            + ", ".join(f"{key} {ms:.3f}" for key, ms in bound.items())
+            + f"; peak {numbers['peak_gb']:.2f} GB serving, "
+            f"{numbers['build_peak_gb']:.2f} GB building; {smi}")
+        log(f"[lm4h] {arch}: last-position logits of a row prefilled in "
+            f"the batch of 8 and alone differ by "
+            f"{numbers['prefill_batch8_vs_alone_logit_diff']} (bf16)")
+        if "decode_distinct_experts_by_layer" in numbers:
+            log(f"[lm4h] {arch}: distinct experts a decode step chose, by "
+                f"layer: {numbers['decode_distinct_experts_by_layer']}")
+        for label, prof in numbers["profile"].items():
+            log(f"[lm4h] {arch} {label} profile: {prof['kernels']:.0f} "
+                f"kernels, {prof['kernel_ms']:.3f} ms of them a step; "
+                "longest " + "; ".join(f"{name} {ms:.3f}"
+                                       for name, ms in prof["top"]))
+        log(f"[lm4h] {arch}: {numbers['seconds']:.1f} s")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"phase 4h launched C² kernels: {launches}")
+    out.update(c2_launches=launches, card=smi,
+               seconds=time.perf_counter() - t0)
+    log(f"[lm4h] phase 4h: {out['seconds']:.1f} s; C² launches {launches}")
+    return out
 
 
 # -- phase 5: timing at the main path's shapes -----------------------------
@@ -4230,10 +4731,10 @@ TAIL_KEYS = {"seconds": "s", "quality": "q", "launches": "n", "iters": "it",
              "speedup_vs_best_baseline": "x", "incidence_seconds": "inc_s"}
 
 
-def tail_summary(slice10: dict, ck_row: dict, lm: dict) -> dict:
+def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict) -> dict:
     """Phase 4f's times, qualities and counts, the cluster-KNN row's times
-    (main-path sweep, its launches' device time, the raw sweep) and phase
-    4g's LM serving figures."""
+    (main-path sweep, its launches' device time, the raw sweep), phase
+    4g's LM serving figures and phase 4h's OLMoE figures."""
     def r(x):
         return round(x, 4) if isinstance(x, float) else x
 
@@ -4254,10 +4755,20 @@ def tail_summary(slice10: dict, ck_row: dict, lm: dict) -> dict:
         "peak_gb")}
     lm_short["tok_s"] = {k: r(v) for k, v in lm["tokens_per_s"].items()}
     lm_short["bound_ms"] = r(lm["decode_bound_ms"]["bf16_weights_ms"])
-    return {"phase_4f": out, "lm_serve": lm_short, "goldfinger_knn": {
-        "ms": r(ck_row["ms"]), "launch_sum_ms": r(ck_row["launch_sum_ms"]),
-        "raw": {key: r(raw[key]) for key in ("launches", "ms", "plain_ms",
-                                             "bound_ms", "bound_by")}}}
+    olmoe = lm4h["olmoe-1b-7b"]
+    olmoe_short = {"tok_s": {k: r(v) for k, v in
+                             olmoe["tokens_per_s"].items()},
+                   "decode_ms": r(olmoe["decode_batch8_ms"]),
+                   "decode_paced_ms": r(olmoe["decode_batch8_paced_ms"]),
+                   "bound_ms": {k: r(v) for k, v in
+                                olmoe["decode_bound_ms"].items()},
+                   "s": r(lm4h["seconds"])}
+    ck_short = {"ms": r(ck_row["ms"]),
+                "launch_sum_ms": r(ck_row["launch_sum_ms"]),
+                "raw": {key: r(raw[key]) for key in (
+                    "launches", "ms", "plain_ms", "bound_ms", "bound_by")}}
+    return {"phase_4f": out, "lm_serve": lm_short, "olmoe": olmoe_short,
+            "goldfinger_knn": ck_short}
 
 
 def main() -> int:
@@ -4327,6 +4838,7 @@ def main() -> int:
         tick_breakdown(run["cont_engine"])
         build_stages(run["engine"])
     lm = lm_serving(dev, smi)
+    lm4h = lm_moe_recurrent(dev, smi)
     ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
                                 slice10["AM@0.055"].pop("raw_err"))
     # Phase 4f: the raw-mode build's Step-2 sweep (W = 5,355 on AM@0.055),
@@ -4371,9 +4883,10 @@ def main() -> int:
                      default=lambda o: o.tolist()))
     print(json.dumps({"phase_4f": slice10}, default=lambda o: o.tolist()))
     print(json.dumps({"lm_serve": lm}))
+    print(json.dumps({"lm_serve_4h": lm4h}, default=lambda o: o.tolist()))
     print(json.dumps({"kernels": rows}))
     print(smi)
-    print(json.dumps(tail_summary(slice10, ck_row, lm),
+    print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h),
                      separators=(",", ":"), default=lambda o: o.tolist()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

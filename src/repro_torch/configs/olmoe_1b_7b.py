@@ -1,5 +1,8 @@
-"""OLMoE-1B-7B [arXiv:2409.02060; hf]: 16L d=2048 16H (MHA) per-expert
-d_ff=1024, 64 experts top-8, vocab 50304. ~7B total / ~1.3B active."""
+"""OLMoE-1B-7B [arXiv:2409.02060; hf:allenai/OLMoE-1B-7B config.json]:
+16L d=2048 16H (MHA) head_dim 128, per-expert SwiGLU d_ff=1024, 64
+experts top-8, vocab 50304. ~6.9B total / ~1.3B active. The published
+model normalises q and k; the reference's attention block does not. The
+capacity factor 1.25 is the reference's default."""
 from repro_torch.models.config import ModelConfig
 
 

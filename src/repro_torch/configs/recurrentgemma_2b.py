@@ -1,6 +1,7 @@
-"""RecurrentGemma-2B (Griffin) [arXiv:2402.19427; hf]: 26L d=2560 10H MQA
-head_dim=256, GeGLU d_ff=7680, vocab 256000, RG-LRU + local attention
-(window 2048) at a 2:1 ratio. 26 = 2×13, so the (r,r,a) cycle is encoded
+"""RecurrentGemma-2B (Griffin) [arXiv:2402.19427;
+hf:google/recurrentgemma-2b config.json]: 26L d=2560 10H MQA head_dim=256,
+GeGLU d_ff=7680, vocab 256000, RG-LRU + local attention (window 2048) at
+a 2:1 ratio. 26 = 2×13, so the (r,r,a) cycle is encoded
 as a 13-layer pattern (9r+4a) — identical block counts (18 recurrent /
 8 attention), positions shifted by one in the second half. subquadratic →
 runs long_500k (local-attn ring cache + O(1) recurrent state)."""

@@ -1,4 +1,5 @@
-"""xLSTM-125M [arXiv:2405.04517; unverified]: 12 blocks d=768 4 heads,
+"""xLSTM-125M [arXiv:2405.04517, the paper's 125M language-model scale;
+no released config.json, so unverified]: 12 blocks d=768 4 heads,
 no separate FFN (d_ff=0; xLSTM blocks carry their own up/down projection).
 mLSTM:sLSTM ratio 5:1 (period-6 pattern), per the paper's mostly-mLSTM
 small configs. subquadratic → runs long_500k with O(1) state."""

@@ -10,8 +10,11 @@ drive it with synthetic requests.
 on ``--device`` (default ``cuda``; without a card that raises at once,
 ``--device cpu`` runs on the CPU). ``--continuous`` streams the requests
 through ``--slots`` decode slots instead of closed waves of
-``--max-batch`` (identical tokens). The requests are the reference
-launcher's for the same seed and flags.
+``--max-batch``: the same tokens for dense and recurrent models (e.g.
+``--arch recurrentgemma-2b``, ``xlstm-125m``) up to bf16 rounding at a
+near tie; for MoE models (``olmoe-1b-7b``) the expert capacity follows
+each call's batch, so the two modes can drop different tokens. The
+requests are the reference launcher's for the same seed and flags.
 """
 from __future__ import annotations
 

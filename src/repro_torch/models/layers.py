@@ -1,7 +1,9 @@
-"""Decoder blocks of the dense family: RMSNorm, RoPE, GQA/MQA attention
-(chunked online softmax, one-token decode over a ring cache, sliding
-window) and the gated / plain MLPs (torch port of the dense part of
-``repro.models.layers``).
+"""Decoder blocks: RMSNorm, RoPE, GQA/MQA attention (chunked online
+softmax, one-token decode over a ring cache, sliding window), the gated /
+plain MLPs, the sort-based capacity MoE, RG-LRU (RecurrentGemma) and
+mLSTM / sLSTM (xLSTM) (torch port of ``repro.models.layers``; the MoE's
+single-device branch: the expert-parallel ``shard_map`` goes with the
+mesh).
 
 Pure-function style, as the reference: ``init_*`` builds a dict of
 tensors from a ``torch.Generator``, ``apply_*`` consumes a mapping of
@@ -16,6 +18,9 @@ reference's do. Masked scores are -1e30, not -inf, as in the reference.
 
 Decode updates the cache tensors it is given IN PLACE (the reference
 returns a new cache); callers that want to keep a cache clone it first.
+Three parameters are read in f32 and unrounded, as the reference reads
+them: the MoE ``router``, RG-LRU's ``lam`` and sLSTM's ``r_z``
+(``F32_PARAMS``).
 """
 from __future__ import annotations
 
@@ -25,12 +30,15 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.knn.topk import topk_desc
 from repro_torch.models.config import ModelConfig
 
 Params = Mapping[str, torch.Tensor]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MASKED = -1e30  # the reference's mask value and online-softmax start
+# Parameters every block reads in f32, never rounded to the compute dtype.
+F32_PARAMS = ("router", "lam", "r_z")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -290,3 +298,425 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
         raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}; "
                          f"supported: {MLP_TYPES}")
     return h @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------- MoE
+
+def init_moe(gen: torch.Generator, cfg, device=None) -> dict:
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    pd = param_dtype(cfg)
+    return {
+        "router": dense_init(gen, (D, E), D, pd, device),
+        "w_gate": dense_init(gen, (E, D, F_), D, pd, device),
+        "w_up": dense_init(gen, (E, D, F_), D, pd, device),
+        "w_down": dense_init(gen, (E, F_, D), F_, pd, device),
+    }
+
+
+def moe_capacity(n_tokens: int, cfg) -> int:
+    """Rows each expert computes in a call over ``n_tokens`` tokens, pads
+    included: ceil(n·k·cf / E), at least 8, rounded up to a multiple of
+    8. It depends on the batch a token is served in."""
+    c = math.ceil(n_tokens * cfg.experts_per_token * cfg.capacity_factor
+                  / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_route(xt: torch.Tensor, router: torch.Tensor, k: int):
+    """Router of ``xt`` [T, D]: logits f32 [T, E] from the activations
+    upcast and the f32 router, softmax, the top k (ties to the lowest
+    expert, as ``lax.top_k``) and their weights renormalised by
+    max(sum, 1e-9). Returns (logits, gate_w f32 [T, k], gate_e [T, k])."""
+    logits = xt.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_e = topk_desc(probs, k)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, gate_w, gate_e
+
+
+def _moe_slots(gate_e: torch.Tensor, capacity: int, n_experts: int):
+    """The reference's capacity buckets: the flat expert ids sorted
+    stably, each entry's position in its expert's run from a left
+    searchsorted, slot e·C + position, or the trash slot E·C past
+    capacity. Returns (order, slot in sorted order, valid in sorted
+    order)."""
+    T, k = gate_e.shape
+    flat_e = gate_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    run_start = torch.searchsorted(se, se, side="left")
+    pos = torch.arange(T * k, device=gate_e.device) - run_start
+    valid = pos < capacity
+    slot = torch.where(valid, se * capacity + pos, n_experts * capacity)
+    return order, slot, valid
+
+
+def moe_kept(gate_e: torch.Tensor, capacity: int,
+             n_experts: int) -> torch.Tensor:
+    """bool [T, k]: True where a token's expert choice got a capacity
+    slot, False where it was dropped."""
+    order, _, valid = _moe_slots(gate_e, capacity, n_experts)
+    kept = torch.empty_like(valid)
+    kept[order] = valid
+    return kept.reshape(gate_e.shape)
+
+
+def _moe_bucketed(xt, gate_w, gate_e, wg, wu, wd, capacity: int, dt):
+    """Sort-based capacity-bucketed dispatch over all experts: every
+    expert computes its ``capacity`` rows [E, C, D] (empty rows are zero),
+    each row's output is scaled by its gate weight rounded to ``dt``, and
+    each token sums its kept choices in ascending expert id, in ``dt`` —
+    the order of the reference's scatter-add, but per token, so the card
+    gives the same sum on every run (no atomics)."""
+    T, k = gate_e.shape
+    E = wg.shape[0]
+    order, slot, valid = _moe_slots(gate_e, capacity, E)
+    tok = order // k
+    gw = gate_w.reshape(-1)[order]
+    n_slots = E * capacity + 1  # the last one is the trash
+    slot_tok = torch.zeros(n_slots, dtype=torch.long, device=xt.device)
+    slot_tok[slot] = tok
+    slot_gw = torch.zeros(n_slots, dtype=gw.dtype, device=xt.device)
+    slot_gw[slot] = torch.where(valid, gw, 0.0)
+    slot_live = torch.zeros(n_slots, dtype=torch.bool, device=xt.device)
+    slot_live[slot] = valid
+
+    xin = xt[slot_tok[:-1]] * slot_live[:-1, None].to(xt.dtype)
+    xin = xin.reshape(E, capacity, -1)                   # [E, C, D]
+    g = F.silu(torch.bmm(xin, wg.to(dt)))
+    u = torch.bmm(xin, wu.to(dt))
+    y = torch.bmm(g * u, wd.to(dt)).reshape(E * capacity, -1)
+    y = y * slot_gw[:-1, None].to(y.dtype)
+    y = torch.where(slot_live[:-1, None], y, 0.0).to(xt.dtype)
+    y = torch.cat([y, y.new_zeros(1, y.shape[1])])       # trash → 0
+
+    # Each (token, choice)'s slot, the choices in ascending expert id.
+    tk_slot = torch.empty_like(slot)
+    tk_slot[order] = slot
+    by_e = torch.argsort(gate_e, dim=1)
+    tk_slot = torch.gather(tk_slot.reshape(T, k), 1, by_e)
+    out = torch.zeros_like(xt)
+    for j in range(k):
+        out = out + y[tk_slot[:, j]]
+    return out
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg):
+    """Top-k MoE on one device; returns (y [B, S, D], (router logits f32
+    [B·S, E], gate_e [B·S, k])). The capacity comes from this call's
+    B·S tokens, pads included, so which tokens are dropped depends on the
+    batch (waves and continuous slots can give different tokens)."""
+    B, S, D = x.shape
+    dt = compute_dtype(cfg)
+    xt = x.reshape(B * S, D)
+    logits, gate_w, gate_e = moe_route(xt, p["router"],
+                                       cfg.experts_per_token)
+    out = _moe_bucketed(xt, gate_w, gate_e, p["w_gate"], p["w_up"],
+                        p["w_down"], moe_capacity(B * S, cfg), dt)
+    return out.reshape(B, S, D), (logits, gate_e)
+
+
+# ---------------------------------------------------------------- RG-LRU
+
+RGLRU_C = 8.0  # the recurrence gate's exponent scale
+
+
+def init_rglru(gen: torch.Generator, cfg, device=None) -> dict:
+    D = cfg.d_model
+    w = cfg.rglru_width or D
+    cw = cfg.conv_width
+    pd = param_dtype(cfg)
+    return {
+        "w_x": dense_init(gen, (D, w), D, pd, device),
+        "w_gate": dense_init(gen, (D, w), D, pd, device),
+        "conv_w": dense_init(gen, (cw, w), cw, pd, device),
+        "w_rec_gate": dense_init(gen, (w, w), w, pd, device),
+        "w_in_gate": dense_init(gen, (w, w), w, pd, device),
+        # Uniform in [1, 4), f32 whatever the parameter dtype.
+        "lam": 1.0 + 3.0 * torch.rand((w,), generator=gen,
+                                      dtype=torch.float32, device=device),
+        "w_out": dense_init(gen, (w, D), w, pd, device),
+    }
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan along axis 1 of (a1, b1) ∘ (a2, b2) = (a1·a2,
+    a2·b1 + b2), in ``lax.associative_scan``'s order: pairs combined,
+    the half-length scan by recursion, then the even elements from the
+    odd ones (log-depth; the same association as the reference)."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a1, b1, a2, b2 = a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = _linear_scan(a1 * a2, a2 * b1 + b2)
+    pa, pb = (odd_a[:, :-1], odd_b[:, :-1]) if n % 2 == 0 else (odd_a, odd_b)
+    na, nb = a[:, 2::2], b[:, 2::2]
+    even_a = torch.cat([a[:, :1], pa * na], dim=1)
+    even_b = torch.cat([b[:, :1], na * pb + nb], dim=1)
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    out_a[:, 0::2], out_a[:, 1::2] = even_a, odd_a
+    out_b[:, 0::2], out_b[:, 1::2] = even_b, odd_b
+    return out_a, out_b
+
+
+def _causal_conv(xc: torch.Tensor, conv_w: torch.Tensor, S: int):
+    """Depthwise causal conv over ``xc`` [B, S + cw - 1, w]: products
+    added in order j = 0 … cw-1, in the compute dtype."""
+    out = xc[:, 0:S] * conv_w[0]
+    for j in range(1, conv_w.shape[0]):
+        out = out + xc[:, j:j + S] * conv_w[j]
+    return out
+
+
+def apply_rglru(p: Params, x: torch.Tensor, cfg, *, cache=None,
+                want_cache: bool = False):
+    """Griffin recurrent block: conv1d → RG-LRU, GeGLU-style gating.
+    Prefill (``cache`` None) runs the recurrence as a log-depth scan in
+    f32 from h = 0, left pads included; ``want_cache`` returns {"h" f32
+    [B, w], "conv" [B, cw-1, w]}. Decode (S == 1) steps ``cache`` in
+    place."""
+    B, S, D = x.shape
+    dt = compute_dtype(cfg)
+    w = cfg.rglru_width or D
+    cw = cfg.conv_width
+    xb = x @ p["w_x"].to(dt)                             # [B, S, w]
+    gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
+    conv_w = p["conv_w"].to(dt)
+    if cache is None:
+        pad = torch.zeros((B, cw - 1, w), dtype=xb.dtype, device=x.device)
+        xc = torch.cat([pad, xb], dim=1)
+        conv = _causal_conv(xc, conv_w, S)
+        conv_state = xc[:, S:] if cw > 1 else None
+    else:
+        hist = torch.cat([cache["conv"].to(dt), xb], dim=1)
+        conv = _causal_conv(hist, conv_w, 1)
+        conv_state = hist[:, 1:]
+
+    r = torch.sigmoid((conv @ p["w_rec_gate"].to(dt)).float())
+    i = torch.sigmoid((conv @ p["w_in_gate"].to(dt)).float())
+    lam = p["lam"].float()
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
+    a = torch.exp(-RGLRU_C * softplus * r)               # [B, S, w]
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9)) * (i * conv.float())
+    new_cache = None
+    if cache is None:
+        # From h0 = 0 the scan's b is h (the reference adds a_s · 0).
+        _, h = _linear_scan(a, b)
+        if want_cache and conv_state is not None:
+            new_cache = {"h": h[:, -1], "conv": conv_state.to(dt)}
+    else:
+        h = a * cache["h"][:, None, :] + b
+        cache["h"].copy_(h[:, -1])
+        cache["conv"].copy_(conv_state.to(dt))
+        new_cache = cache
+    y = (h.to(dt) * gate) @ p["w_out"].to(dt)
+    return y, new_cache
+
+
+def init_rglru_cache(cfg, batch: int, device=None) -> dict:
+    w = cfg.rglru_width or cfg.d_model
+    return {
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, w),
+                            dtype=compute_dtype(cfg), device=device),
+    }
+
+
+# ---------------------------------------------------------------- xLSTM
+
+def lstm_dims(cfg):
+    """(up-projection width 2·D, heads, head width)."""
+    w = 2 * cfg.d_model
+    H = max(cfg.n_heads, 1)
+    return w, H, w // H
+
+
+def init_mlstm(gen: torch.Generator, cfg, device=None) -> dict:
+    D = cfg.d_model
+    w, H, _ = lstm_dims(cfg)
+    pd = param_dtype(cfg)
+    return {
+        "w_up": dense_init(gen, (D, w), D, pd, device),
+        "w_q": dense_init(gen, (w, w), w, pd, device),
+        "w_k": dense_init(gen, (w, w), w, pd, device),
+        "w_v": dense_init(gen, (w, w), w, pd, device),
+        "w_i": dense_init(gen, (w, H), w, pd, device),
+        "w_f": dense_init(gen, (w, H), w, pd, device),
+        "w_o": dense_init(gen, (w, w), w, pd, device),
+        "w_down": dense_init(gen, (w, D), w, pd, device),
+    }
+
+
+def _mlstm_chunkwise(q, k, v, i_g, f_g, C0, n0, chunk: int):
+    """Chunkwise-parallel mLSTM: within a chunk of L steps the recurrence
+    unrolls to a decay-masked attention (F_t = Π_{s≤t} f_s, in log space),
+
+        num_t = F_t·(C0 q_t) + Σ_{s≤t} (F_t/F_s)·i_s·(k_s·q_t)·v_s
+        den_t = F_t·(n0·q_t) + Σ_{s≤t} (F_t/F_s)·i_s·(k_s·q_t)
+        C_L   = F_L·C0 + Σ_s (F_L/F_s)·i_s·v_s k_sᵀ   (and n_L alike),
+
+    the reference's arithmetic chunk by chunk. Returns (h f32 [B, S, H,
+    hd], C, n)."""
+    B, S, H, hd = q.shape
+    L_ = min(chunk, S)
+    if S % L_:
+        raise ValueError(f"sequence {S} is not a multiple of the mLSTM "
+                         f"chunk {L_}")
+    tri = torch.tril(torch.ones((L_, L_), dtype=torch.bool,
+                                device=q.device))
+    C, n = C0, n0
+    hs = []
+    for c0 in range(0, S, L_):
+        qf = q[:, c0:c0 + L_].float()
+        kf = k[:, c0:c0 + L_].float()
+        vf = v[:, c0:c0 + L_].float()
+        ib, fb = i_g[:, c0:c0 + L_], f_g[:, c0:c0 + L_]
+        logf = torch.log(torch.clamp(fb.float(), 1e-9, 1.0))
+        cum = torch.cumsum(logf, dim=1)                  # [B, L, H]
+        Ft = torch.exp(cum)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]   # [B, L, L, H]
+        Dm = torch.where(tri[None, :, :, None],
+                         torch.exp(diff) * ib[:, None, :, :], 0.0)
+        scores = torch.einsum("bthd,bshd->btsh", qf, kf) * Dm
+        num = (torch.einsum("btsh,bshd->bthd", scores, vf)
+               + Ft[..., None] * torch.einsum("bhvk,bthk->bthv", C, qf))
+        den = (scores.sum(dim=2)
+               + Ft * torch.einsum("bhk,bthk->bth", n, qf))
+        hs.append(num / torch.clamp_min(den.abs(), 1.0)[..., None])
+        FL = Ft[:, -1]                                   # [B, H]
+        decay_s = torch.exp(cum[:, -1:, :] - cum) * ib   # [B, L, H]
+        C = (FL[:, :, None, None] * C
+             + torch.einsum("bsh,bshv,bshk->bhvk", decay_s, vf, kf))
+        n = FL[..., None] * n + torch.einsum("bsh,bshk->bhk", decay_s, kf)
+    return torch.cat(hs, dim=1), C, n
+
+
+def _mlstm_scan(q, k, v, i_g, f_g, C, n):
+    """The sequential recurrence, one step a token: C = f·C + i·v kᵀ,
+    n = f·n + i·k, h = C q / max(|n·q|, 1), all in f32."""
+    # Time-major copies: each step reads contiguous [B, H, ·] slices.
+    qf, kf, vf, i_t, f_t = (a.transpose(0, 1).float().contiguous()
+                            for a in (q, k, v, i_g, f_g))
+    hs = []
+    for t in range(q.shape[1]):
+        qt, kt = qf[t], kf[t]
+        it, ft = i_t[t], f_t[t]
+        C = ft[..., None, None] * C + it[..., None, None] * (
+            vf[t, :, :, :, None] * kt[..., None, :])
+        n = ft[..., None] * n + it[..., None] * kt
+        num = (C @ qt[..., None])[..., 0]
+        den = torch.clamp_min((n * qt).sum(-1).abs(), 1.0)
+        hs.append(num / den[..., None])
+    return torch.stack(hs, dim=1), C, n
+
+
+def apply_mlstm(p: Params, x: torch.Tensor, cfg, *, cache=None,
+                want_cache: bool = False):
+    """mLSTM block (xLSTM): matrix memory C_t = f C_{t−1} + i v kᵀ per
+    head, f32 [B, H, hd, hd]. The keys are f32: the reference divides
+    the compute-dtype product by a numpy float64 scalar, which promotes
+    it to f32. Prefill with ``cfg.mlstm_chunk`` > 0 and S ≥ the chunk
+    runs chunkwise; otherwise (and in decode) one step a token. Decode
+    steps ``cache`` {"C", "n"} in place."""
+    B, S, D = x.shape
+    dt = compute_dtype(cfg)
+    w, H, hd = lstm_dims(cfg)
+    up = x @ p["w_up"].to(dt)                            # [B, S, w]
+    q = (up @ p["w_q"].to(dt)).reshape(B, S, H, hd)
+    inv = float(torch.tensor(math.sqrt(hd), dtype=torch.float32))
+    k = (up @ p["w_k"].to(dt)).reshape(B, S, H, hd).float() / inv
+    v = (up @ p["w_v"].to(dt)).reshape(B, S, H, hd)
+    i_g = torch.sigmoid((up @ p["w_i"].to(dt)).float())
+    f_g = torch.sigmoid((up @ p["w_f"].to(dt)).float())
+    if cache is not None:
+        C0, n0 = cache["C"], cache["n"]
+    else:
+        C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=x.device)
+        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+    if cache is None and cfg.mlstm_chunk and S >= cfg.mlstm_chunk:
+        hmat, C, n = _mlstm_chunkwise(q, k, v, i_g, f_g, C0, n0,
+                                      cfg.mlstm_chunk)
+    else:
+        hmat, C, n = _mlstm_scan(q, k, v, i_g, f_g, C0, n0)
+    h = hmat.reshape(B, S, w).to(dt)
+    o = torch.sigmoid(up @ p["w_o"].to(dt))
+    y = (o * h) @ p["w_down"].to(dt)
+    new_cache = None
+    if cache is not None:
+        cache["C"].copy_(C)
+        cache["n"].copy_(n)
+        new_cache = cache
+    elif want_cache:
+        new_cache = {"C": C, "n": n}
+    return y, new_cache
+
+
+def init_mlstm_cache(cfg, batch: int, device=None) -> dict:
+    _, H, hd = lstm_dims(cfg)
+    return {"C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros((batch, H, hd), dtype=torch.float32,
+                             device=device)}
+
+
+def init_slstm(gen: torch.Generator, cfg, device=None) -> dict:
+    D = cfg.d_model
+    w, H, hd = lstm_dims(cfg)
+    pd = param_dtype(cfg)
+    return {
+        "w_up": dense_init(gen, (D, w), D, pd, device),
+        "w_z": dense_init(gen, (w, w), w, pd, device),
+        "w_i": dense_init(gen, (w, w), w, pd, device),
+        "w_f": dense_init(gen, (w, w), w, pd, device),
+        "w_o": dense_init(gen, (w, w), w, pd, device),
+        "r_z": dense_init(gen, (H, hd, hd), hd, pd, device),
+        "w_down": dense_init(gen, (w, D), w, pd, device),
+    }
+
+
+def apply_slstm(p: Params, x: torch.Tensor, cfg, *, cache=None,
+                want_cache: bool = False):
+    """sLSTM block (xLSTM): scalar memory with head-wise recurrent mixing
+    through the f32 ``r_z``, one step a token in f32. Decode steps
+    ``cache`` {"c", "n", "h"} in place."""
+    B, S, D = x.shape
+    dt = compute_dtype(cfg)
+    w, H, hd = lstm_dims(cfg)
+    up = x @ p["w_up"].to(dt)
+    z_in = (up @ p["w_z"].to(dt)).float()
+    i_in = (up @ p["w_i"].to(dt)).float()
+    f_in = (up @ p["w_f"].to(dt)).float()
+    o_g = torch.sigmoid(up @ p["w_o"].to(dt))
+    r_z = p["r_z"].float()
+    if cache is not None:
+        c, n, h = cache["c"], cache["n"], cache["h"]
+    else:
+        c = n = h = torch.zeros((B, w), dtype=torch.float32,
+                                device=x.device)
+    hs = []
+    for t in range(S):
+        mix = torch.einsum("bhk,hkj->bhj", h.reshape(B, H, hd), r_z)
+        z = torch.tanh(z_in[:, t] + mix.reshape(B, w))
+        i = torch.sigmoid(i_in[:, t])
+        f = torch.sigmoid(f_in[:, t])
+        c = f * c + i * z
+        n = f * n + i
+        h = c / torch.clamp_min(n, 1.0)
+        hs.append(h)
+    hseq = torch.stack(hs, dim=1).to(dt)
+    y = (o_g * hseq) @ p["w_down"].to(dt)
+    new_cache = None
+    if cache is not None:
+        for key, t in (("c", c), ("n", n), ("h", h)):
+            cache[key].copy_(t)
+        new_cache = cache
+    elif want_cache:
+        new_cache = {"c": c, "n": n, "h": h}
+    return y, new_cache
+
+
+def init_slstm_cache(cfg, batch: int, device=None) -> dict:
+    w, _, _ = lstm_dims(cfg)
+    return {key: torch.zeros((batch, w), dtype=torch.float32,
+                             device=device) for key in ("c", "n", "h")}

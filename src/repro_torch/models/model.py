@@ -1,5 +1,5 @@
 """Decoder-only LM assembly: init / forward / prefill / decode (torch port
-of ``repro.models.model`` for the dense block kinds).
+of ``repro.models.model``).
 
 ``LM`` is one ``nn.Module``: ``embed``, ``final_norm``, ``lm_head`` when
 embeddings are untied, and ``layers``, a ``ModuleList`` over pattern
@@ -10,15 +10,17 @@ reference scans them. Its state-dict keys are ``embed``,
 ``final_norm.scale``, ``lm_head`` and ``layers.{g}.{key}.{norm|block}.{w}``;
 ``params_from_jax`` maps the reference's group-stacked pytree onto them.
 
-Caches keep the reference's layout, stacked over groups: ``{key: {"k":
-[G, B, alloc, KV, hd], "v": ..., "pos": int32[G, alloc]}}`` (``pos``
-[G, B, alloc] for per-row decode), so ``cache_from_jax`` and
-``cache_to_numpy`` move a cache between the packages unchanged. Decode
-writes into the cache in place.
+Caches keep the reference's layout, stacked over groups: attention
+``{key: {"k": [G, B, alloc, KV, hd], "v": ..., "pos": int32[G, alloc]}}``
+(``pos`` [G, B, alloc] for per-row decode), RG-LRU ``{"h": f32 [G, B,
+w], "conv": [G, B, cw-1, w]}``, mLSTM ``{"C": f32 [G, B, H, hd, hd],
+"n": f32 [G, B, H, hd]}``, sLSTM ``{"c", "n", "h": f32 [G, B, w]}``, so
+``cache_from_jax`` and ``cache_to_numpy`` move a cache between the
+packages unchanged. Decode writes into the cache in place.
 
-Only ``attn``, ``local_attn`` and ``mlp`` are ported. ``moe``, ``rglru``,
-``mlstm`` and ``slstm`` raise ``NotImplementedError`` naming their ROADMAP
-item; ``remat`` and ``forward_trunk`` wait for training (item 11.4).
+Every block kind of the reference is served. The MoE load-balance loss,
+``remat`` and ``forward_trunk`` only feed training, which waits for
+ROADMAP item 11.4.
 """
 from __future__ import annotations
 
@@ -36,29 +38,21 @@ BLOCK_INIT = {
     "attn": L.init_attn,
     "local_attn": L.init_attn,
     "mlp": L.init_mlp,
-}
-
-# Block kinds of the reference not ported yet, by ROADMAP item.
-UNPORTED = {
-    "moe": "11.2 (MoE serving)",
-    "rglru": "11.3 (the recurrent blocks)",
-    "mlstm": "11.3 (the recurrent blocks)",
-    "slstm": "11.3 (the recurrent blocks)",
+    "moe": L.init_moe,
+    "rglru": L.init_rglru,
+    "mlstm": L.init_mlstm,
+    "slstm": L.init_slstm,
 }
 
 ATTN_KINDS = ("attn", "local_attn")
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported to repro_torch yet: ROADMAP "
-        f"item {UNPORTED[kind]}")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for _, kind in _flat_pattern(cfg):
-        if kind in UNPORTED:
-            raise _unported(kind)
+# The recurrent blocks: (apply, init_cache), each carrying O(1) state.
+RECURRENT = {
+    "rglru": (L.apply_rglru, L.init_rglru_cache),
+    "mlstm": (L.apply_mlstm, L.init_mlstm_cache),
+    "slstm": (L.apply_slstm, L.init_slstm_cache),
+}
+# Cache leaves held in the compute dtype; ``pos`` is int32, the rest f32.
+CACHE_DTYPE_KEYS = ("k", "v", "conv")
 
 
 def _flat_pattern(cfg: ModelConfig):
@@ -88,8 +82,6 @@ class Block(nn.Module):
 def _apply_block(kind: str, bp: Block, x: torch.Tensor, cfg: ModelConfig,
                  *, cache, cur_index, positions, want_cache, s_alloc):
     """Pre-norm + residual around one block; returns (x, cache)."""
-    if kind in UNPORTED:
-        raise _unported(kind)
     h = L.apply_rmsnorm(bp.norm, x)
     new_cache = None
     if kind in ATTN_KINDS:
@@ -100,6 +92,11 @@ def _apply_block(kind: str, bp: Block, x: torch.Tensor, cfg: ModelConfig,
             want_cache=want_cache, s_alloc=s_alloc)
     elif kind == "mlp":
         y = L.apply_mlp(bp.block, h, cfg)
+    elif kind == "moe":
+        y, _ = L.apply_moe(bp.block, h, cfg)
+    elif kind in RECURRENT:
+        y, new_cache = RECURRENT[kind][0](bp.block, h, cfg, cache=cache,
+                                          want_cache=want_cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     return x + y, new_cache
@@ -113,7 +110,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.serving = False
         self.embed = nn.Parameter(state["embed"], requires_grad=False)
@@ -146,22 +142,25 @@ class LM(nn.Module):
     def serving_copy(self) -> "LM":
         """The weights cast once to the values the forward pass reads.
 
-        The reference casts every f32 parameter to ``cfg.dtype`` on each
+        The reference casts its f32 parameters to ``cfg.dtype`` on each
         call; a cast is deterministic, so casting once gives identical
         values. Block matrices and the embedding are stored in
         ``cfg.dtype``; the unembedding head (``embed`` when tied, else
         ``lm_head``) in f32 holding the ``cfg.dtype``-rounded values, since
-        its product accumulates into f32; norm scales stay as they are
-        (the norm reads them in f32). Costs the copy's bytes beside the
-        original: 3.0 GB for Llama-3.2-1B in bf16 (its embedding, the
-        tied head, at 4 bytes)."""
+        its product accumulates into f32. Norm scales, which the norm
+        reads in f32, and the parameters the reference reads in f32 and
+        unrounded (``layers.F32_PARAMS``: the MoE router, RG-LRU's
+        ``lam``, sLSTM's ``r_z``) stay as they are. Costs the copy's
+        bytes beside the original: 3.0 GB for Llama-3.2-1B in bf16 (its
+        embedding, the tied head, at 4 bytes)."""
         if self.serving:
             return self
         dt = L.compute_dtype(self.cfg)
         head = "embed" if self.cfg.tie_embeddings else "lm_head"
         state = {}
         for key, t in self.state_dict().items():
-            if key.endswith("norm.scale"):
+            if (key.endswith("norm.scale")
+                    or key.rsplit(".", 1)[-1] in L.F32_PARAMS):
                 state[key] = t
             elif key == head:
                 state[key] = t.to(dt).float()
@@ -247,7 +246,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters drawn from ``generator`` on ``device`` (the
     generator must live there). Its draws are not the reference's
     ``jax.random`` bits; ``params_from_jax`` carries those across."""
-    _check_ported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     pd = L.param_dtype(cfg)
     state = {"embed": (torch.randn((V, D), generator=generator,
@@ -271,13 +269,15 @@ def init_cache(cfg: ModelConfig, batch: int, s_alloc: int,
     """Decode cache, leaves stacked over groups: [n_groups, ...]."""
     cache = {}
     for name, kind in _flat_pattern(cfg):
-        if kind in UNPORTED:
-            raise _unported(kind)
         if kind in ATTN_KINDS:
             window = cfg.window if kind == "local_attn" else 0
             one = L.init_attn_cache(cfg, batch, s_alloc, window, device)
-            cache[name] = {key: leaf.expand(cfg.n_groups, *leaf.shape)
-                           .clone() for key, leaf in one.items()}
+        elif kind in RECURRENT:
+            one = RECURRENT[kind][1](cfg, batch, device)
+        else:
+            continue
+        cache[name] = {key: leaf.expand(cfg.n_groups, *leaf.shape).clone()
+                       for key, leaf in one.items()}
     return cache
 
 
@@ -295,8 +295,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict:
     """The reference's parameter pytree (numpy leaves; group-stacked
     ``[n_groups, ...]`` under ``groups``) as the port's state dict, in
     ``cfg.param_dtype`` on the CPU: ``LM(cfg, params_from_jax(tree,
-    cfg))``."""
-    _check_ported(cfg)
+    cfg))``. RG-LRU's ``lam`` stays f32, as the reference makes it."""
     pd = L.param_dtype(cfg)
     state = {"embed": _tensor(tree["embed"]).to(pd),
              "final_norm.scale": _tensor(tree["final_norm"]["scale"]).to(pd)}
@@ -305,7 +304,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict:
     for name, _ in _flat_pattern(cfg):
         for part in ("norm", "block"):
             for w, stacked in tree["groups"][name][part].items():
-                arr = _tensor(stacked).to(pd)
+                arr = _tensor(stacked).to(torch.float32 if w == "lam"
+                                          else pd)
                 for g in range(cfg.n_groups):
                     state[f"layers.{g}.{name}.{part}.{w}"] = arr[g].clone()
     return state
@@ -314,20 +314,28 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict:
 def cache_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
                    device=None) -> dict:
     """A cache pytree written by the reference (numpy leaves) as the
-    port's cache: k/v in ``cfg.dtype`` (exact: the reference stores them
-    in that dtype), ``pos`` int32."""
+    port's cache: k/v and RG-LRU's conv in ``cfg.dtype`` (exact: the
+    reference stores them in that dtype), ``pos`` int32, the recurrent
+    states f32."""
     dt = L.compute_dtype(cfg)
-    return {name: {key: (_tensor(leaf).to(torch.int32) if key == "pos"
-                         else _tensor(leaf).to(dt)).to(device)
+
+    def leaf_dtype(key):
+        if key == "pos":
+            return torch.int32
+        return dt if key in CACHE_DTYPE_KEYS else torch.float32
+
+    return {name: {key: _tensor(leaf).to(leaf_dtype(key)).to(device)
                    for key, leaf in sub.items()}
             for name, sub in tree.items()}
 
 
 def cache_to_numpy(cache: Mapping[str, Any]) -> dict:
     """The port's cache as numpy leaves in the reference's layout. numpy
-    has no bfloat16: bf16 k/v come out as float32 holding the same
-    values (``jnp.asarray(x, jnp.bfloat16)`` restores them exactly)."""
-    return {name: {key: (leaf.cpu().numpy() if key == "pos"
-                         else leaf.float().cpu().numpy())
+    has no bfloat16: bf16 k/v/conv come out as float32 holding the same
+    values (``jnp.asarray(x, jnp.bfloat16)`` restores them exactly).
+    Every leaf is a copy: decode steps the port's cache in place, and the
+    arrays returned must not move with it."""
+    return {name: {key: np.array((leaf if key == "pos" else leaf.float())
+                                 .cpu().numpy())
                    for key, leaf in sub.items()}
             for name, sub in cache.items()}

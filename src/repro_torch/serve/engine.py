@@ -14,8 +14,14 @@ slot by one token with per-row cache positions (``models/layers.
 apply_attn``'s per-row path); the moment a row emits EOS or exhausts its
 budget, its slot is released, a queued request is prefilled alone, its
 cache rows are copied into the shared decode cache (``_adopt_cache``)
-and the slot rejoins the next tick. Both modes give every request the
-same tokens.
+and the slot rejoins the next tick. For dense and recurrent models both
+modes compute every request alike, and give it the same tokens up to
+rounding: on a GPU the libraries pick kernels by batch shape (a wave
+prefills B rows, a slot one), so bf16 rounding may tip a near tie. For
+MoE models they need not agree: the expert capacity comes from the token
+count of each call (a wave's B × max_prompt prefill, a slot's 1 ×
+max_prompt one, a decode step's rows), so the two modes can drop
+different tokens.
 
 The reference's jitted programs are plain calls here, under
 ``torch.inference_mode``. The engine serves ``model.serving_copy()``,
@@ -63,7 +69,9 @@ def _adopt_cache(cache: dict, fresh: dict, slot: int) -> dict:
 
     Leaves: [n_groups, slots, ...] ← [n_groups, 1, ...]; the attention
     ``pos`` leaf has no batch axis in the prefill cache ([n_groups,
-    alloc]) and gains one here."""
+    alloc]) and gains one here. Every leaf of the row is overwritten, the
+    recurrent states whole, so nothing of the slot's previous request
+    survives."""
     for name, sub in cache.items():
         for key, big in sub.items():
             small = fresh[name][key]
@@ -166,10 +174,13 @@ class Engine:
 
     def _continuous_cache(self, slots: int) -> dict:
         """A shared decode cache with PER-ROW positions: attention ``pos``
-        leaves widen from [n_groups, alloc] to [n_groups, slots, alloc]."""
+        leaves widen from [n_groups, alloc] to [n_groups, slots, alloc];
+        the recurrent entries have no positions."""
         cache = init_cache(self.cfg, slots,
                            self.sc.max_prompt + self.sc.max_new, self.device)
         for sub in cache.values():
+            if "pos" not in sub:
+                continue
             G, alloc = sub["pos"].shape
             sub["pos"] = sub["pos"][:, None, :].expand(
                 G, slots, alloc).clone()

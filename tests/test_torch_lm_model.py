@@ -8,8 +8,12 @@
   both ways: a reference prefill cache decoded by the port, a port cache
   decoded by the reference, bf16 caches exactly.
 * Decode against forward (the reference's own check), ``init_params`` /
-  ``init_cache`` shapes, and the unported block kinds raising
-  ``NotImplementedError`` with their ROADMAP item.
+  ``init_cache`` shapes.
+* The MoE and recurrent models (scaled-down olmoe-1b-7b, kimi-k2,
+  recurrentgemma-2b, xlstm-125m): state dicts and caches of the
+  reference's layout, the serving copy keeping the router, ``lam`` and
+  ``r_z`` in f32, and prefill + 3 decode steps at f32 (logits and every
+  cache leaf), with caches crossing both ways.
 
 Weights come from the reference's ``init_params(jax.random.key(0),
 ...)``, carried across by ``params_from_jax``; inputs from numpy seeds.
@@ -18,7 +22,8 @@ Tolerances: at f32 compute, 1e-5 absolute on logits of order 1 (measured
 logits of order 1-4 (measured <= 0.028: bf16 rounds at other places in
 the two frameworks; the reference's own bf16 bound for decode against
 forward is 0.15, ``tests/test_arch_smoke.py``); caches at f32 within
-1e-5, bf16 caches crossing exactly.
+1e-5, bf16 caches crossing exactly. The MoE and recurrent models' prefill
++ 3 decode steps: logits and states within 3e-5 (``STEPS_F32_TOL``).
 """
 import pytest
 
@@ -29,6 +34,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.models.model import abstract_cache as r_abstract_cache  # noqa: E402
+from repro.models.model import abstract_params as r_abstract_params  # noqa: E402
 from repro.models.model import forward as r_forward  # noqa: E402
 from repro.models.model import init_cache as r_init_cache  # noqa: E402
 from repro.models.model import init_params as r_init_params  # noqa: E402
@@ -36,7 +43,7 @@ from repro.serve.steps import decode_step as r_decode_step  # noqa: E402
 from repro.serve.steps import prefill_step as r_prefill_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.config import scaled_down  # noqa: E402
-from repro_torch.models.model import (LM, _apply_block, cache_from_jax,  # noqa: E402
+from repro_torch.models.model import (LM, cache_from_jax,  # noqa: E402
                                       cache_to_numpy, init_cache,
                                       init_params, params_from_jax)
 from repro_torch.serve.steps import decode_step, prefill_step  # noqa: E402
@@ -44,6 +51,12 @@ from test_torch_lm_layers import (CTX, F32_TOL, _cfgs, _f32,  # noqa: E402
                                   _np_tree, _same_cache, _t)
 
 BF16_LOGIT_TOL = 0.06
+# Logits and states after a prefill and 3 decode steps through 2-13 MoE or
+# recurrent layers at f32: 3e-5 absolute on logits up to 3.9 (measured
+# <= 1.14e-5, xlstm-125m's 6 layers at the third step: the recurrences'
+# multiply-adds and sums round at other places in the two frameworks, and
+# the differences compound over layers and steps).
+STEPS_F32_TOL = 3e-5
 
 
 def _models(arch, **kw):
@@ -207,17 +220,94 @@ def test_init_params_and_cache_shapes():
             assert tuple(cache[name][key].shape) == r_cache[name][key].shape
 
 
-@pytest.mark.parametrize("arch,kind", [("olmoe-1b-7b", "moe"),
-                                       ("recurrentgemma-2b", "rglru"),
-                                       ("xlstm-125m", "mlstm"),
-                                       ("xlstm-125m", "slstm")])
-def test_unported_blocks_raise(arch, kind):
-    pc = scaled_down(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        init_params(pc, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        init_cache(pc, 1, 4)
-    with pytest.raises(NotImplementedError, match=kind):
-        _apply_block(kind, None, torch.zeros(1, 1, 64), pc, cache=None,
-                     cur_index=None, positions=None, want_cache=False,
-                     s_alloc=0)
+NEW_ARCHS = ("olmoe-1b-7b", "kimi-k2-1t-a32b", "recurrentgemma-2b",
+             "xlstm-125m")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_moe_and_recurrent_params_caches_serving_copy(arch):
+    """The MoE and recurrent models' state dicts and caches have the
+    reference's keys, shapes and dtypes; the serving copy keeps the MoE
+    router, RG-LRU's ``lam`` and sLSTM's ``r_z`` bit-equal to the f32
+    parameters (the reference reads them unrounded) and casts the rest."""
+    rc, pc = _cfgs(arch)
+    lm = init_params(pc, torch.Generator().manual_seed(0))
+    ref = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype),
+                       r_abstract_params(rc))
+    want = params_from_jax(ref, pc)
+    assert set(lm.state_dict()) == set(want)
+    for key, t in want.items():
+        assert lm.state_dict()[key].shape == t.shape, key
+        assert lm.state_dict()[key].dtype == torch.float32, key
+    cache = init_cache(pc, 3, 12)
+    r_cache = r_abstract_cache(rc, 3, 12)
+    assert {n: set(sub) for n, sub in cache.items()} == \
+        {n: set(sub) for n, sub in r_cache.items()}
+    for name, sub in r_cache.items():
+        for key, leaf in sub.items():
+            got = cache[name][key]
+            assert tuple(got.shape) == leaf.shape, (name, key)
+            assert str(got.dtype).split(".")[-1] == str(leaf.dtype), key
+    served = lm.serving_copy().state_dict()
+    f32_keys = [k for k in served if k.rsplit(".", 1)[-1] in
+                ("router", "lam", "r_z")]
+    assert f32_keys, "no f32 parameter in this model"
+    for key, t in lm.state_dict().items():
+        if key in f32_keys or key.endswith("norm.scale"):
+            assert served[key].dtype == torch.float32
+            assert torch.equal(served[key], t), key
+        elif key.startswith("layers."):
+            assert served[key].dtype == torch.bfloat16, key
+
+
+@pytest.fixture(scope="module")
+def new_models():
+    return {arch: _models(arch, dtype="float32") for arch in NEW_ARCHS}
+
+
+def _close_cache(got: dict, ref: dict):
+    assert set(got) == set(ref)
+    for name, sub in ref.items():
+        assert set(got[name]) == set(sub)
+        for key, leaf in sub.items():
+            np.testing.assert_allclose(
+                got[name][key].float().numpy(), _f32(leaf), rtol=0,
+                atol=STEPS_F32_TOL, err_msg=f"{name}.{key}")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_moe_and_recurrent_prefill_decode_and_crossing(new_models, arch):
+    """Prefill and 3 decode steps at f32 against the reference (logits
+    and every cache leaf); a reference cache decoded by the port and a
+    port cache decoded by the reference give the other's logits."""
+    rc, pc, params, lm = new_models[arch]
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, rc.vocab_size, (2, 16)).astype(np.int32)
+    nxt = rng.integers(0, rc.vocab_size, (3, 2, 1)).astype(np.int32)
+    r_prefill = jax.jit(lambda p, t: r_prefill_step(p, t, rc, CTX,
+                                                    s_alloc=20))
+    r_decode = jax.jit(lambda p, c, t, i: r_decode_step(p, c, t, i, rc, CTX))
+    r_logits, r_cache = r_prefill(params, jnp.asarray(toks))
+    logits, cache = prefill_step(lm, _t(toks), s_alloc=20)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
+                               rtol=0, atol=STEPS_F32_TOL)
+    _close_cache(cache, r_cache)
+    crossed = cache_from_jax(_np_tree(r_cache), pc)
+    port_np = cache_to_numpy(cache)
+    for i in range(3):
+        step = jnp.asarray(nxt[i]), jnp.int32(16 + i)
+        lg_r, r_cache = r_decode(params, r_cache, *step)
+        lg, cache = decode_step(lm, cache, _t(nxt[i]), 16 + i)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(lg_r), rtol=0,
+                                   atol=STEPS_F32_TOL)
+        _close_cache(cache, r_cache)
+    # reference cache → port decode; port cache → reference decode
+    lg_pr, _ = decode_step(lm, crossed, _t(nxt[0]), 16)
+    lg_rp, _ = r_decode(params, jax.tree.map(jnp.asarray, port_np),
+                        jnp.asarray(nxt[0]), jnp.int32(16))
+    lg_rr, _ = r_decode(params, r_prefill(params, jnp.asarray(toks))[1],
+                        jnp.asarray(nxt[0]), jnp.int32(16))
+    np.testing.assert_allclose(lg_pr.numpy(), np.asarray(lg_rr), rtol=0,
+                               atol=STEPS_F32_TOL)
+    np.testing.assert_allclose(np.asarray(lg_rp), np.asarray(lg_rr), rtol=0,
+                               atol=STEPS_F32_TOL)

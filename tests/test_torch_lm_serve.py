@@ -16,7 +16,8 @@
   equals wave token streams, and EOS recycles slots into new decodes.
 * ``SlotScheduler.occupant`` against the reference's.
 * ``launch/serve --smoke --device cpu`` against the reference launcher
-  (the same requests, waves and tokens); without ``--device`` it raises
+  (the same requests, waves and tokens), for llama3.2-1b and for the MoE
+  and recurrent ``--arch`` values; without ``--device`` it raises
   on a machine without a card instead of falling back to the CPU.
 
 Tolerance: f32 logits within 1e-5 absolute (measured <= 2.3e-6,
@@ -307,6 +308,34 @@ def test_launch_serve_smoke_matches_reference(continuous, capsys):
     if not continuous:
         assert {k: ours[k] for k in STAT_KEYS} == \
             {k: ref[k] for k in STAT_KEYS}
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-125m"])
+def test_launch_serve_moe_and_recurrent_smoke(arch, capsys):
+    """``--arch`` of the MoE and recurrent families through the launcher:
+    waves give the reference launcher's stats (budgets alone decide the
+    token count), slots serve every request its budget, and for the
+    recurrent model both modes give the same tokens (recurrentgemma-2b's
+    engine is held in ``test_torch_lm_recurrent.py``)."""
+    argv = ["--arch", arch, "--smoke", "--requests", "3", "--max-batch",
+            "2", "--max-prompt", "8", "--max-new", "4"]
+    runs = {}
+    for mode, extra in (("wave", []),
+                        ("continuous", ["--continuous", "--slots", "2"])):
+        engine = serve_cli.build(argv + ["--device", "cpu"] + extra)
+        budgets = {r.rid: r.max_new for r in engine.queue}
+        stats = engine.run()
+        serve_cli.report(stats)
+        runs[mode] = stats, {r.rid: r.output for r in engine.done}
+        assert {rid: len(o) for rid, o in runs[mode][1].items()} == budgets
+    assert "[serve] 3 requests in" in capsys.readouterr().out
+    ref = r_serve_cli.main(argv)
+    ours = runs["wave"][0]
+    assert {k: ours[k] for k in STAT_KEYS} == {k: ref[k] for k in STAT_KEYS}
+    assert runs["continuous"][0]["tokens"] == ref["tokens"]
+    if arch != "olmoe-1b-7b":
+        for rid, out in runs["wave"][1].items():
+            np.testing.assert_array_equal(out, runs["continuous"][1][rid])
 
 
 def test_launch_serve_defaults_to_the_card():
