@@ -178,8 +178,10 @@ Phases, each fatal on failure:
    engine reads is finite; tokens equal across modes are counted, not
    required (the expert capacity follows each call's token count), and
    each prefill's capacity drops are printed by layer; (b) RecurrentGemma-
-   2B and xLSTM-125M at their full published configs served the same
-   way, their tokens equal across modes; (c) the three models' full widths
+   2B at its full published config and xLSTM-125M at its published
+   widths and one pattern period (6 of its 12 layers, cut to keep the
+   script inside its time limit) served the same way, their
+   tokens equal across modes (xLSTM's by phase 4g's near-tie rule); (c) the three models' full widths
    at 2 layers (one layer of each block kind), weights made on the CPU
    and copied to the card: prefill and 3 decode steps at f32 (1e-4; for
    OLMoE the (token, layer) expert choices compared first, a differing
@@ -192,6 +194,30 @@ Phases, each fatal on failure:
    peak memory serving and building, and the decode step's bytes bound
    (for OLMoE also the least: only the experts the step chose, with the
    distinct experts per layer);
+4i. LM training (run after phase 4h; FastRandomHash is the one C² kernel
+   on the path) — (a) one ``train_step`` (remat, AdamW from zero state)
+   at the full published widths and 2 layers (one layer of each block
+   kind) of Llama-3.2-1B, OLMoE-1B-7B, RecurrentGemma-2B and xLSTM-125M,
+   weights drawn on the card and copied to the CPU, tokens and labels
+   drawn apart: at f32 compute the loss, ce, aux loss and gradient norm
+   (1e-5 relative; aux 1e-4), m and v leaf by leaf (1e-4 / 2e-4 of a
+   leaf's largest entry) and every new parameter (1e-6 where the CPU's
+   |m| >= 1e-7, AdamW's step range elsewhere), OLMoE's expert choices
+   first (phase 4h's rule), the card's step run twice (bitwise or not,
+   printed); at bf16 compute the card's step's loss against the CPU's
+   ``loss_fn`` (1e-3 relative); (b) Llama-3.2-1B
+   at its full published config through ``launch/train --batch 8 --seq
+   512 --steps 8 --data-order c2`` (f32 parameters and AdamW state, bf16
+   compute, remat): 8 finite losses, the last below the first; median
+   step ms of the last 5, tokens/s, peak memory, the step's bound; one
+   step under ``torch.profiler``: kernels, device ms by class, the
+   device's idle share; FastRandomHash launched once (the c2 order,
+   equal to the host hashing's) and no other C² kernel; the full
+   (params, opt_state) saved and restored once, timed, bitwise; (c) the
+   restart contract at 2 layers and full width: ``--fail-at-step 3``
+   exits 42, the resumed run's final loss within 1e-4 of a straight
+   run's (bitwise printed), and the card's checkpoint restored on the
+   CPU equal to the card's state;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -209,13 +235,16 @@ Phases, each fatal on failure:
 Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
 sharded placement's launches and 4-shard hop time under ``sharded``, and
 phases 4d's and 4e's launches path by path under ``phase_4d`` and
-``phase_4e``; the cluster-KNN row the raw build's sweep under ``raw``)
-after a ``{"phase_4e": ...}``, a ``{"phase_4f": ...}``, an
-``{"lm_serve": ...}`` (phase 4g's figures and checks) and an
-``{"lm_serve_4h": ...}`` line (phase 4h's); then the card's name and
-power limit; then phase 4f's times, qualities and counts, the cluster-KNN
-row's times and OLMoE's tokens/s, decode ms and bounds under short keys
-(``tail_summary``), so that a short tail of the log still holds them;
+``phase_4e``; the cluster-KNN row the raw build's sweep under ``raw``;
+the FastRandomHash row phase 4i's launches under ``phase_4i``) after a
+``{"phase_4e": ...}``, a ``{"phase_4f": ...}``, an ``{"lm_serve": ...}``
+(phase 4g's figures and checks), an ``{"lm_serve_4h": ...}`` (phase
+4h's) and an ``{"lm_train": ...}`` line (phase 4i's); then the card's
+name and power limit; then phase 4f's times, qualities and counts, the
+cluster-KNN row's times, OLMoE's tokens/s, decode ms and bounds and
+phase 4i's losses, step ms, tokens/s, idle share and checkpoint times
+under short keys (``tail_summary``), so that a short tail of the log
+still holds them;
 then as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3491,7 +3520,7 @@ def lm_decode_vs_forward(dev):
     full[:, :512] = toks
     full[:, 512] = toks[:, 0]
     with torch.inference_mode():
-        lf, _ = model(tokens=full)
+        lf, _, _ = model(tokens=full)
     err = float((lg[:, 0] - lf[:, 512]).abs().max())
     if not (err <= LM_BF16_TOL and torch.isfinite(lf).all()):
         fail(f"LM decode against forward at full width: {err}")
@@ -3511,7 +3540,8 @@ def lm_margins(model, prompts, outs, max_prompt: int, max_new: int):
         seq[j, max_prompt - len(p):max_prompt] = p
         seq[j, max_prompt:max_prompt + len(o) - 1] = o[:-1]
     with torch.inference_mode():
-        logits, _ = model(tokens=torch.from_numpy(seq).to(model.device))
+        logits, _, _ = model(
+            tokens=torch.from_numpy(seq).to(model.device))
     top2 = torch.topk(logits[:, max_prompt - 1:], 2, dim=-1).values
     return (top2[..., 0] - top2[..., 1]).cpu().numpy()
 
@@ -3624,13 +3654,14 @@ def lm_card_vs_cpu(dev) -> dict:
         tokens = lm_engine_tokens(cpu, card, f"{arch} 2 layers")
         bf16 = {}
         cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
-        ref16, _ = LM(cfg16, state)(tokens=torch.from_numpy(toks))
+        ref16, _, _ = LM(cfg16, state)(tokens=torch.from_numpy(toks))
         card16 = LM(cfg16, {k: v.to(dev) for k, v in state.items()})
         default = matmul.allow_bf16_reduced_precision_reduction
         for flag in (default, not default):
             matmul.allow_bf16_reduced_precision_reduction = flag
             with torch.inference_mode():
-                lg16, _ = card16(tokens=torch.from_numpy(toks).to(dev))
+                lg16, _, _ = card16(
+                    tokens=torch.from_numpy(toks).to(dev))
             bf16[str(flag)] = float((lg16.cpu() - ref16).abs().max())
         matmul.allow_bf16_reduced_precision_reduction = default
         if not max(bf16.values()) <= LM_BF16_TOL:
@@ -3797,6 +3828,11 @@ def lm_serving(dev, smi: str) -> dict:
 # f32 parameters, bf16 compute, seed 0 on the card, served with phase 4g's
 # flags.
 PHASE_4H_ARCHS = ("olmoe-1b-7b", "recurrentgemma-2b", "xlstm-125m")
+# Served depth where it is cut to keep the script inside its time limit:
+# xLSTM-125M at one pattern period (5 mLSTM + 1 sLSTM, 6 of its 12
+# layers): its prefill runs one step a token, and 32 slot prefills cost
+# ~40 s at 12 layers.
+PHASE_4H_LAYERS = {"xlstm-125m": 6}
 # Card against CPU at full widths and 2 layers: one layer of each of the
 # model's block kinds (RecurrentGemma's own period is 13 layers, xLSTM's 6).
 PHASE_4H_CUTS = {
@@ -3827,8 +3863,8 @@ def record_moe(calls: list, logits: bool = False, prefill_only=False):
     def recorded(p, x, cfg):
         y, (lg, gate_e) = apply(p, x, cfg)
         if not prefill_only or x.shape[1] > 1:
-            calls.append((lg.clone() if logits else None, gate_e.clone(),
-                          x.shape[0] * x.shape[1]))
+            calls.append((lg.detach().clone() if logits else None,
+                          gate_e.clone(), x.shape[0] * x.shape[1]))
         return y, (lg, gate_e)
 
     L.apply_moe = recorded
@@ -3855,11 +3891,13 @@ def phase4h_serves(arch: str):
     budget, every logit the engine reads is finite, no C² kernel
     launches. Returns (figures, the continuous engine, whose serving
     model (d) times)."""
+    import dataclasses
     import gc
 
     import numpy as np
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import layers as L
 
@@ -3874,7 +3912,11 @@ def phase4h_serves(arch: str):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        engine = serve_cli.build(argv + extra)
+        cut = None
+        if arch in PHASE_4H_LAYERS:
+            cut = dataclasses.replace(get_config(arch),
+                                      n_layers=PHASE_4H_LAYERS[arch])
+        engine = serve_cli.build(argv + extra, cfg=cut)
         cfg = engine.cfg
         if engine.device.type != "cuda":
             fail(f"{arch} {label} serve built on {engine.device}")
@@ -3982,7 +4024,8 @@ def mode_margins(model, prompts: dict, outs: dict, steps: dict) -> dict:
             seq[j, 512 - len(prompts[rid]):512] = prompts[rid]
             seq[j, 512:512 + steps[rid]] = outs[rid][:steps[rid]]
         with torch.inference_mode():
-            logits, _ = model(tokens=torch.from_numpy(seq).to(model.device))
+            logits, _, _ = model(
+                tokens=torch.from_numpy(seq).to(model.device))
         for j, rid in enumerate(part):
             top2 = torch.topk(logits[j, 511 + steps[rid]], 2).values
             margins[rid] = float(top2[0] - top2[1])
@@ -4150,7 +4193,8 @@ def phase4h_card_vs_cpu(dev, arch: str) -> dict:
                   LM(cfg16, {k: v.to(dev) for k, v in state.items()})):
         calls = []
         with torch.inference_mode(), record_moe(calls, logits=True):
-            lg16, _ = model(tokens=torch.from_numpy(toks).to(model.device))
+            lg16, _, _ = model(
+                tokens=torch.from_numpy(toks).to(model.device))
         runs16.append((lg16.cpu(), calls))
     (ref16, cpu_calls), (lg16, card_calls) = runs16
     out["bf16_prefill_err"] = float((lg16 - ref16).abs().max())
@@ -4262,6 +4306,527 @@ def lm_moe_recurrent(dev, smi: str) -> dict:
     out.update(c2_launches=launches, card=smi,
                seconds=time.perf_counter() - t0)
     log(f"[lm4h] phase 4h: {out['seconds']:.1f} s; C² launches {launches}")
+    return out
+
+
+# -- phase 4i: LM training ------------------------------------------------
+
+# Card against CPU: one train step at full published widths and 2 layers
+# (one layer of each block kind, PHASE_4H_CUTS), f32 compute, B 2 x S 32.
+PHASE_4I_ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "recurrentgemma-2b",
+                  "xlstm-125m")
+# At f32: loss, ce and the gradient norm within 1e-5 relative, the aux
+# loss within 1e-4 of its value (read from loss − ce, which cancels ~10
+# of 11 digits' weight), m and v within 1e-4 and 2e-4 of a leaf's largest
+# entry (m = 0.1·clip·g, v = 0.05·(clip·g)²: the gradients' sums run in
+# other orders, over ~1,000x more terms than the CPU tests' widths); the
+# new parameters within 1e-6 where the CPU's |m| >= 1e-7 (|g| >= ~1e-6:
+# an AdamW first step g/(|g| + 1e-8) moves by under lr·1e-3 there), and
+# elsewhere within the step's range, 2·lr·(1 + wd·|p|): a gradient within
+# ~100 eps of 0 moves its parameter by a step its last bits decide.
+TRAIN_F32_REL = 1e-5
+TRAIN_AUX_REL = 1e-4
+TRAIN_M_REL, TRAIN_V_REL = 1e-4, 2e-4
+TRAIN_PARAM_TOL, TRAIN_M_FLOOR = 1e-6, 1e-7
+# At bf16 compute the loss only: bf16 products round at other places on
+# the card and the CPU (phase 4g's bf16 logits differ by up to ~0.035).
+TRAIN_BF16_REL = 1e-3
+# The restart contract of the reference's test (tests/test_infra.py).
+RESTART_TOL = 1e-4
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate; f32
+# products run on the CUDA cores (no TF32) at CUDA_CORE_OPS_PER_S.
+BF16_OPS_PER_S = 989e12
+FULL_TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "512",
+                   "--steps", "8", "--data-order", "c2", "--device", "cuda"]
+
+
+def train_once(model, toks, labels, oc, calls=None):
+    """One ``train_step`` of ``model`` (its own fresh AdamW state) on
+    ``toks`` and ``labels``; returns (metrics on the host, opt_state)."""
+    import torch
+
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import train_step
+
+    opt = init_opt_state(dict(model.named_parameters()), oc)
+    batch = {"tokens": torch.from_numpy(toks).to(model.device),
+             "labels": torch.from_numpy(labels).to(model.device)}
+    with record_moe(calls if calls is not None else [], logits=True):
+        _, _, m = train_step(model, opt, batch, oc)
+    return {k: float(v) for k, v in m.items()}, opt
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def compare_train_state(card, cpu, card_opt, cpu_opt, oc) -> dict:
+    """Leaf by leaf, the card's new parameters and moments against the
+    CPU's (see TRAIN_*), each CPU leaf copied to the card for the
+    comparison; returns the largest differences."""
+    dev = card.device
+    worst = {"m_rel": 0.0, "v_rel": 0.0, "param_live": 0.0,
+             "param_off_floor": 0.0, "off_floor_entries": 0}
+    card_sd, cpu_sd = card.state_dict(), cpu.state_dict()
+    for k, ref_cpu in cpu_sd.items():
+        m_ref = cpu_opt["m"][k].to(dev).float()
+        for key, r in (("m", m_ref), ("v", cpu_opt["v"][k].to(dev).float())):
+            d = float((card_opt[key][k].float() - r).abs().max())
+            worst[f"{key}_rel"] = max(worst[f"{key}_rel"],
+                                      d / max(float(r.abs().max()), 1e-30))
+        ref = ref_cpu.to(dev).float()
+        diff = (card_sd[k].float() - ref).abs()
+        live = m_ref.abs() >= TRAIN_M_FLOOR
+        worst["param_live"] = max(worst["param_live"], float(
+            diff[live].max()) if live.any() else 0.0)
+        if (~live).any():
+            off = diff[~live]
+            worst["param_off_floor"] = max(worst["param_off_floor"],
+                                           float(off.max()))
+            worst["off_floor_entries"] += int((~live).sum())
+            step_range = 2 * oc.lr * (1 + oc.weight_decay * ref.abs()[~live])
+            if not bool((off <= step_range).all()):
+                fail(f"train step: parameter {k} moved outside AdamW's "
+                     f"step range on the card")
+    if not (worst["m_rel"] <= TRAIN_M_REL and worst["v_rel"] <= TRAIN_V_REL
+            and worst["param_live"] <= TRAIN_PARAM_TOL):
+        fail(f"train step: card against CPU state {worst}")
+    return worst
+
+
+def phase4i_card_vs_cpu(dev, arch: str) -> dict:
+    """(a) ``arch``'s full widths at 2 layers, weights made on the CPU and
+    copied to the card: one ``train_step`` at f32 compute on each, held
+    (loss, ce, aux loss, gradient norm, every new parameter and moment;
+    for MoE the expert choices first, phase 4h's rule), the card's step
+    run twice (bitwise or not, reported); then one bf16-compute step a
+    side (the CPU's by ``loss_fn`` alone) with its loss held."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM, init_params
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import AUX_WEIGHT, loss_fn
+
+    t0 = time.perf_counter()
+    spent = {}
+
+    def lap(key):
+        nonlocal t0
+        spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    oc = OptConfig()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
+                              **PHASE_4H_CUTS.get(arch, {}))
+    # Drawn on the card (the CPU's generator takes ~10 s a billion), then
+    # copied to the host once.
+    state = {k: v.cpu() for k, v in init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0),
+        dev).state_dict().items()}
+
+    def fresh(c, device):
+        return LM(c, {k: v.to(device, copy=True) for k, v in state.items()},
+                  trainable=True)
+
+    # Labels drawn apart from the tokens: with labels equal to the tokens
+    # (the pipeline's), a scaled tied embedding (RecurrentGemma's) already
+    # predicts them at initialisation, and the f32 loss is exactly 0.
+    rng = np.random.default_rng(2)
+    toks, labels = (rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+                    for _ in range(2))
+    lap("init")
+    cpu_calls, card_calls, again_calls = [], [], []
+    cpu = fresh(cfg, "cpu")
+    m_cpu, opt_cpu = train_once(cpu, toks, labels, oc, cpu_calls)
+    lap("cpu_f32")
+    card = fresh(cfg, dev)
+    m_card, opt_card = train_once(card, toks, labels, oc, card_calls)
+    lap("card_f32")
+    out = {"loss_cpu": m_cpu["loss"], "grad_norm_cpu": m_cpu["grad_norm"]}
+    if cfg.n_experts:
+        agree, total, first_bad = routing_agreement(
+            cfg, cpu_calls, card_calls, f"{arch} 2 layers, training at f32")
+        out["expert_choices_agree"] = [agree, total]
+        if first_bad is not None:
+            fail(f"{arch}: expert choices differ at a near tie in the "
+                 f"training step; the step is not held")
+    aux = {name: (m["loss"] - m["ce"]) / AUX_WEIGHT
+           for name, m in (("cpu", m_cpu), ("card", m_card))}
+    out["f32"] = {"loss": rel_err(m_card["loss"], m_cpu["loss"]),
+                  "ce": rel_err(m_card["ce"], m_cpu["ce"]),
+                  "grad_norm": rel_err(m_card["grad_norm"],
+                                       m_cpu["grad_norm"]),
+                  "aux": abs(aux["card"] - aux["cpu"]),
+                  "aux_cpu": aux["cpu"]}
+    f = out["f32"]
+    if not (max(f["loss"], f["ce"], f["grad_norm"]) <= TRAIN_F32_REL
+            and f["aux"] <= TRAIN_AUX_REL * max(abs(aux["cpu"]), 1.0)):
+        fail(f"{arch} 2 layers: card against CPU train step at f32 {f}")
+    out["f32_state"] = compare_train_state(card, cpu, opt_card, opt_cpu, oc)
+    lap("compare")
+    again = fresh(cfg, dev)
+    m_again, _ = train_once(again, toks, labels, oc, again_calls)
+    out["card_repeat_bitwise"] = (m_again == m_card and all(
+        torch.equal(a, b) for a, b in zip(again.state_dict().values(),
+                                          card.state_dict().values())))
+    del cpu, card, again, opt_cpu, opt_card
+    torch.cuda.empty_cache()
+    lap("card_repeat")
+    # At bf16 the card runs a whole step and the CPU the step's loss
+    # alone (``loss_fn`` before the update, no backward or AdamW: the
+    # loss is what is held, and the CPU's AdamW over a billion
+    # parameters would cost ~20 s a model).
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    calls16 = ([], [])
+    cpu16 = fresh(cfg16, "cpu")
+    with torch.no_grad(), record_moe(calls16[0], logits=True):
+        t = torch.from_numpy(toks)
+        loss16_cpu = float(loss_fn(cpu16, {"tokens": t, "labels":
+                                           torch.from_numpy(labels)})[0])
+    del cpu16
+    lap("cpu_bf16")
+    m16_card, _ = train_once(fresh(cfg16, dev), toks, labels, oc, calls16[1])
+    lap("card_bf16")
+    out["bf16"] = {"loss": rel_err(m16_card["loss"], loss16_cpu),
+                   "loss_cpu": loss16_cpu}
+    if cfg.n_experts:
+        # The card's step routes again under remat: its first calls are
+        # the forward pass the CPU's loss ran.
+        agree, total, _ = routing_agreement(
+            cfg16, calls16[0], calls16[1][:len(calls16[0])],
+            f"{arch} 2 layers, training at bf16")
+        out["bf16"]["expert_choices_agree"] = [agree, total]
+    if not out["bf16"]["loss"] <= TRAIN_BF16_REL:
+        fail(f"{arch} 2 layers: card against CPU loss at bf16 {out['bf16']}")
+    torch.cuda.empty_cache()
+    lap("rest")
+    out["seconds_by_part"] = spent
+    out["seconds"] = sum(spent.values())
+    st = out["f32_state"]
+    log(f"[lm4i] {arch} 2 layers, card against CPU, one train step: f32 "
+        f"loss {m_card['loss']:.6f} / {m_cpu['loss']:.6f} ({f['loss']:.2e} "
+        f"rel), ce {f['ce']:.2e}, aux {aux['card']:.6f} / {aux['cpu']:.6f}, "
+        f"gradient norm {m_card['grad_norm']:.6f} / {m_cpu['grad_norm']:.6f} "
+        f"({f['grad_norm']:.2e}); m {st['m_rel']:.2e}, v {st['v_rel']:.2e} "
+        f"of a leaf's largest; parameters {st['param_live']:.2e} (|m| >= "
+        f"1e-7), {st['param_off_floor']:.2e} over the "
+        f"{st['off_floor_entries']} other entries; card run twice "
+        f"{'bitwise' if out['card_repeat_bitwise'] else 'NOT bitwise'}; "
+        f"bf16 loss {out['bf16']['loss']:.2e} rel; {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
+    return out
+
+
+KERNEL_CLASSES = (("gemm", ("gemm", "xmma", "cutlass", "cublas", "nvjet",
+                            "sm90_", "sm80_")),
+                  ("softmax", ("softmax",)),
+                  ("reduce", ("reduce",)),
+                  ("index, scatter, gather", ("index", "scatter", "gather",
+                                              "embedding")),
+                  ("copy, cast", ("copy",)),
+                  ("elementwise", ("elementwise",)))
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for label, keys in KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def profile_train_step(fn) -> dict:
+    """One call of ``fn`` (a train step ending in a host sync) under
+    ``torch.profiler`` (device activity only): its kernels, their device
+    ms by class, and the device's idle share of the step's host clock
+    (1 − the union of the kernels' intervals over the host's span)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_class, by_name = [], {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        label = kernel_class(e.name)
+        by_class[label] = by_class.get(label, 0.0) + (end - start) / 1e3
+        key = (label, e.name[:90])
+        by_name[key] = by_name.get(key, 0.0) + (end - start) / 1e3
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return {"kernels": len(spans), "kernel_ms": sum(by_class.values()),
+            "busy_ms": busy / 1e3, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1.0 - busy / 1e3 / wall_ms),
+            "ms_by_class": dict(sorted(by_class.items(),
+                                       key=lambda kv: -kv[1])),
+            "top": [[label, name, ms] for (label, name), ms in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:12]]}
+
+
+def train_bound_ms(cfg, tokens: int) -> dict:
+    """The least time of one Llama train step with remat on this card:
+    the blocks' products (6·N for the step plus 2·N for the remat
+    forward, a token) at the dense bf16 rate; the tied head's (6·V·D a
+    token), which the port computes on f32 operands, at the CUDA-core
+    rate; AdamW's bytes (7 f32 passes over the parameters: p, g, m, v
+    read; p, m, v written) at the HBM rate."""
+    n_total = cfg.param_count()
+    n_head = cfg.vocab_size * cfg.d_model
+    blocks = 8 * (n_total - n_head) * tokens / BF16_OPS_PER_S * 1e3
+    head = 6 * n_head * tokens / CUDA_CORE_OPS_PER_S * 1e3
+    adamw = 7 * 4 * n_total / HBM_BYTES_PER_S * 1e3
+    return {"blocks_ms": blocks, "head_ms": head, "adamw_ms": adamw,
+            "serial_ms": blocks + head + adamw,
+            "max_ms": max(blocks, head, adamw)}
+
+
+def host_c2_order(pipe):
+    """The c2 order from the host's hashing (``core.hashing``, as the
+    reference's ``_c2_order`` computes it)."""
+    import numpy as np
+
+    from repro_torch.core import hashing
+    from repro_torch.data.tokens import C2_BUCKETS
+
+    offsets, items = pipe.c2_profiles()
+    h = hashing.item_hashes(items, np.array([pipe.dc.seed], np.int32),
+                            C2_BUCKETS)
+    return np.argsort(hashing.user_min_hash_np(h, offsets)[0],
+                      kind="stable").astype(np.int64)
+
+
+def save_restore_full(rec, tmp: Path) -> dict:
+    """Save the full (params, opt_state) once, restore it into the live
+    model and state, and check every leaf bitwise against a copy taken
+    on the card before."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.launch import train as launch
+
+    model, opt = rec["model"], rec["opt_state"]
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = launch.save_state(tmp, model, opt, 7)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in path.iterdir())
+    before = [t.clone() for t in tree_leaves(launch.state_tree(model, opt))]
+    t0 = time.perf_counter()
+    step = launch.restore_state(tmp, model, opt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    after = tree_leaves(launch.state_tree(model, opt))
+    same = sum(torch.equal(a, b) for a, b in zip(before, after))
+    if step != 7 or same != len(before):
+        fail(f"full checkpoint: {same} of {len(before)} leaves restored "
+             f"bitwise (step {step})")
+    del before, after
+    torch.cuda.empty_cache()
+    return {"bytes": nbytes, "leaves": same, "save_s": save_s,
+            "restore_s": restore_s, "disk_free_gb_before": free_gb}
+
+
+def phase4i_full(dev, tmp: Path, smi: str) -> dict:
+    """(b) Llama-3.2-1B at its full published config trained through
+    ``launch/train`` (c2 order through the FastRandomHash kernel), its
+    launches counted from 0; one profiled step; a full save and
+    restore."""
+    import math
+    import statistics as stats
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.frh_minhash import ops as mh_ops
+    from repro_torch.launch import train as launch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import train_step
+
+    matmul = torch.backends.cuda.matmul
+    if matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("f32 products must run in full f32 on the card (TF32 is on)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = launch.run(FULL_TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    csr = mh_ops.launches_csr
+    others = {k: v for k, v in launches.items() if k != "frh_minhash" and v}
+    if launches["frh_minhash"] != 1 or csr != 1 or others:
+        fail(f"launch/train --data-order c2 launched {launches} (CSR entry "
+             f"{csr}); expected FastRandomHash once and nothing else")
+    pipe = rec["pipeline"]
+    if not np.array_equal(pipe._order, host_c2_order(pipe)):
+        fail("the c2 order from the FastRandomHash kernel differs from the "
+             "host's hashing")
+    losses = rec["losses"]
+    if not (len(losses) == 8 and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"full-width training losses {losses}: 8 finite values with "
+             f"the last below the first expected")
+    cfg = rec["model"].cfg
+    tokens = 8 * 512
+    step_ms = stats.median(rec["step_ms"][-5:])
+    out = {"losses": losses, "step_ms": rec["step_ms"],
+           "step_ms_median_last5": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_gb": rec["peak_gb"], "param_count": cfg.param_count(),
+           "run_s": wall, "launches": launches,
+           "c2_order_docs": len(pipe._order),
+           "bound": train_bound_ms(cfg, tokens)}
+    out["model_flops_share"] = (6 * cfg.param_count() * tokens
+                                / (step_ms / 1e3) / BF16_OPS_PER_S)
+    batch = pipe.batch(8)
+    oc = OptConfig()
+
+    def one_step():
+        _, _, m = train_step(rec["model"], rec["opt_state"], batch, oc)
+        float(m["loss"])
+
+    out["profile"] = profile_train_step(one_step)
+    out["checkpoint"] = save_restore_full(rec, tmp)
+    del rec, pipe, batch
+    torch.cuda.empty_cache()
+    prof, ck, b = out["profile"], out["checkpoint"], out["bound"]
+    log(f"[lm4i] Llama-3.2-1B full width ({cfg.param_count():,} "
+        f"parameters), launch/train --batch 8 --seq 512 --steps 8 "
+        f"--data-order c2: losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step {step_ms:.2f} ms (median of the last 5; all "
+        + ", ".join(f"{x:.1f}" for x in out["step_ms"])
+        + f"), {out['tokens_per_s']:.1f} tok/s, peak {out['peak_gb']:.2f} "
+        f"GB, model FLOPs {out['model_flops_share'] * 100:.2f}% of the "
+        f"bf16 peak; bound {b['serial_ms']:.1f} ms serial (blocks "
+        f"{b['blocks_ms']:.1f}, f32 head {b['head_ms']:.1f}, AdamW "
+        f"{b['adamw_ms']:.1f}); launches {launches}; {smi}")
+    log(f"[lm4i] one profiled step: {prof['kernels']} kernels, "
+        f"{prof['kernel_ms']:.1f} ms of them, busy {prof['busy_ms']:.1f} of "
+        f"{prof['wall_ms']:.1f} ms (device idle "
+        f"{prof['idle_share'] * 100:.1f}%); by class "
+        + ", ".join(f"{k} {v:.1f}" for k, v in prof["ms_by_class"].items()))
+    for label, name, ms in prof["top"]:
+        log(f"[lm4i]   {ms:8.2f} ms  {label:12s} {name}")
+    log(f"[lm4i] full (params, opt_state) checkpoint: {ck['bytes'] / 1e9:.2f}"
+        f" GB, {ck['leaves']} leaves, save {ck['save_s']:.1f} s, restore "
+        f"{ck['restore_s']:.1f} s, bitwise ({ck['disk_free_gb_before']:.0f} "
+        f"GB free before)")
+    return out
+
+
+def phase4i_restart(dev, tmp: Path) -> dict:
+    """(c) The restart contract at 2 layers and full width: a straight
+    6-step run, a run that fails at step 3 (exit 42), and its resume from
+    the step-2 checkpoint; the final losses within RESTART_TOL (bitwise
+    reported), and the card's last checkpoint restored on the CPU equal
+    to the card's state."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    base = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "512",
+            "--steps", "6", "--data-order", "c2", "--device", "cuda"]
+    ck = ["--ckpt-dir", str(tmp / "restart"), "--ckpt-every", "3"]
+    straight = launch.run(base, cfg=cfg)
+    try:
+        launch.run(base + ck + ["--fail-at-step", "3"], cfg=cfg)
+        code = 0
+    except SystemExit as exc:
+        code = exc.code
+    resumed = launch.run(base + ck, cfg=cfg)
+    diff = abs(resumed["final_loss"] - straight["final_loss"])
+    if code != launch.FAILURE_EXIT or resumed["start_step"] != 3 or not (
+            diff < RESTART_TOL):
+        fail(f"restart at 2 layers: exit {code}, resumed at "
+             f"{resumed['start_step']}, final losses "
+             f"{straight['final_loss']} / {resumed['final_loss']}")
+    sd_s, sd_r = straight["model"].state_dict(), resumed["model"].state_dict()
+    opt_s, opt_r = straight["opt_state"], resumed["opt_state"]
+    state_bitwise = all(torch.equal(sd_s[k], sd_r[k]) and all(
+        torch.equal(opt_s[key][k], opt_r[key][k]) for key in ("m", "v"))
+        for k in sd_s)
+    out = {"loss_straight": straight["final_loss"],
+           "loss_resumed": resumed["final_loss"], "final_loss_diff": diff,
+           "bitwise_loss": diff == 0.0, "state_bitwise": state_bitwise,
+           "exit_code": code}
+    del straight, sd_s, opt_s
+    cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu",
+                      trainable=True)
+    cpu_opt = init_opt_state(dict(cpu.named_parameters()), OptConfig())
+    step = launch.restore_state(tmp / "restart", cpu, cpu_opt)
+    cpu_sd = cpu.state_dict()
+    same = sum(torch.equal(cpu_sd[k], sd_r[k].cpu()) and all(
+        torch.equal(cpu_opt[key][k], opt_r[key][k].cpu())
+        for key in ("m", "v")) for k in sd_r)
+    if step != 5 or same != len(sd_r) or int(cpu_opt["step"]) != 6:
+        fail(f"the card's checkpoint restored on the CPU: {same} of "
+             f"{len(sd_r)} parameters (with their moments) equal, step "
+             f"{step}")
+    out.update(cpu_restore_params_equal=same,
+               seconds=time.perf_counter() - t0)
+    del sd_r, opt_r
+    del resumed
+    torch.cuda.empty_cache()
+    log(f"[lm4i] restart at 2 layers, full width: exit {code} at step 3, "
+        f"resumed from step 2; final losses differ by {diff:.3e} "
+        f"({'bitwise' if diff == 0.0 else 'not bitwise'}; parameters and "
+        f"moments {'bitwise' if state_bitwise else 'NOT bitwise'}); the "
+        f"card's checkpoint restored on the CPU: {same} parameters and "
+        f"their moments equal; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def lm_training(dev, smi: str) -> dict:
+    """Phase 4i: LM training on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": {}}
+    for arch in PHASE_4I_ARCHS:
+        out["card_vs_cpu"][arch] = phase4i_card_vs_cpu(dev, arch)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["full"] = phase4i_full(dev, Path(tmp), smi)
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["restart"] = phase4i_restart(dev, Path(tmp))
+    launches = read_launches()
+    if launches["frh_minhash"] != 3 or any(
+            v for k, v in launches.items() if k != "frh_minhash"):
+        fail(f"the restart's 3 runs launched {launches}; expected "
+             f"FastRandomHash once a run and nothing else")
+    out["restart_launches"] = launches
+    torch.cuda.empty_cache()
+    out.update(card=smi, seconds=time.perf_counter() - t0)
+    log(f"[lm4i] phase 4i: {out['seconds']:.1f} s")
     return out
 
 
@@ -4731,10 +5296,12 @@ TAIL_KEYS = {"seconds": "s", "quality": "q", "launches": "n", "iters": "it",
              "speedup_vs_best_baseline": "x", "incidence_seconds": "inc_s"}
 
 
-def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict) -> dict:
+def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict,
+                 lm4i: dict) -> dict:
     """Phase 4f's times, qualities and counts, the cluster-KNN row's times
     (main-path sweep, its launches' device time, the raw sweep), phase
-    4g's LM serving figures and phase 4h's OLMoE figures."""
+    4g's LM serving figures, phase 4h's OLMoE figures and phase 4i's
+    training figures."""
     def r(x):
         return round(x, 4) if isinstance(x, float) else x
 
@@ -4767,8 +5334,21 @@ def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict) -> dict:
                 "launch_sum_ms": r(ck_row["launch_sum_ms"]),
                 "raw": {key: r(raw[key]) for key in (
                     "launches", "ms", "plain_ms", "bound_ms", "bound_by")}}
+    full = lm4i["full"]
+    train_short = {"losses": [r(x) for x in full["losses"]],
+                   "step_ms": r(full["step_ms_median_last5"]),
+                   "tok_s": r(full["tokens_per_s"]),
+                   "peak_gb": r(full["peak_gb"]),
+                   "idle": r(full["profile"]["idle_share"]),
+                   "kernels": full["profile"]["kernels"],
+                   "bound_ms": r(full["bound"]["serial_ms"]),
+                   "ckpt_gb": r(full["checkpoint"]["bytes"] / 1e9),
+                   "save_s": r(full["checkpoint"]["save_s"]),
+                   "restore_s": r(full["checkpoint"]["restore_s"]),
+                   "restart_diff": lm4i["restart"]["final_loss_diff"],
+                   "s": r(lm4i["seconds"])}
     return {"phase_4f": out, "lm_serve": lm_short, "olmoe": olmoe_short,
-            "goldfinger_knn": ck_short}
+            "goldfinger_knn": ck_short, "lm_train": train_short}
 
 
 def main() -> int:
@@ -4839,6 +5419,7 @@ def main() -> int:
         build_stages(run["engine"])
     lm = lm_serving(dev, smi)
     lm4h = lm_moe_recurrent(dev, smi)
+    lm4i = lm_training(dev, smi)
     ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
                                 slice10["AM@0.055"].pop("raw_err"))
     # Phase 4f: the raw-mode build's Step-2 sweep (W = 5,355 on AM@0.055),
@@ -4865,6 +5446,13 @@ def main() -> int:
             row[key] = {label: c[row["name"]] for label, c in
                         phase["launches"].items() if c[row["name"]]}
     mh_row["max_abs_err"] = max(err_mh, err_mh_main)
+    # Phase 4i: the training path's c2 order (one pipeline a run), its
+    # launches counted from 0 (held bitwise to the host's order).
+    mh_row["phase_4i"] = {
+        "launch/train llama3.2-1b --data-order c2": lm4i["full"]["launches"][
+            "frh_minhash"],
+        "restart at 2 layers, 3 runs": lm4i["restart_launches"][
+            "frh_minhash"]}
     rows = [ck_row, hop_row, dma_row, mh_row]
     for name, st in list(run["serves"].items()) + list(
             shard["serves"].items()):
@@ -4884,9 +5472,10 @@ def main() -> int:
     print(json.dumps({"phase_4f": slice10}, default=lambda o: o.tolist()))
     print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"lm_serve_4h": lm4h}, default=lambda o: o.tolist()))
+    print(json.dumps({"lm_train": lm4i}, default=lambda o: o.tolist()))
     print(json.dumps({"kernels": rows}))
     print(smi)
-    print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h),
+    print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h, lm4i),
                      separators=(",", ":"), default=lambda o: o.tolist()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

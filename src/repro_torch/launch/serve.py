@@ -48,14 +48,16 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(argv=None) -> Engine:
+def build(argv=None, cfg=None) -> Engine:
     """Parse ``argv``, make the model and the engine, submit the
-    requests; ``engine.run()`` serves them."""
+    requests; ``engine.run()`` serves them. A ``cfg`` given here (a
+    model cut in depth, say) takes the place of ``--arch``'s."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = scaled_down(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = scaled_down(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     engine = Engine(init_params(cfg, gen, device), ServeConfig(
         max_batch=args.max_batch, max_prompt=args.max_prompt,

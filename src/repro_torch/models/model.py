@@ -18,9 +18,15 @@ w], "conv": [G, B, cw-1, w]}``, mLSTM ``{"C": f32 [G, B, H, hd, hd],
 ``cache_from_jax`` and ``cache_to_numpy`` move a cache between the
 packages unchanged. Decode writes into the cache in place.
 
-Every block kind of the reference is served. The MoE load-balance loss,
-``remat`` and ``forward_trunk`` only feed training, which waits for
-ROADMAP item 11.4.
+Every block kind of the reference is served and trained. ``forward``
+returns the MoE load-balance loss beside the logits; ``remat`` runs each
+group (``True``) or each block (``"save_tp"``) under
+``torch.utils.checkpoint``, and ``forward_trunk`` stops before the head,
+for the chunked loss of ``train/steps.py``. ``LM(cfg, state,
+trainable=True)`` makes the parameters trainable; the serving copy stays
+frozen. ``params_to_tree`` / ``params_to_jax`` give the reference's
+group-stacked pytree back, ``opt_state_to_tree`` / ``opt_state_from_tree``
+the optimizer state's, and ``jax_leaves`` the reference's leaves in its order.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -64,8 +71,9 @@ def _flat_pattern(cfg: ModelConfig):
     return out
 
 
-def _frozen(tensors: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+def _params(tensors: Mapping[str, torch.Tensor],
+            trainable: bool) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=trainable)
                              for k, t in tensors.items()})
 
 
@@ -73,17 +81,37 @@ class Block(nn.Module):
     """One block's parameters: ``norm`` (RMSNorm scale) and ``block``."""
 
     def __init__(self, norm: Mapping[str, torch.Tensor],
-                 block: Mapping[str, torch.Tensor]):
+                 block: Mapping[str, torch.Tensor], trainable: bool = False):
         super().__init__()
-        self.norm = _frozen(norm)
-        self.block = _frozen(block)
+        self.norm = _params(norm, trainable)
+        self.block = _params(block, trainable)
+
+
+def moe_aux_loss(logits: torch.Tensor, gate_e: torch.Tensor,
+                 n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance loss E · Σ_e f_e·P_e of one MoE call:
+    P_e the mean router probability, f_e the share of the choices that
+    went to expert e, counted by adding 1/n once a choice as the
+    reference's scatter-add does (equal addends: any order, one sum)."""
+    probs = torch.softmax(logits, dim=-1)
+    P_e = probs.mean(dim=0)
+    flat = gate_e.reshape(-1)
+    f_e = torch.zeros(n_experts, dtype=torch.float32,
+                      device=logits.device).index_add_(
+        0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
+                            dtype=torch.float32, device=logits.device))
+    return n_experts * torch.sum(f_e * P_e)
 
 
 def _apply_block(kind: str, bp: Block, x: torch.Tensor, cfg: ModelConfig,
                  *, cache, cur_index, positions, want_cache, s_alloc):
-    """Pre-norm + residual around one block; returns (x, cache)."""
+    """Pre-norm + residual around one block; returns (x, cache, aux):
+    aux is an MoE block's load-balance loss in the training form (no
+    cache), else None (prefill and decode callers discard it, and it
+    would cost a step a few kernels an MoE layer)."""
     h = L.apply_rmsnorm(bp.norm, x)
     new_cache = None
+    aux = None
     if kind in ATTN_KINDS:
         window = cfg.window if kind == "local_attn" else 0
         y, new_cache = L.apply_attn(
@@ -93,13 +121,23 @@ def _apply_block(kind: str, bp: Block, x: torch.Tensor, cfg: ModelConfig,
     elif kind == "mlp":
         y = L.apply_mlp(bp.block, h, cfg)
     elif kind == "moe":
-        y, _ = L.apply_moe(bp.block, h, cfg)
+        y, (logits, gate_e) = L.apply_moe(bp.block, h, cfg)
+        if cache is None and not want_cache:
+            aux = moe_aux_loss(logits, gate_e, cfg.n_experts)
     elif kind in RECURRENT:
         y, new_cache = RECURRENT[kind][0](bp.block, h, cfg, cache=cache,
                                           want_cache=want_cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    return x + y, new_cache
+    return x + y, new_cache, aux
+
+
+REMAT = (False, True, "full", "save_tp")
+
+
+def _check_remat(remat) -> None:
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
 
 
 class LM(nn.Module):
@@ -108,14 +146,17 @@ class LM(nn.Module):
     ``serving`` marks a copy made by :meth:`serving_copy`, whose weights
     already hold the values the forward pass computes with."""
 
-    def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor],
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.serving = False
-        self.embed = nn.Parameter(state["embed"], requires_grad=False)
-        self.final_norm = _frozen({"scale": state["final_norm.scale"]})
+        self.embed = nn.Parameter(state["embed"], requires_grad=trainable)
+        self.final_norm = _params({"scale": state["final_norm.scale"]},
+                                  trainable)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(state["lm_head"], requires_grad=False)
+            self.lm_head = nn.Parameter(state["lm_head"],
+                                        requires_grad=trainable)
         groups = []
         for g in range(cfg.n_groups):
             blocks = {}
@@ -126,7 +167,8 @@ class LM(nn.Module):
                     parts[part] = {key[len(prefix):]: t
                                    for key, t in state.items()
                                    if key.startswith(prefix)}
-                blocks[name] = Block(parts["norm"], parts["block"])
+                blocks[name] = Block(parts["norm"], parts["block"],
+                                     trainable)
             groups.append(nn.ModuleDict(blocks))
         self.layers = nn.ModuleList(groups)
         have, given = set(self.state_dict()), set(state)
@@ -190,13 +232,17 @@ class LM(nn.Module):
                 input_embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[dict] = None, cur_index=None,
-                want_cache: bool = False, s_alloc: int = 0):
-        """Returns (logits f32[B, S, V], cache).
+                want_cache: bool = False, s_alloc: int = 0,
+                remat=False):
+        """Returns (logits f32[B, S, V], cache, aux f32 scalar).
 
         Train: ``tokens`` [B, S] (or ``input_embeds`` [B, S, D] for stub
-        frontends), no cache. Prefill: ``want_cache=True``, ``s_alloc`` =
-        cache allocation. Decode: ``cache`` (updated in place) and
-        ``cur_index`` (a scalar, or int[B] per row); ``tokens`` [B, 1]."""
+        frontends), no cache; ``remat`` (``True``/``"full"`` or
+        ``"save_tp"``) recomputes activations in the backward pass.
+        Prefill: ``want_cache=True``, ``s_alloc`` = cache allocation.
+        Decode: ``cache`` (updated in place) and ``cur_index`` (a scalar,
+        or int[B] per row); ``tokens`` [B, 1]. ``aux`` sums the MoE
+        blocks' load-balance losses."""
         cfg = self.cfg
         dt = L.compute_dtype(cfg)
         x = self.embed_inputs(tokens, input_embeds)
@@ -211,41 +257,104 @@ class LM(nn.Module):
             else:  # a scalar: filled on the device, no host-to-device copy
                 positions = torch.full((B, S), int(cur_index),
                                        dtype=torch.int32, device=x.device)
-
-        entries = _flat_pattern(cfg)
-        built: dict[str, list] = {}
-        for g, group in enumerate(self.layers):
-            for name, kind in entries:
-                bc = None
-                if cache is not None and name in cache:
-                    bc = {key: leaf[g] for key, leaf in cache[name].items()}
-                x, nc = _apply_block(
-                    kind, group[name], x, cfg, cache=bc, cur_index=cur_index,
-                    positions=positions, want_cache=want_cache,
-                    s_alloc=s_alloc)
-                if want_cache and nc is not None:
-                    built.setdefault(name, []).append(nc)
-        new_cache = cache
-        if want_cache:
-            new_cache = {name: {key: torch.stack([c[key] for c in per])
-                                for key in per[0]}
-                         for name, per in built.items()}
-
+        x, new_cache, aux = self._trunk(
+            x, positions, cache=cache, cur_index=cur_index,
+            want_cache=want_cache, s_alloc=s_alloc, remat=remat)
         x = L.apply_rmsnorm(self.final_norm, x)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         if not self.serving:
             head = head.to(dt)
         logits = x.float() @ head.float()
-        return logits, new_cache
+        return logits, new_cache, aux
+
+    def forward_trunk(self, tokens: Optional[torch.Tensor] = None,
+                      input_embeds: Optional[torch.Tensor] = None,
+                      remat=False):
+        """Forward without the unembedding head: (x after the final norm
+        [B, S, D] in the compute dtype, aux), for the chunked loss."""
+        x = self.embed_inputs(tokens, input_embeds)
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        x, _, aux = self._trunk(x, positions, cache=None, cur_index=None,
+                                want_cache=False, s_alloc=0, remat=remat)
+        return L.apply_rmsnorm(self.final_norm, x), aux
+
+    def _trunk(self, x, positions, *, cache, cur_index, want_cache,
+               s_alloc, remat):
+        """The groups in order; returns (x, cache, aux). Under ``remat``
+        (training: no cache) each group runs under
+        ``torch.utils.checkpoint`` and only its input is kept for the
+        backward pass, as the reference's ``jax.checkpoint`` of its scan
+        body; ``"save_tp"`` checkpoints each block instead, so the block
+        outputs the reference names ``tp_out`` (attention and MLP) are
+        kept, inside the residual sum that follows them."""
+        cfg = self.cfg
+        _check_remat(remat)
+        entries = _flat_pattern(cfg)
+        train = cache is None and not want_cache
+        auxes: list = []  # the MoE blocks' losses, summed in block order
+        built: dict[str, list] = {}
+
+        def block_fn(group, name, kind):
+            def run(x):
+                x, _, a = _apply_block(
+                    kind, group[name], x, cfg, cache=None, cur_index=None,
+                    positions=positions, want_cache=False, s_alloc=0)
+                return x, a
+            return run
+
+        def group_fn(group):
+            def run(x):
+                out = []
+                for name, kind in entries:
+                    x, a = block_fn(group, name, kind)(x)
+                    out.append(a)
+                return x, [a for a in out if a is not None]
+            return run
+
+        for g, group in enumerate(self.layers):
+            if train and remat == "save_tp":
+                for name, kind in entries:
+                    x, a = checkpoint(block_fn(group, name, kind), x,
+                                      use_reentrant=False)
+                    auxes.append(a)
+                continue
+            if train and remat:
+                x, a = checkpoint(group_fn(group), x, use_reentrant=False)
+                auxes.extend(a)
+                continue
+            for name, kind in entries:
+                bc = None
+                if cache is not None and name in cache:
+                    bc = {key: leaf[g] for key, leaf in cache[name].items()}
+                x, nc, a = _apply_block(
+                    kind, group[name], x, cfg, cache=bc, cur_index=cur_index,
+                    positions=positions, want_cache=want_cache,
+                    s_alloc=s_alloc)
+                auxes.append(a)
+                if want_cache and nc is not None:
+                    built.setdefault(name, []).append(nc)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in auxes:
+            if a is not None:
+                aux = aux + a
+        new_cache = cache
+        if want_cache:
+            new_cache = {name: {key: torch.stack([c[key] for c in per])
+                                for key in per[0]}
+                         for name, per in built.items()}
+        return x, new_cache, aux
 
 
 # ------------------------------------------------------------------ init
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> LM:
+                device=None, trainable: bool = False) -> LM:
     """Random parameters drawn from ``generator`` on ``device`` (the
-    generator must live there). Its draws are not the reference's
-    ``jax.random`` bits; ``params_from_jax`` carries those across."""
+    generator must live there), trainable or frozen. Its draws are not
+    the reference's ``jax.random`` bits; ``params_from_jax`` carries
+    those across."""
     D, V = cfg.d_model, cfg.vocab_size
     pd = L.param_dtype(cfg)
     state = {"embed": (torch.randn((V, D), generator=generator,
@@ -261,7 +370,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                     ("block", BLOCK_INIT[kind](generator, cfg, device))):
                 for w, t in tensors.items():
                     state[f"layers.{g}.{name}.{part}.{w}"] = t
-    return LM(cfg, state)
+    return LM(cfg, state, trainable)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_alloc: int,
@@ -284,31 +393,149 @@ def init_cache(cfg: ModelConfig, batch: int, s_alloc: int,
 # ------------------------------------------------------ crossing packages
 
 def _tensor(x) -> torch.Tensor:
-    """A numpy array (any float dtype, bfloat16 included) as a tensor."""
+    """A numpy array (any float dtype, bfloat16 included) or a tensor as
+    a tensor of its own (a copy)."""
+    if torch.is_tensor(x):
+        return x.detach().clone()
     x = np.asarray(x)
     if x.dtype.kind == "V" or x.dtype.name == "bfloat16":
         x = x.astype(np.float32)
     return torch.from_numpy(np.array(x))  # a writable copy
 
 
+def _unstack(groups: Mapping[str, Any], cfg: ModelConfig,
+             dtype_of=None) -> dict:
+    """The ``groups`` subtree (leaves ``[n_groups, ...]``) as per-group
+    state-dict entries; ``dtype_of(w)`` picks a leaf's dtype (None keeps
+    it)."""
+    state = {}
+    for name, _ in _flat_pattern(cfg):
+        for part in ("norm", "block"):
+            for w, stacked in groups[name][part].items():
+                arr = _tensor(stacked)
+                if dtype_of is not None:
+                    arr = arr.to(dtype_of(w))
+                for g in range(cfg.n_groups):
+                    state[f"layers.{g}.{name}.{part}.{w}"] = arr[g].clone()
+    return state
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict:
-    """The reference's parameter pytree (numpy leaves; group-stacked
-    ``[n_groups, ...]`` under ``groups``) as the port's state dict, in
-    ``cfg.param_dtype`` on the CPU: ``LM(cfg, params_from_jax(tree,
-    cfg))``. RG-LRU's ``lam`` stays f32, as the reference makes it."""
+    """The reference's parameter pytree (numpy leaves, or tensors as
+    ``checkpoint.restore`` gives them; group-stacked ``[n_groups, ...]``
+    under ``groups``) as the port's state dict, in ``cfg.param_dtype`` on
+    the CPU: ``LM(cfg, params_from_jax(tree, cfg))``. RG-LRU's ``lam``
+    stays f32, as the reference makes it."""
     pd = L.param_dtype(cfg)
     state = {"embed": _tensor(tree["embed"]).to(pd),
              "final_norm.scale": _tensor(tree["final_norm"]["scale"]).to(pd)}
     if not cfg.tie_embeddings:
         state["lm_head"] = _tensor(tree["lm_head"]).to(pd)
+    state.update(_unstack(tree["groups"], cfg, lambda w: (
+        torch.float32 if w == "lam" else pd)))
+    return state
+
+
+def params_to_tree(state: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                   device=None) -> dict:
+    """The inverse of ``params_from_jax``: a state dict (or a dict of
+    moments keyed like it) as the reference's pytree of tensors, each
+    block leaf stacked over groups, on ``device`` (None: where it is).
+    Dtypes are kept."""
+    def to(t):
+        return t.detach().to(device) if device is not None else t.detach()
+
+    tree: dict = {"embed": to(state["embed"]),
+                  "final_norm": {"scale": to(state["final_norm.scale"])}}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = to(state["lm_head"])
+    groups: dict = {}
     for name, _ in _flat_pattern(cfg):
         for part in ("norm", "block"):
-            for w, stacked in tree["groups"][name][part].items():
-                arr = _tensor(stacked).to(torch.float32 if w == "lam"
-                                          else pd)
-                for g in range(cfg.n_groups):
-                    state[f"layers.{g}.{name}.{part}.{w}"] = arr[g].clone()
-    return state
+            first = f"layers.0.{name}.{part}."
+            leaves = [k[len(first):] for k in state if k.startswith(first)]
+            groups.setdefault(name, {})[part] = {
+                w: torch.stack([to(state[f"layers.{g}.{name}.{part}.{w}"])
+                                for g in range(cfg.n_groups)])
+                for w in leaves}
+    tree["groups"] = groups
+    return tree
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """numpy has no bfloat16: a bf16 leaf comes out as float32 holding
+    the same values."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor],
+                  cfg: ModelConfig) -> dict:
+    """``params_to_tree`` with numpy leaves (bf16 as float32 of equal
+    values): what the reference's functions take as ``params``."""
+    return _map(_numpy, params_to_tree(state, cfg, "cpu"))
+
+
+def opt_state_to_tree(state: Mapping[str, Any], cfg: ModelConfig,
+                      device=None) -> dict:
+    """The optimizer state (``train.optimizer``) in the reference's
+    layout: ``{"step", "m", "v"[, "err"]}``, moments group-stacked."""
+    out = {"step": state["step"].detach().to(device or state["step"].device)}
+    for key in ("m", "v", "err"):
+        if key in state:
+            out[key] = params_to_tree(state[key], cfg, device)
+    return out
+
+
+def opt_state_to_jax(state: Mapping[str, Any], cfg: ModelConfig) -> dict:
+    """``opt_state_to_tree`` with numpy leaves (bf16 as float32)."""
+    return _map(_numpy, opt_state_to_tree(state, cfg, "cpu"))
+
+
+def opt_state_from_tree(tree: Mapping[str, Any], cfg: ModelConfig) -> dict:
+    """The reference's optimizer-state pytree (numpy leaves or tensors)
+    as the port's, on the CPU, each leaf in its own dtype (numpy float32
+    stands for bf16 only where the caller converts it)."""
+    def moments(sub):
+        state = {"embed": _tensor(sub["embed"]),
+                 "final_norm.scale": _tensor(sub["final_norm"]["scale"])}
+        if "lm_head" in sub:
+            state["lm_head"] = _tensor(sub["lm_head"])
+        state.update(_unstack(sub["groups"], cfg))
+        return state
+
+    out = {"step": _tensor(tree["step"]).to(torch.int32)}
+    for key in ("m", "v", "err"):
+        if key in tree:
+            out[key] = moments(tree[key])
+    return out
+
+
+def _jax_path(key: str) -> tuple:
+    """The reference pytree path of a state-dict key, the group last:
+    ``layers.{g}.{name}.{part}.{w}`` → ("groups", name, part, w, g)."""
+    parts = key.split(".")
+    if parts[0] == "layers" and len(parts) == 5:
+        return ("groups", parts[2], parts[3], parts[4], int(parts[1]))
+    return tuple(parts)
+
+
+def jax_leaves(keys) -> list[list[str]]:
+    """The reference's leaves in its order (``jax.tree.leaves``: dict
+    keys sorted), each as the state-dict keys it stacks, in group order
+    (one key for a leaf outside the groups)."""
+    leaves: dict[tuple, list] = {}
+    for k in sorted(keys, key=_jax_path):
+        path = _jax_path(k)
+        leaves.setdefault(path[:4] if path[0] == "groups" else path,
+                          []).append(k)
+    return list(leaves.values())
 
 
 def cache_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,

@@ -15,7 +15,8 @@ def prefill_step(model: LM, tokens_or_embeds: torch.Tensor, *,
     kw = ({"input_embeds": tokens_or_embeds} if is_embeds
           else {"tokens": tokens_or_embeds})
     S = tokens_or_embeds.shape[1]
-    return model(want_cache=True, s_alloc=s_alloc or S, **kw)
+    logits, cache, _ = model(want_cache=True, s_alloc=s_alloc or S, **kw)
+    return logits, cache
 
 
 @torch.inference_mode()
@@ -23,7 +24,9 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor, cur_index):
     """One decode step: tokens [B, 1] against ``cache`` at ``cur_index``
     (a scalar, or int[B] per row). Returns (logits [B, 1, V], cache); the
     cache is updated in place."""
-    return model(tokens=tokens, cache=cache, cur_index=cur_index)
+    logits, cache, _ = model(tokens=tokens, cache=cache,
+                             cur_index=cur_index)
+    return logits, cache
 
 
 @torch.inference_mode()

@@ -83,8 +83,8 @@ def test_forward_logits(dense_models, arch, dtype):
     ref, _, _ = jax.jit(lambda p, t: r_forward(p, rc, CTX, tokens=t))(
         params, jnp.asarray(toks))
     with torch.inference_mode():
-        got, cache = lm(tokens=_t(toks))
-        served, _ = lm.serving_copy()(tokens=_t(toks))
+        got, cache, _ = lm(tokens=_t(toks))
+        served, _, _ = lm.serving_copy()(tokens=_t(toks))
     assert cache is None and got.dtype == torch.float32
     tol = F32_TOL if dtype == "float32" else BF16_LOGIT_TOL
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
@@ -102,7 +102,7 @@ def test_forward_input_embeds_vision():
     ref, _, _ = r_forward(params, rc, CTX,
                           input_embeds=jnp.asarray(emb, rc.dtype))
     with torch.inference_mode():
-        got, _ = lm(input_embeds=_t(emb).to(torch.bfloat16))
+        got, _, _ = lm(input_embeds=_t(emb).to(torch.bfloat16))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=BF16_LOGIT_TOL)
 
@@ -196,7 +196,7 @@ def test_decode_matches_forward(dense_models):
     lg, _ = decode_step(lm, cache, _t(toks[:, :1]), 32)
     full = np.concatenate([toks, toks[:, :1]], axis=1)
     with torch.inference_mode():
-        lf, _ = lm(tokens=_t(full))
+        lf, _, _ = lm(tokens=_t(full))
     np.testing.assert_allclose(lg[:, 0].numpy(), lf[:, -1].numpy(),
                                atol=0.15)
 
