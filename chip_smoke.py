@@ -167,7 +167,8 @@ Phases, each fatal on failure:
    (0.15) with ``allow_bf16_reduced_precision_reduction`` as set and
    flipped; (d) one 8 x 512 prefill, a decode step at batch 8 and at 8
    slots (CUDA events, held and host-paced), tokens/s of both serves,
-   peak memory and the decode step's bytes bound;
+   peak memory and the decode step's bound (``roofline``: the dry-run's
+   FLOPs by dtype at their peaks, the least bytes at the HBM rate);
 4h. LM serving, the MoE and recurrent families (no C² kernel launches
    in the phase; one model on the card at a time) — (a) OLMoE-1B-7B at
    its full published config (16 layers, d 2,048, 16 heads of 128, 64
@@ -178,10 +179,8 @@ Phases, each fatal on failure:
    engine reads is finite; tokens equal across modes are counted, not
    required (the expert capacity follows each call's token count), and
    each prefill's capacity drops are printed by layer; (b) RecurrentGemma-
-   2B at its full published config and xLSTM-125M at its published
-   widths and one pattern period (6 of its 12 layers, cut to keep the
-   script inside its time limit) served the same way, their
-   tokens equal across modes (xLSTM's by phase 4g's near-tie rule); (c) the three models' full widths
+   2B and xLSTM-125M at their full published configs served the same
+   way, their tokens equal across modes (xLSTM's by phase 4g's near-tie rule); (c) the three models' full widths
    at 2 layers (one layer of each block kind), weights made on the CPU
    and copied to the card: prefill and 3 decode steps at f32 (1e-4; for
    OLMoE the (token, layer) expert choices compared first, a differing
@@ -191,7 +190,8 @@ Phases, each fatal on failure:
    logits (0.15); (d) for each model one 8 x 512 prefill (CUDA events and
    its kernels by ``torch.profiler``), a decode step at batch 8 and at 8
    slots (held and host-paced, kernels a step), tokens/s of both serves,
-   peak memory serving and building, and the decode step's bytes bound
+   peak memory serving and building, and the decode step's bound
+   (phase 4g's ``roofline`` bound)
    (for OLMoE also the least: only the experts the step chose, with the
    distinct experts per layer);
 4i. LM training (run after phase 4h; FastRandomHash is the one C² kernel
@@ -209,15 +209,25 @@ Phases, each fatal on failure:
    at its full published config through ``launch/train --batch 8 --seq
    512 --steps 8 --data-order c2`` (f32 parameters and AdamW state, bf16
    compute, remat): 8 finite losses, the last below the first; median
-   step ms of the last 5, tokens/s, peak memory, the step's bound; one
+   step ms of the last 5, tokens/s, peak memory, the step's ``roofline``
+   bound; one
    step under ``torch.profiler``: kernels, device ms by class, the
    device's idle share; FastRandomHash launched once (the c2 order,
    equal to the host hashing's) and no other C² kernel; the full
    (params, opt_state) saved and restored once, timed, bitwise; (c) the
-   restart contract at 2 layers and full width: ``--fail-at-step 3``
-   exits 42, the resumed run's final loss within 1e-4 of a straight
-   run's (bitwise printed), and the card's checkpoint restored on the
-   CPU equal to the card's state;
+   restart contract at 2 layers and full width, for Llama-3.2-1B and
+   OLMoE-1B-7B: ``--fail-at-step 3`` exits 42, the resumed run's final
+   loss within 1e-4 of a straight run's (bitwise printed), and Llama's
+   card checkpoint restored on the CPU equal to the card's state;
+4j. LM analysis tools (run after phase 4i; no C² kernel) — (a) the
+   dry-run (``launch/dryrun``, meta tensors) of phase 4i's train step
+   and of each family's batch-8 decode step over 576 slots (Llama-3.2-1B,
+   OLMoE-1B-7B, RecurrentGemma-2B, xLSTM-125M at full depth), the counts
+   phases 4g-4i took their bounds from, against the same steps built on
+   the card and counted there by the same ``OpCounter``: FLOPs by dtype
+   equal as integers, with kernels, eager bytes and peaks beside; (b) the
+   dry-run's predicted peak of the train step within 25% of phase 4i's
+   measured peak;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -239,11 +249,13 @@ phases 4d's and 4e's launches path by path under ``phase_4d`` and
 the FastRandomHash row phase 4i's launches under ``phase_4i``) after a
 ``{"phase_4e": ...}``, a ``{"phase_4f": ...}``, an ``{"lm_serve": ...}``
 (phase 4g's figures and checks), an ``{"lm_serve_4h": ...}`` (phase
-4h's) and an ``{"lm_train": ...}`` line (phase 4i's); then the card's
+4h's), an ``{"lm_train": ...}`` (phase 4i's) and an ``{"lm_analysis":
+...}`` line (phase 4j's); then the card's
 name and power limit; then phase 4f's times, qualities and counts, the
 cluster-KNN row's times, OLMoE's tokens/s, decode ms and bounds and
 phase 4i's losses, step ms, tokens/s, idle share and checkpoint times
-under short keys (``tail_summary``), so that a short tail of the log
+and phase 4j's FLOP agreement and peaks under short keys
+(``tail_summary``), so that a short tail of the log
 still holds them;
 then as the last line
 ``{"ok": true, "device": {...}}``.
@@ -261,17 +273,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8
-# tensor-core operations/s. The bound counts the GoldFinger intersection
-# as the int8 bit-plane product (2 operations per bit per pair), the
-# cheapest form of the same work on this card.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-# CUDA-core rate of NVIDIA's H100 SXM data sheet (67 T/s, float32 outside
-# the tensor cores); the card's int32 ALUs are no faster, so this
-# under-states the least time of integer hashing.
-CUDA_CORE_OPS_PER_S = 67e12
+# The card's peaks (NVIDIA's H100 SXM data sheet, dense), one place for
+# the port (``repro_torch.launch.mesh``): HBM3 bytes/s; int8 tensor-core
+# operations/s (the bound counts the GoldFinger intersection as the int8
+# bit-plane product, 2 operations per bit per pair, the cheapest form of
+# the same work on this card); the CUDA-core rate (float32 outside the
+# tensor cores; the card's int32 ALUs are no faster, so this under-states
+# the least time of integer hashing); the bf16 tensor-core rate.
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_OPS_PER_S,
+    PEAK_FLOPS_F32 as CUDA_CORE_OPS_PER_S, PEAK_OPS_INT8 as INT8_OPS_PER_S)
 # Integer operations of one FastRandomHash (item, seed): the xor with the
 # seed mix, fmix32's three shift-xors and two multiplies, the mask and
 # the min.
@@ -999,6 +1012,55 @@ def check_minhash(dev) -> tuple[int, float]:
         f"16-byte aligned and not; t 1/8/32; b 256/4096/2^31) bitwise equal "
         f"to the plain version and to the padded entry")
     return n_checked + n_csr, 0.0
+
+
+# -- datasets made once ----------------------------------------------------
+
+@contextlib.contextmanager
+def datasets_made_once(made: dict):
+    """Within the block every ``make_dataset(name, scale, seed)`` — the
+    script's own and those of ``launch/knn_build`` and ``launch/knn_serve``
+    — draws its dataset once; a later call gets a copy of the first
+    draw's arrays, which equal a fresh draw bitwise (the generator is a
+    pure function of its arguments). ``made`` collects, per argument
+    tuple, the calls and the seconds of the one draw."""
+    import dataclasses
+
+    from repro_torch.data import synthetic
+    from repro_torch.launch import knn_build, knn_serve
+
+    make = synthetic.make_dataset
+
+    def once(name, scale=1.0, seed=0, min_profile=20):
+        key = (name, float(scale), int(seed), int(min_profile))
+        if key not in made:
+            t0 = time.perf_counter()
+            ds = make(name, scale=scale, seed=seed, min_profile=min_profile)
+            made[key] = {"dataset": ds, "calls": 0,
+                         "seconds": time.perf_counter() - t0}
+        made[key]["calls"] += 1
+        ds = made[key]["dataset"]
+        return dataclasses.replace(ds, items=ds.items.copy(),
+                                   offsets=ds.offsets.copy())
+
+    modules = (synthetic, knn_build, knn_serve)
+    for m in modules:
+        m.make_dataset = once
+    try:
+        yield made
+    finally:
+        for m in modules:
+            m.make_dataset = make
+
+
+def datasets_line(made: dict) -> str:
+    draws = sum(d["seconds"] for d in made.values())
+    reused = sum(d["seconds"] * (d["calls"] - 1) for d in made.values())
+    return (f"[datasets] {sum(d['calls'] for d in made.values())} "
+            f"make_dataset calls, {len(made)} draws in {draws:.1f} s; the "
+            f"reused calls would have drawn for ~{reused:.1f} s more: "
+            + ", ".join(f"{k[0]}@{k[1]:g} seed {k[2]} x{d['calls']} "
+                        f"({d['seconds']:.2f} s)" for k, d in made.items()))
 
 
 # -- phase 4: the main path ------------------------------------------------
@@ -3397,6 +3459,71 @@ def baselines_and_raw_mode(dev) -> dict:
     return numbers
 
 
+# -- LM bounds: the dry-run's counts and the roofline ----------------------
+
+# Each LM step's count by the dry-run (meta tensors: nothing allocated),
+# by label; phases 4g-4i read their bounds from it and phase 4j holds it
+# against the same step counted on the card.
+META_COUNTS: dict = {}
+
+
+def meta_count(label: str, cfg, shape):
+    """The dry-run's ``OpCounter`` counts of one step of ``cfg`` at
+    ``shape`` on meta tensors, once a label."""
+    from repro_torch.launch import dryrun
+
+    if label not in META_COUNTS:
+        t0 = time.perf_counter()
+        counts = dryrun.count_cell(dryrun.build_cell(
+            cfg.name, label, cfg=cfg, shape=shape))
+        META_COUNTS[label] = {"counts": counts,
+                              "seconds": time.perf_counter() - t0}
+    return META_COUNTS[label]["counts"]
+
+
+def decode_label(cfg, B: int, alloc: int) -> str:
+    return f"{cfg.name} {cfg.n_layers} layers decode B {B} over {alloc}"
+
+
+def roofline_bound(counts, least: dict) -> dict:
+    """The roofline's bound of one step: the larger of its counted FLOPs
+    at their dtypes' peaks and its least bytes at the HBM rate."""
+    from repro_torch.launch import roofline
+
+    t = roofline.terms(counts.flops, least["total"])
+    return {"ms": t["bound_s"] * 1e3, "compute_ms": t["compute_s"] * 1e3,
+            "memory_ms": t["memory_s"] * 1e3,
+            "bound_by": "bytes" if t["bottleneck"] == "memory"
+            else "operations",
+            "flops_by_dtype": counts.flops, "least_bytes": least}
+
+
+def decode_bound(model, cache: dict, tok, S: int, alloc: int,
+                 experts_read=None) -> dict:
+    """A decode step's bound at ``tok``'s batch and position ``S`` over
+    a cache of ``alloc``: FLOPs from the dry-run of the same step, least
+    bytes from the live model and cache (``roofline.least_bytes``: the
+    parameters as the serving copy holds them, the ``S + 1`` valid cache
+    positions; ``experts_read`` the experts each MoE layer's tokens
+    chose)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import roofline
+
+    cfg = model.cfg
+    B = tok.shape[0]
+    counts = meta_count(decode_label(cfg, B, alloc), cfg,
+                        ShapeSpec("decode", alloc, B, "decode"))
+    least = roofline.least_bytes("decode", model, {"tokens": tok},
+                                 cache=cache, cur_index=S,
+                                 experts_read=experts_read)
+    return roofline_bound(counts, least)
+
+
+def bound_text(b: dict) -> str:
+    return (f"{b['ms']:.4f} ms by {b['bound_by']} (compute "
+            f"{b['compute_ms']:.4f}, memory {b['memory_ms']:.4f})")
+
+
 # -- phase 4g: LM serving (the dense family) -------------------------------
 
 # Phase 4g's full-width serve: Llama-3.2-1B's published config (16 layers,
@@ -3764,13 +3891,6 @@ def lm_numbers(model, serves: dict) -> dict:
     slots_paced = cuda_ms(slots, reps=7, inner=5)
     profiles = {"decode_batch8": lm_profile(wave),
                 "decode_slots8": lm_profile(slots)}
-    n_params = cfg.param_count()
-    kv = 2 * cfg.n_layers * B * (S + 1) * cfg.n_kv_heads * cfg.head_dim_ * 2
-    port_bytes = sum(p.numel() * p.element_size()
-                     for p in model.parameters()) + kv
-    bound = {"bf16_weights_ms": (2 * n_params + kv) / HBM_BYTES_PER_S * 1e3,
-             "port_reads_ms": port_bytes / HBM_BYTES_PER_S * 1e3,
-             "f32_params_ms": 4 * n_params / HBM_BYTES_PER_S * 1e3}
     return {"prefill_8x512_ms": prefill_ms,
             "decode_batch8_ms": wave_ms, "decode_batch8_paced_ms": wave_paced,
             "decode_slots8_ms": slots_ms,
@@ -3778,11 +3898,8 @@ def lm_numbers(model, serves: dict) -> dict:
             "tokens_per_s": {label: serves[label]["tokens_per_s"]
                              for label in ("wave", "continuous")},
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "decode_bytes": {"bf16_weights_and_kv": 2 * n_params + kv,
-                             "port_reads": port_bytes,
-                             "f32_params": 4 * n_params},
-            "decode_bound_ms": bound, "bound_by": "bytes",
-            "param_count": n_params, "profile": profiles}
+            "decode_bound": decode_bound(model, cache, tok, S, alloc),
+            "param_count": cfg.param_count(), "profile": profiles}
 
 
 def lm_serving(dev, smi: str) -> dict:
@@ -3809,10 +3926,7 @@ def lm_serving(dev, smi: str) -> dict:
         f"(paced {numbers['decode_batch8_paced_ms']:.3f}), 8 slots "
         f"{numbers['decode_slots8_ms']:.3f} ms (paced "
         f"{numbers['decode_slots8_paced_ms']:.3f}); bound "
-        f"{numbers['decode_bound_ms']['bf16_weights_ms']:.3f} ms (bf16 "
-        f"weights), {numbers['decode_bound_ms']['port_reads_ms']:.3f} "
-        f"(what the port reads), "
-        f"{numbers['decode_bound_ms']['f32_params_ms']:.3f} (f32 params); "
+        f"{bound_text(numbers['decode_bound'])}; "
         f"peak {numbers['peak_gb']:.2f} GB; {smi}")
     for label, prof in numbers["profile"].items():
         log(f"[lm] {label} profile: {prof['kernels']:.0f} kernels, "
@@ -3828,11 +3942,6 @@ def lm_serving(dev, smi: str) -> dict:
 # f32 parameters, bf16 compute, seed 0 on the card, served with phase 4g's
 # flags.
 PHASE_4H_ARCHS = ("olmoe-1b-7b", "recurrentgemma-2b", "xlstm-125m")
-# Served depth where it is cut to keep the script inside its time limit:
-# xLSTM-125M at one pattern period (5 mLSTM + 1 sLSTM, 6 of its 12
-# layers): its prefill runs one step a token, and 32 slot prefills cost
-# ~40 s at 12 layers.
-PHASE_4H_LAYERS = {"xlstm-125m": 6}
 # Card against CPU at full widths and 2 layers: one layer of each of the
 # model's block kinds (RecurrentGemma's own period is 13 layers, xLSTM's 6).
 PHASE_4H_CUTS = {
@@ -3891,13 +4000,11 @@ def phase4h_serves(arch: str):
     budget, every logit the engine reads is finite, no C² kernel
     launches. Returns (figures, the continuous engine, whose serving
     model (d) times)."""
-    import dataclasses
     import gc
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import layers as L
 
@@ -3912,11 +4019,7 @@ def phase4h_serves(arch: str):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cut = None
-        if arch in PHASE_4H_LAYERS:
-            cut = dataclasses.replace(get_config(arch),
-                                      n_layers=PHASE_4H_LAYERS[arch])
-        engine = serve_cli.build(argv + extra, cfg=cut)
+        engine = serve_cli.build(argv + extra)
         cfg = engine.cfg
         if engine.device.type != "cuda":
             fail(f"{arch} {label} serve built on {engine.device}")
@@ -4033,34 +4136,6 @@ def mode_margins(model, prompts: dict, outs: dict, steps: dict) -> dict:
     return margins
 
 
-def decode_bytes(model, cache: dict, B: int, S: int) -> int:
-    """Bytes one decode step at ``B`` rows and position ``S`` must move as
-    the port holds the model: every parameter the step reads (the block
-    weights in the compute dtype, the f32 router / ``lam`` / ``r_z`` and
-    norms, the f32 head; the embedding only for its B rows when untied),
-    the valid attention cache read, the recurrent states read and
-    written."""
-    cfg = model.cfg
-    total = 0
-    for name, p in model.named_parameters():
-        if name == "embed" and not cfg.tie_embeddings:
-            total += B * p.shape[1] * p.element_size()
-        else:
-            total += p.numel() * p.element_size()
-    for sub in cache.values():
-        if "pos" in sub:
-            alloc = sub["k"].shape[2]
-            valid = min(S + 1, alloc)
-            for key in ("k", "v"):
-                leaf = sub[key]
-                total += (leaf.numel() // alloc * valid
-                          * leaf.element_size())
-        else:
-            total += sum(2 * leaf.numel() * leaf.element_size()
-                         for leaf in sub.values())
-    return total
-
-
 def phase4h_numbers(model, serves: dict) -> dict:
     """(d) One 8 x 512 prefill (CUDA events; its kernels by
     ``torch.profiler``), a decode step at batch 8 (scalar position) and at
@@ -4112,23 +4187,16 @@ def phase4h_numbers(model, serves: dict) -> dict:
            "peak_gb": max(serves[label]["peak_gb"]
                           for label in ("wave", "continuous")),
            "build_peak_gb": serves["wave"]["build_peak_gb"],
-           "param_count": cfg.param_count(), "bound_by": "bytes"}
-    port_bytes = decode_bytes(model, cache, B, S)
-    out["decode_bytes"] = {"port_reads": port_bytes}
-    out["decode_bound_ms"] = {"port_reads_ms":
-                              port_bytes / HBM_BYTES_PER_S * 1e3}
+           "param_count": cfg.param_count()}
+    out["decode_bound"] = decode_bound(model, cache, tok, S, alloc)
     if cfg.n_experts:
         calls: list = []
         with record_moe(calls):
             wave()
         distinct = [int(gate_e.unique().numel()) for _, gate_e, _ in calls]
-        expert_bytes = 3 * cfg.d_model * cfg.d_ff * 2  # one bf16 expert
-        least = port_bytes - sum(cfg.n_experts - d
-                                 for d in distinct) * expert_bytes
         out["decode_distinct_experts_by_layer"] = distinct
-        out["decode_bytes"]["chosen_experts_only"] = least
-        out["decode_bound_ms"]["chosen_experts_only_ms"] = (
-            least / HBM_BYTES_PER_S * 1e3)
+        out["decode_bound_chosen_experts"] = decode_bound(
+            model, cache, tok, S, alloc, experts_read=distinct)
     return out
 
 
@@ -4276,7 +4344,11 @@ def lm_moe_recurrent(dev, smi: str) -> dict:
         numbers["card_vs_cpu"] = phase4h_card_vs_cpu(dev, arch)
         numbers["seconds"] = time.perf_counter() - ta
         out[arch] = numbers
-        bound = numbers["decode_bound_ms"]
+        bounds = bound_text(numbers["decode_bound"])
+        if "decode_bound_chosen_experts" in numbers:
+            bounds = (f"{bounds} with every expert read, " + bound_text(
+                numbers["decode_bound_chosen_experts"])
+                + " with the chosen experts")
         log(f"[lm4h] {arch}: prefill 8 x 512 "
             f"{numbers['prefill_8x512_ms']:.3f} ms "
             f"({numbers['prefill_profile']['kernels']:.0f} kernels, "
@@ -4284,8 +4356,7 @@ def lm_moe_recurrent(dev, smi: str) -> dict:
             f"decode batch 8 {numbers['decode_batch8_ms']:.3f} ms (paced "
             f"{numbers['decode_batch8_paced_ms']:.3f}), 8 slots "
             f"{numbers['decode_slots8_ms']:.3f} ms (paced "
-            f"{numbers['decode_slots8_paced_ms']:.3f}); bound "
-            + ", ".join(f"{key} {ms:.3f}" for key, ms in bound.items())
+            f"{numbers['decode_slots8_paced_ms']:.3f}); bound {bounds}"
             + f"; peak {numbers['peak_gb']:.2f} GB serving, "
             f"{numbers['build_peak_gb']:.2f} GB building; {smi}")
         log(f"[lm4h] {arch}: last-position logits of a row prefilled in "
@@ -4333,9 +4404,6 @@ TRAIN_PARAM_TOL, TRAIN_M_FLOOR = 1e-6, 1e-7
 TRAIN_BF16_REL = 1e-3
 # The restart contract of the reference's test (tests/test_infra.py).
 RESTART_TOL = 1e-4
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate; f32
-# products run on the CUDA cores (no TF32) at CUDA_CORE_OPS_PER_S.
-BF16_OPS_PER_S = 989e12
 FULL_TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "512",
                    "--steps", "8", "--data-order", "c2", "--device", "cuda"]
 
@@ -4581,21 +4649,23 @@ def profile_train_step(fn) -> dict:
                 by_name.items(), key=lambda kv: -kv[1])[:12]]}
 
 
-def train_bound_ms(cfg, tokens: int) -> dict:
-    """The least time of one Llama train step with remat on this card:
-    the blocks' products (6·N for the step plus 2·N for the remat
-    forward, a token) at the dense bf16 rate; the tied head's (6·V·D a
-    token), which the port computes on f32 operands, at the CUDA-core
-    rate; AdamW's bytes (7 f32 passes over the parameters: p, g, m, v
-    read; p, m, v written) at the HBM rate."""
-    n_total = cfg.param_count()
-    n_head = cfg.vocab_size * cfg.d_model
-    blocks = 8 * (n_total - n_head) * tokens / BF16_OPS_PER_S * 1e3
-    head = 6 * n_head * tokens / CUDA_CORE_OPS_PER_S * 1e3
-    adamw = 7 * 4 * n_total / HBM_BYTES_PER_S * 1e3
-    return {"blocks_ms": blocks, "head_ms": head, "adamw_ms": adamw,
-            "serial_ms": blocks + head + adamw,
-            "max_ms": max(blocks, head, adamw)}
+TRAIN_LABEL = "llama3.2-1b 16 layers train 8 x 512"
+
+
+def train_bound(model, opt_state, batch) -> dict:
+    """The bound of one ``launch/train`` step of phase 4i (Llama-3.2-1B
+    at its published config, batch 8 x 512, remat, f32 parameters and
+    AdamW state): FLOPs from the dry-run of the same step, least bytes
+    from the live model, state and batch (parameters and both moments
+    read and written once)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import roofline
+
+    B, S = batch["tokens"].shape
+    counts = meta_count(TRAIN_LABEL, model.cfg,
+                        ShapeSpec("train", S, B, "train"))
+    least = roofline.least_bytes("train", model, batch, opt_state=opt_state)
+    return roofline_bound(counts, least)
 
 
 def host_c2_order(pipe):
@@ -4696,7 +4766,8 @@ def phase4i_full(dev, tmp: Path, smi: str) -> dict:
            "peak_gb": rec["peak_gb"], "param_count": cfg.param_count(),
            "run_s": wall, "launches": launches,
            "c2_order_docs": len(pipe._order),
-           "bound": train_bound_ms(cfg, tokens)}
+           "bound": train_bound(rec["model"], rec["opt_state"],
+                                pipe.batch(0))}
     out["model_flops_share"] = (6 * cfg.param_count() * tokens
                                 / (step_ms / 1e3) / BF16_OPS_PER_S)
     batch = pipe.batch(8)
@@ -4718,9 +4789,7 @@ def phase4i_full(dev, tmp: Path, smi: str) -> dict:
         + ", ".join(f"{x:.1f}" for x in out["step_ms"])
         + f"), {out['tokens_per_s']:.1f} tok/s, peak {out['peak_gb']:.2f} "
         f"GB, model FLOPs {out['model_flops_share'] * 100:.2f}% of the "
-        f"bf16 peak; bound {b['serial_ms']:.1f} ms serial (blocks "
-        f"{b['blocks_ms']:.1f}, f32 head {b['head_ms']:.1f}, AdamW "
-        f"{b['adamw_ms']:.1f}); launches {launches}; {smi}")
+        f"bf16 peak; bound {bound_text(b)}; launches {launches}; {smi}")
     log(f"[lm4i] one profiled step: {prof['kernels']} kernels, "
         f"{prof['kernel_ms']:.1f} ms of them, busy {prof['busy_ms']:.1f} of "
         f"{prof['wall_ms']:.1f} ms (device idle "
@@ -4735,12 +4804,18 @@ def phase4i_full(dev, tmp: Path, smi: str) -> dict:
     return out
 
 
-def phase4i_restart(dev, tmp: Path) -> dict:
+# The restart contract's models at 2 layers: Llama-3.2-1B (whose card
+# checkpoint is also restored on the CPU) and OLMoE-1B-7B, whose backward
+# sums through repeated-index gathers.
+RESTART_ARCHS = ("llama3.2-1b", "olmoe-1b-7b")
+
+
+def phase4i_restart(dev, tmp: Path, arch: str, cpu_check: bool) -> dict:
     """(c) The restart contract at 2 layers and full width: a straight
     6-step run, a run that fails at step 3 (exit 42), and its resume from
     the step-2 checkpoint; the final losses within RESTART_TOL (bitwise
-    reported), and the card's last checkpoint restored on the CPU equal
-    to the card's state."""
+    reported), and with ``cpu_check`` the card's last checkpoint restored
+    on the CPU equal to the card's state."""
     import dataclasses
 
     import torch
@@ -4751,8 +4826,8 @@ def phase4i_restart(dev, tmp: Path) -> dict:
     from repro_torch.train.optimizer import OptConfig, init_opt_state
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
-    base = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "512",
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    base = ["--arch", arch, "--batch", "8", "--seq", "512",
             "--steps", "6", "--data-order", "c2", "--device", "cuda"]
     ck = ["--ckpt-dir", str(tmp / "restart"), "--ckpt-every", "3"]
     straight = launch.run(base, cfg=cfg)
@@ -4765,7 +4840,7 @@ def phase4i_restart(dev, tmp: Path) -> dict:
     diff = abs(resumed["final_loss"] - straight["final_loss"])
     if code != launch.FAILURE_EXIT or resumed["start_step"] != 3 or not (
             diff < RESTART_TOL):
-        fail(f"restart at 2 layers: exit {code}, resumed at "
+        fail(f"{arch} restart at 2 layers: exit {code}, resumed at "
              f"{resumed['start_step']}, final losses "
              f"{straight['final_loss']} / {resumed['final_loss']}")
     sd_s, sd_r = straight["model"].state_dict(), resumed["model"].state_dict()
@@ -4778,30 +4853,32 @@ def phase4i_restart(dev, tmp: Path) -> dict:
            "bitwise_loss": diff == 0.0, "state_bitwise": state_bitwise,
            "exit_code": code}
     del straight, sd_s, opt_s
-    cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu",
-                      trainable=True)
-    cpu_opt = init_opt_state(dict(cpu.named_parameters()), OptConfig())
-    step = launch.restore_state(tmp / "restart", cpu, cpu_opt)
-    cpu_sd = cpu.state_dict()
-    same = sum(torch.equal(cpu_sd[k], sd_r[k].cpu()) and all(
-        torch.equal(cpu_opt[key][k], opt_r[key][k].cpu())
-        for key in ("m", "v")) for k in sd_r)
-    if step != 5 or same != len(sd_r) or int(cpu_opt["step"]) != 6:
-        fail(f"the card's checkpoint restored on the CPU: {same} of "
-             f"{len(sd_r)} parameters (with their moments) equal, step "
-             f"{step}")
+    same = None
+    if cpu_check:
+        cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu",
+                          trainable=True)
+        cpu_opt = init_opt_state(dict(cpu.named_parameters()), OptConfig())
+        step = launch.restore_state(tmp / "restart", cpu, cpu_opt)
+        cpu_sd = cpu.state_dict()
+        same = sum(torch.equal(cpu_sd[k], sd_r[k].cpu()) and all(
+            torch.equal(cpu_opt[key][k], opt_r[key][k].cpu())
+            for key in ("m", "v")) for k in sd_r)
+        if step != 5 or same != len(sd_r) or int(cpu_opt["step"]) != 6:
+            fail(f"the card's checkpoint restored on the CPU: {same} of "
+                 f"{len(sd_r)} parameters (with their moments) equal, step "
+                 f"{step}")
     out.update(cpu_restore_params_equal=same,
                seconds=time.perf_counter() - t0)
     del sd_r, opt_r
     del resumed
     torch.cuda.empty_cache()
-    log(f"[lm4i] restart at 2 layers, full width: exit {code} at step 3, "
-        f"resumed from step 2; final losses differ by {diff:.3e} "
+    log(f"[lm4i] {arch} restart at 2 layers, full width: exit {code} at "
+        f"step 3, resumed from step 2; final losses differ by {diff:.3e} "
         f"({'bitwise' if diff == 0.0 else 'not bitwise'}; parameters and "
-        f"moments {'bitwise' if state_bitwise else 'NOT bitwise'}); the "
-        f"card's checkpoint restored on the CPU: {same} parameters and "
-        f"their moments equal; "
-        f"{out['seconds']:.1f} s")
+        f"moments {'bitwise' if state_bitwise else 'NOT bitwise'})"
+        + (f"; the card's checkpoint restored on the CPU: {same} "
+           f"parameters and their moments equal" if cpu_check else "")
+        + f"; {out['seconds']:.1f} s")
     return out
 
 
@@ -4816,17 +4893,116 @@ def lm_training(dev, smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out["full"] = phase4i_full(dev, Path(tmp), smi)
     reset_launches()
-    with tempfile.TemporaryDirectory() as tmp:
-        out["restart"] = phase4i_restart(dev, Path(tmp))
+    out["restart"] = {}
+    for arch in RESTART_ARCHS:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["restart"][arch] = phase4i_restart(
+                dev, Path(tmp), arch, cpu_check=arch == RESTART_ARCHS[0])
     launches = read_launches()
-    if launches["frh_minhash"] != 3 or any(
+    runs = 3 * len(RESTART_ARCHS)
+    if launches["frh_minhash"] != runs or any(
             v for k, v in launches.items() if k != "frh_minhash"):
-        fail(f"the restart's 3 runs launched {launches}; expected "
+        fail(f"the restarts' {runs} runs launched {launches}; expected "
              f"FastRandomHash once a run and nothing else")
     out["restart_launches"] = launches
     torch.cuda.empty_cache()
     out.update(card=smi, seconds=time.perf_counter() - t0)
     log(f"[lm4i] phase 4i: {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 4j: the LM analysis tools against the card ----------------------
+
+# The decode steps phase 4j counts: each family's batch-8 step as phases
+# 4g and 4h serve it (published configs, full depth, a 576-slot cache).
+PHASE_4J_DECODES = ("llama3.2-1b", "olmoe-1b-7b", "recurrentgemma-2b",
+                    "xlstm-125m")
+# The dry-run's predicted peak against phase 4i's measured one.
+PEAK_TOL = 0.25
+
+
+def card_count(cfg, shape, dev):
+    """The step of ``cfg`` at ``shape`` built on the card (random
+    weights, seed 0) and counted there by the same ``OpCounter``; returns
+    (counts, the allocator's peak over the step with the step's inputs
+    and nothing else counted)."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    cell = dryrun.build_cell(cfg.name, "card", cfg=cfg, shape=shape,
+                             device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = dryrun.count_cell(cell)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + counts.input_bytes
+    del cell
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def lm_analysis(dev, smi: str, lm4i: dict) -> dict:
+    """Phase 4j: (a) the dry-run of phase 4i's train step and of each
+    family's batch-8 decode step on meta tensors (the counts phases 4g-4i
+    took their bounds from) against the same steps counted on the card:
+    FLOPs by dtype equal as integers; (b) the dry-run's predicted peak of
+    the train step against phase 4i's measured peak, within PEAK_TOL."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import op_analysis as oa
+
+    t0 = time.perf_counter()
+    steps = [(TRAIN_LABEL, get_config("llama3.2-1b"),
+              ShapeSpec("train", 512, 8, "train"))]
+    for arch in PHASE_4J_DECODES:
+        cfg = get_config(arch)
+        steps.append((decode_label(cfg, 8, 576), cfg,
+                      ShapeSpec("decode", 576, 8, "decode")))
+    out = {"steps": {}}
+    for label, cfg, shape in steps:
+        ts = time.perf_counter()
+        meta = meta_count(label, cfg, shape)
+        card, alloc_peak = card_count(cfg, shape, dev)
+        row = {"flops_by_dtype_meta": meta.flops,
+               "flops_by_dtype_card": card.flops,
+               "flops_equal": oa.same_flops(meta, card),
+               "kernels_meta": meta.kernels, "kernels_card": card.kernels,
+               "eager_bytes_meta": meta.bytes, "eager_bytes_card": card.bytes,
+               "peak_gb_meta": meta.peak_bytes / 1e9,
+               "peak_gb_card_counter": card.peak_bytes / 1e9,
+               "peak_gb_card_allocator": alloc_peak / 1e9,
+               "meta_seconds": META_COUNTS[label]["seconds"],
+               "seconds": time.perf_counter() - ts}
+        out["steps"][label] = row
+        log(f"[lm4j] {label}: FLOPs by dtype meta {meta.flops}, card "
+            f"{card.flops} ({'equal' if row['flops_equal'] else 'DIFFER'});"
+            f" kernels {meta.kernels} / {card.kernels}; eager bytes "
+            f"{meta.bytes:.4e} / {card.bytes:.4e}; peak GB predicted "
+            f"{row['peak_gb_meta']:.3f}, counted on the card "
+            f"{row['peak_gb_card_counter']:.3f}, allocator "
+            f"{row['peak_gb_card_allocator']:.3f}; "
+            f"{row['seconds']:.1f} s")
+        if not row["flops_equal"]:
+            fail(f"phase 4j {label}: FLOPs by dtype on meta tensors "
+                 f"{meta.flops} and on the card {card.flops}")
+    predicted = META_COUNTS[TRAIN_LABEL]["counts"].peak_bytes / 1e9
+    measured = lm4i["full"]["peak_gb"]
+    ratio = predicted / measured
+    out["train_peak"] = {"predicted_gb": predicted, "measured_gb": measured,
+                         "ratio": ratio}
+    log(f"[lm4j] Llama-3.2-1B train step 8 x 512: predicted peak "
+        f"{predicted:.3f} GB, phase 4i measured {measured:.3f} GB "
+        f"(ratio {ratio:.4f}); {smi}")
+    if not abs(ratio - 1.0) <= PEAK_TOL:
+        fail(f"phase 4j: the predicted peak {predicted:.3f} GB is not "
+             f"within {PEAK_TOL:.0%} of phase 4i's {measured:.3f} GB")
+    torch.cuda.empty_cache()
+    out.update(card=smi, seconds=time.perf_counter() - t0)
+    log(f"[lm4j] phase 4j: {out['seconds']:.1f} s")
     return out
 
 
@@ -5297,11 +5473,11 @@ TAIL_KEYS = {"seconds": "s", "quality": "q", "launches": "n", "iters": "it",
 
 
 def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict,
-                 lm4i: dict) -> dict:
+                 lm4i: dict, lm4j: dict) -> dict:
     """Phase 4f's times, qualities and counts, the cluster-KNN row's times
     (main-path sweep, its launches' device time, the raw sweep), phase
-    4g's LM serving figures, phase 4h's OLMoE figures and phase 4i's
-    training figures."""
+    4g's LM serving figures, phase 4h's OLMoE figures, phase 4i's
+    training figures and phase 4j's agreement and peaks."""
     def r(x):
         return round(x, 4) if isinstance(x, float) else x
 
@@ -5321,14 +5497,16 @@ def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict,
         "prefill_8x512_ms", "decode_batch8_ms", "decode_slots8_ms",
         "peak_gb")}
     lm_short["tok_s"] = {k: r(v) for k, v in lm["tokens_per_s"].items()}
-    lm_short["bound_ms"] = r(lm["decode_bound_ms"]["bf16_weights_ms"])
+    lm_short["bound_ms"] = r(lm["decode_bound"]["ms"])
     olmoe = lm4h["olmoe-1b-7b"]
     olmoe_short = {"tok_s": {k: r(v) for k, v in
                              olmoe["tokens_per_s"].items()},
                    "decode_ms": r(olmoe["decode_batch8_ms"]),
                    "decode_paced_ms": r(olmoe["decode_batch8_paced_ms"]),
-                   "bound_ms": {k: r(v) for k, v in
-                                olmoe["decode_bound_ms"].items()},
+                   "bound_ms": {
+                       "all_experts": r(olmoe["decode_bound"]["ms"]),
+                       "chosen_experts": r(olmoe[
+                           "decode_bound_chosen_experts"]["ms"])},
                    "s": r(lm4h["seconds"])}
     ck_short = {"ms": r(ck_row["ms"]),
                 "launch_sum_ms": r(ck_row["launch_sum_ms"]),
@@ -5341,14 +5519,21 @@ def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict,
                    "peak_gb": r(full["peak_gb"]),
                    "idle": r(full["profile"]["idle_share"]),
                    "kernels": full["profile"]["kernels"],
-                   "bound_ms": r(full["bound"]["serial_ms"]),
+                   "bound_ms": r(full["bound"]["ms"]),
                    "ckpt_gb": r(full["checkpoint"]["bytes"] / 1e9),
                    "save_s": r(full["checkpoint"]["save_s"]),
                    "restore_s": r(full["checkpoint"]["restore_s"]),
-                   "restart_diff": lm4i["restart"]["final_loss_diff"],
+                   "restart_diff": {
+                       arch: rs["final_loss_diff"]
+                       for arch, rs in lm4i["restart"].items()},
                    "s": r(lm4i["seconds"])}
+    analysis_short = {
+        "flops_equal": all(r["flops_equal"] for r in lm4j["steps"].values()),
+        "train_peak_gb": {k: r(v) for k, v in lm4j["train_peak"].items()},
+        "s": r(lm4j["seconds"])}
     return {"phase_4f": out, "lm_serve": lm_short, "olmoe": olmoe_short,
-            "goldfinger_knn": ck_short, "lm_train": train_short}
+            "goldfinger_knn": ck_short, "lm_train": train_short,
+            "lm_analysis": analysis_short}
 
 
 def main() -> int:
@@ -5358,7 +5543,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -5393,8 +5577,11 @@ def main() -> int:
         f"shard two-hop and {n_mh} minhash cases bitwise equal to the plain "
         f"versions")
 
-    small_build_matches_cpu()
-    with tempfile.TemporaryDirectory() as tmp:
+    made: dict = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(datasets_made_once(made))
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        small_build_matches_cpu()
         run = main_path(dev, Path(tmp))
         bf = mutable_index(dev, run, Path(tmp))
         shard = sharded_placement(dev, run)
@@ -5420,6 +5607,7 @@ def main() -> int:
     lm = lm_serving(dev, smi)
     lm4h = lm_moe_recurrent(dev, smi)
     lm4i = lm_training(dev, smi)
+    lm4j = lm_analysis(dev, smi, lm4i)
     ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
                                 slice10["AM@0.055"].pop("raw_err"))
     # Phase 4f: the raw-mode build's Step-2 sweep (W = 5,355 on AM@0.055),
@@ -5451,8 +5639,8 @@ def main() -> int:
     mh_row["phase_4i"] = {
         "launch/train llama3.2-1b --data-order c2": lm4i["full"]["launches"][
             "frh_minhash"],
-        "restart at 2 layers, 3 runs": lm4i["restart_launches"][
-            "frh_minhash"]}
+        "restarts at 2 layers (llama, olmoe), 6 runs": lm4i[
+            "restart_launches"]["frh_minhash"]}
     rows = [ck_row, hop_row, dma_row, mh_row]
     for name, st in list(run["serves"].items()) + list(
             shard["serves"].items()):
@@ -5463,7 +5651,10 @@ def main() -> int:
         log(f"[timing] {row['name']}: {row['ms']:.4f} ms (plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms by "
             f"{row['bound_by']}) over {row.pop('shape')}")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(datasets_line(made))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s (phases 4g-4j: "
+        f"{lm['seconds']:.1f}, {lm4h['seconds']:.1f}, {lm4i['seconds']:.1f}, "
+        f"{lm4j['seconds']:.1f} s)")
     # Phase 4e's figures near the end, where the tail of a run's log keeps
     # them.
     print(json.dumps({"phase_4e": slice9["numbers"],
@@ -5473,9 +5664,10 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"lm_serve_4h": lm4h}, default=lambda o: o.tolist()))
     print(json.dumps({"lm_train": lm4i}, default=lambda o: o.tolist()))
+    print(json.dumps({"lm_analysis": lm4j}))
     print(json.dumps({"kernels": rows}))
     print(smi)
-    print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h, lm4i),
+    print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h, lm4i, lm4j),
                      separators=(",", ":"), default=lambda o: o.tolist()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,391 @@
+"""The port's LM analysis tools (``repro_torch.launch.{mesh, specs,
+op_analysis, dryrun, roofline}``) held against the reference's
+(``repro.launch``) on the CPU.
+
+* ``input_specs``: every leaf of all 40 (arch × shape) cells equal to
+  the reference's ``jax.eval_shape`` leaves in shape and dtype;
+  ``roofline.model_flops`` equal in all 40.
+* Step FLOPs on one device: the port's count (meta tensors, ``OpCounter``)
+  against ``repro.launch.hlo_analysis.analyze`` of the reference's step
+  compiled by XLA on one CPU device — small cells of each family, and
+  every decode cell at its full published size (``dryrun_reference.py``
+  does all 32 cells). Equal as integers, except xLSTM's mLSTM, where the
+  reference computes the normaliser n·q as a dot product (2·B·2D FLOPs a
+  step a layer) and the port as a product and a sum, which the dot
+  convention does not count: there port + that term equals the
+  reference.
+* The fits (``op_analysis.extend``): the polynomial through counts at
+  three lengths equals a direct count at S = 16 for mLSTM (sequential)
+  and sLSTM, the affine one through 1 and 2 groups a direct count at 3,
+  in every counter.
+* The committed records (``artifacts/dryrun_torch/``): 40 cells, 32 ok,
+  8 skipped, none an error; each ok record's FLOPs against the
+  reference's 256-chip record (``flops_per_device`` × ``n_devices``):
+  equal as integers after the terms of ``EXACT_POD`` (Llama-3.2-1B's
+  ``train_4k`` among the equal cells), or within 1e-4 of the ratio
+  ``POD_RATIO`` states with its term.
+* The roofline's terms from the records, the mesh's constants, the
+  flags that need a mesh, the least bytes of a decode step, and the
+  counter on CPU tensors equal to the counter on meta tensors.
+"""
+import dataclasses
+import json
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as r_get_config  # noqa: E402
+from repro.configs.shapes import SHAPES as R_SHAPES  # noqa: E402
+from repro.launch import roofline as r_roofline  # noqa: E402
+from repro.launch.specs import input_specs as r_input_specs  # noqa: E402
+from repro.models.config import scaled_down as r_scaled_down  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec,  # noqa: E402
+                                        applicable)
+from repro_torch.launch import dryrun, mesh, roofline  # noqa: E402
+from repro_torch.launch import op_analysis as oa  # noqa: E402
+from repro_torch.launch.specs import input_specs  # noqa: E402
+from repro_torch.models.config import scaled_down  # noqa: E402
+
+from dryrun_reference import (pod_flops, port_record,  # noqa: E402
+                              reference_flops)
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = [(a, s) for a in ARCH_IDS for s in SHAPES]
+OK_CELLS = [(a, s) for a, s in CELLS if applicable(get_config(a), s)]
+SKIP_REASON = "long_500k needs sub-quadratic attention"
+
+# The reference's 256-chip records (``flops_per_device`` × 256) against
+# the port's one-card counts. The one-device counts agree (module doc), so
+# every gap is the mesh's. Exact, as integers, by these terms:
+# EQUAL: the mesh adds nothing (Llama-3.2-1B, the two Granites,
+#   Phi-3-vision; Llama's train_4k is the 1.150419e16 of the probe);
+# NQ: xLSTM's mLSTM normaliser dots (the reference's on any mesh);
+# BATCH1: long_500k's batch of 1 computed on each of the 16 data shards;
+# CAPACITY: the MoE capacity computed per data shard at decode, 8 of the
+#   128 tokens a shard, so every expert fills at least 8 rows on each of
+#   16 shards where one card fills ceil(128·8·1.25/E) rounded up to 8.
+# Pinned, within POD_RATIO_TOL of the stated ratio, where the gap is
+# sharded duplicates the one-device count cannot split further (query or
+# KV heads that do not divide the 16-way model axis: gemma's 8 and 1,
+# musicgen's 24, recurrentgemma's 10 and 1, kimi's 8 KV heads; OLMoE's
+# replicated router), or xLSTM's OUTER term (the port counts the
+# backward's batched outer products, the gradient of ``C @ q`` with
+# respect to C, which XLA computes as multiplies).
+EQUAL, NQ, BATCH1, CAPACITY = "equal", "n.q", "batch1", "capacity"
+EXACT_POD = {
+    **{(a, s): (EQUAL,) for a in ("llama3_2-1b", "granite-20b",
+                                  "granite-34b", "phi-3-vision-4_2b")
+       for s in ("train_4k", "prefill_32k", "decode_32k")},
+    ("xlstm-125m", "prefill_32k"): (NQ,),
+    ("xlstm-125m", "decode_32k"): (NQ,),
+    ("xlstm-125m", "long_500k"): (NQ, BATCH1),
+    ("olmoe-1b-7b", "decode_32k"): (CAPACITY,),
+    ("kimi-k2-1t-a32b", "decode_32k"): (CAPACITY,),
+}
+DUPLICATES, OUTER = "sharded duplicates", "outer"
+POD_RATIO = {
+    ("gemma-2b", "train_4k"): (0.847941, DUPLICATES),
+    ("gemma-2b", "prefill_32k"): (0.657239, DUPLICATES),
+    ("gemma-2b", "decode_32k"): (0.793173, DUPLICATES),
+    ("kimi-k2-1t-a32b", "train_4k"): (0.951441, DUPLICATES),
+    ("kimi-k2-1t-a32b", "prefill_32k"): (0.960953, DUPLICATES),
+    ("musicgen-medium", "train_4k"): (0.854809, DUPLICATES),
+    ("musicgen-medium", "prefill_32k"): (0.782280, DUPLICATES),
+    ("musicgen-medium", "decode_32k"): (0.880197, DUPLICATES),
+    ("olmoe-1b-7b", "train_4k"): (0.985671, DUPLICATES),
+    ("olmoe-1b-7b", "prefill_32k"): (0.991162, DUPLICATES),
+    ("recurrentgemma-2b", "train_4k"): (0.946399, DUPLICATES),
+    ("recurrentgemma-2b", "prefill_32k"): (0.829910, DUPLICATES),
+    ("recurrentgemma-2b", "decode_32k"): (0.981341, DUPLICATES),
+    ("recurrentgemma-2b", "long_500k"): (0.061334, DUPLICATES + BATCH1),
+    ("xlstm-125m", "train_4k"): (1.008349, NQ + OUTER),
+}
+POD_RATIO_TOL = 1e-4
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _leaves(tree, name_of) -> dict:
+    return {k: (tuple(v.shape), name_of(v.dtype))
+            for k, v in _flat(tree).items()}
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_specs_match_reference(arch, shape):
+    ref = _leaves(r_input_specs(r_get_config(arch), R_SHAPES[shape]),
+                  lambda d: str(np.dtype(d)))
+    specs = input_specs(get_config(arch), SHAPES[shape])
+    assert _leaves(specs, oa.dtype_name) == ref
+    assert all(t.device.type == "meta" for t in _flat(specs).values())
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_model_flops_match_reference(arch, shape):
+    assert roofline.model_flops(arch, shape) == r_roofline.model_flops(
+        arch, shape)
+
+
+def _nq_term(cfg, B: int, steps: int) -> int:
+    """The reference's mLSTM normaliser dots: 2·B·(2D) a step a layer."""
+    n_mlstm = sum(g.count("mlstm") for g in cfg.block_pattern) * cfg.n_groups
+    return 2 * B * 2 * cfg.d_model * steps * n_mlstm
+
+
+CUTS = {
+    "recurrentgemma-2b": dict(n_layers=2, block_pattern=(
+        ("rglru", "mlp"), ("local_attn", "mlp"))),
+    "xlstm-125m": dict(n_layers=2, block_pattern=(("mlstm",), ("slstm",))),
+}
+SMALL = [("llama3_2-1b", "train"), ("olmoe-1b-7b", "prefill"),
+         ("recurrentgemma-2b", "decode"), ("xlstm-125m", "prefill"),
+         ("xlstm-125m", "decode")]
+
+
+@pytest.mark.parametrize("arch,kind", SMALL)
+def test_small_cell_flops_match_reference(arch, kind):
+    """Scaled-down widths, 2 layers, B 2 × S 32: the port's count equals
+    the reference's compiled step's, bitwise; xLSTM's after its n·q
+    term."""
+    from repro.configs.shapes import ShapeSpec as RShapeSpec
+
+    kw = CUTS.get(arch, {})
+    rc, pc = r_scaled_down(r_get_config(arch), **kw), scaled_down(
+        get_config(arch), **kw)
+    ref = reference_flops(rc, RShapeSpec("small", 32, 2, kind))
+    got = dryrun.count_cell(dryrun.build_cell(
+        arch, "small", cfg=pc, shape=ShapeSpec("small", 32, 2, kind)))
+    assert set(got.flops) == {"bfloat16", "float32"}
+    extra = 0
+    if arch == "xlstm-125m":
+        extra = _nq_term(pc, 2, 32 if kind == "prefill" else 1)
+    assert got.total_flops + extra == ref
+
+
+DECODE_CELLS = [(a, s) for a, s in OK_CELLS if SHAPES[s].kind == "decode"]
+
+
+@pytest.mark.parametrize("arch,shape", DECODE_CELLS)
+def test_full_decode_flops_match_reference_on_one_device(arch, shape):
+    """The committed record of a full-size decode cell against the
+    reference's step at the same published size compiled on one
+    device."""
+    spec = R_SHAPES[shape]
+    ref = reference_flops(r_get_config(arch), spec)
+    extra = 0
+    if arch == "xlstm-125m":
+        extra = _nq_term(get_config(arch), spec.global_batch, 1)
+    assert port_record(arch, shape)["flops"] + extra == ref
+
+
+def _small_xlstm(kind: str):
+    return scaled_down(get_config("xlstm-125m"), n_layers=1,
+                       block_pattern=((kind,),))
+
+
+def _same_counts(a: oa.Counts, b: oa.Counts, peak_rel: float = 0.0):
+    assert oa.same_flops(a, b)
+    assert (a.bytes, a.ops, a.kernels, a.input_bytes) == (
+        b.bytes, b.ops, b.kernels, b.input_bytes)
+    assert abs(a.peak_bytes - b.peak_bytes) <= peak_rel * b.peak_bytes
+
+
+@pytest.mark.parametrize("block", ["mlstm", "slstm"])
+def test_sequence_fit_equals_direct_count(block):
+    """A train step of one recurrent layer (B 2): the quadratic through
+    S = 4, 8, 12 at S = 16 equals the count at S = 16, counter by
+    counter; the peak, extrapolated along the line through S = 8 and 12,
+    within 5% (at these widths the phase that holds the peak still moves
+    with S: 2.5% off for mLSTM; at the dry-run's sizes it is exact, as
+    PERF.md records)."""
+    cfg = _small_xlstm(block)
+
+    def at(S):
+        return dryrun.count_cell(dryrun.build_cell(
+            "xlstm-125m", "small", cfg=cfg,
+            shape=ShapeSpec("small", S, 2, "train")))
+
+    xs = (4, 8, 12)
+    _same_counts(oa.extend([at(s) for s in xs], xs, 16), at(16),
+                 peak_rel=0.05)
+
+
+def test_group_fit_equals_direct_count():
+    """A prefill of scaled-down Llama: the line through 1 and 2 groups
+    at 3 groups equals the count of 3 groups, counter by counter; the
+    peak within 5% (1.6% off at these widths, where a group's cache
+    still moves the phase that holds it)."""
+    shape = ShapeSpec("small", 64, 2, "prefill")
+
+    def at(g):
+        cfg = scaled_down(get_config("llama3_2-1b"), n_layers=g)
+        return dryrun.count_cell(dryrun.build_cell(
+            "llama3_2-1b", "small", cfg=cfg, shape=shape))
+
+    _same_counts(oa.extend([at(1), at(2)], (1, 2), 3), at(3),
+                 peak_rel=0.05)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_counter_on_cpu_tensors_equals_meta(kind):
+    """Scaled-down OLMoE's serving steps counted on real CPU tensors and
+    on meta tensors: every counter equal, the peak included."""
+    cfg = scaled_down(get_config("olmoe-1b-7b"))
+    shape = ShapeSpec("small", 16, 2, kind)
+    cpu, meta = (dryrun.count_cell(dryrun.build_cell(
+        "olmoe-1b-7b", "small", cfg=cfg, shape=shape, device=d))
+        for d in ("cpu", "meta"))
+    _same_counts(cpu, meta)
+
+
+def test_meta_cache_changes_no_count():
+    """A train step of scaled-down OLMoE counted with and without the
+    meta cache: every counter equal."""
+    cfg = scaled_down(get_config("olmoe-1b-7b"))
+    shape = ShapeSpec("small", 16, 2, "train")
+    counts = []
+    for cached in (True, False):
+        cell = dryrun.build_cell("olmoe-1b-7b", "small", cfg=cfg,
+                                 shape=shape)
+        with oa.OpCounter(meta_cache=cached) as oc:
+            oc.track(*cell.inputs)
+            cell.step()
+        counts.append(oc.counts())
+    _same_counts(*counts)
+
+
+def _records() -> dict:
+    return {(a, s): json.loads(
+        (dryrun.ART / f"{a}_{s}_h100.json").read_text()) for a, s in CELLS}
+
+
+def test_committed_records_complete():
+    recs = _records()
+    status = [r["status"] for r in recs.values()]
+    assert status.count("ok") == 32 and status.count("skipped") == 8
+    for (a, s), r in recs.items():
+        assert (r["arch"], r["shape"], r["mesh"]) == (a, s, "h100")
+        if r["status"] == "skipped":
+            assert s == "long_500k" and SKIP_REASON in r["reason"]
+            continue
+        assert r["n_devices"] == 1
+        assert r["flops"] == sum(r["flops_by_dtype"].values()) > 0
+        assert r["fits"] == (r["peak_bytes"] <= mesh.HBM_BYTES)
+        parts = dict(r["least_bytes"])
+        assert parts.pop("total") == sum(parts.values())
+        assert r["seconds"] < 120
+
+
+def _expert_flops(cfg, tokens: int, shards: int = 1) -> int:
+    """FLOPs of the bucketed experts (three products a row) when each of
+    ``shards`` fills the capacity of its ``tokens`` tokens."""
+    from repro_torch.models.layers import moe_capacity
+
+    rows = shards * cfg.n_experts * moe_capacity(tokens, cfg)
+    n_moe = sum(g.count("moe") for g in cfg.block_pattern) * cfg.n_groups
+    return 6 * rows * cfg.d_model * cfg.d_ff * n_moe
+
+
+def test_pod_tables_cover_every_cell():
+    assert set(EXACT_POD) | set(POD_RATIO) == set(OK_CELLS)
+    assert not set(EXACT_POD) & set(POD_RATIO)
+
+
+@pytest.mark.parametrize("arch,shape", sorted(EXACT_POD))
+def test_records_equal_reference_pod_records_by_term(arch, shape):
+    cfg, spec = get_config(arch), SHAPES[shape]
+    got = port_record(arch, shape)["flops"]
+    terms = EXACT_POD[(arch, shape)]
+    if NQ in terms:
+        got += _nq_term(cfg, spec.global_batch,
+                        spec.seq_len if spec.kind == "prefill" else 1)
+    if BATCH1 in terms:
+        got *= 16
+    if CAPACITY in terms:
+        B = spec.global_batch
+        got += _expert_flops(cfg, B // 16, 16) - _expert_flops(cfg, B)
+    assert got == pod_flops(arch, shape)
+
+
+@pytest.mark.parametrize("arch,shape", sorted(POD_RATIO))
+def test_records_against_reference_pod_records(arch, shape):
+    ratio = port_record(arch, shape)["flops"] / pod_flops(arch, shape)
+    expected, _term = POD_RATIO[(arch, shape)]
+    assert abs(ratio - expected) <= POD_RATIO_TOL
+
+
+def test_record_matches_a_fresh_count():
+    """The committed xLSTM decode_32k record is today's count."""
+    rec = port_record("xlstm-125m", "decode_32k")
+    cfg, shape = get_config("xlstm-125m"), SHAPES["decode_32k"]
+    got = dryrun.count_cell(dryrun.build_cell(
+        "xlstm-125m", "decode_32k", cfg=cfg, shape=shape))
+    assert got.as_dict() == {k: rec[k] for k in got.as_dict()}
+
+
+def test_roofline_rows():
+    rows = roofline.load_cells()
+    assert len(rows) == 40
+    committed = json.loads((ROOT / "artifacts" / "roofline_h100.json")
+                           .read_text())
+    assert json.loads(json.dumps(rows)) == committed
+    recs = _records()
+    for row in rows:
+        rec = recs[(row["arch"], row["shape"])]
+        if rec["status"] != "ok":
+            continue
+        flops = rec["flops_by_dtype"]
+        compute = (flops.get("bfloat16", 0) / 989e12
+                   + flops.get("float32", 0) / 67e12)
+        memory = rec["least_bytes"]["total"] / 3.35e12
+        assert row["compute_s"] == pytest.approx(compute, rel=1e-12)
+        assert row["memory_s"] == pytest.approx(memory, rel=1e-12)
+        assert row["collective_s"] == 0.0
+        assert row["bound_s"] == max(row["compute_s"], row["memory_s"])
+        assert row["mfu_bound"] == pytest.approx(
+            row["model_flops_global"] / 989e12 / row["bound_s"])
+    assert roofline.render(rows).count("\n| ") == 41
+
+
+def test_mesh_constants_and_flags_that_need_a_mesh():
+    assert (mesh.PEAK_FLOPS_BF16, mesh.PEAK_FLOPS_F32, mesh.PEAK_FLOPS_TF32,
+            mesh.HBM_BW, mesh.HBM_BYTES) == (989e12, 67e12, 495e12, 3.35e12,
+                                             80e9)
+    for call in (lambda: mesh.make_production_mesh(),
+                 lambda: dryrun.main(["--mesh", "multipod"]),
+                 lambda: dryrun.main(["--grad-scatter"])):
+        with pytest.raises(NotImplementedError, match=r"item 5 \(rest\)"):
+            call()
+
+
+def test_least_bytes_of_a_decode_step():
+    """Scaled-down Llama, its embedding untied so that the row rule
+    applies, B 2, a 16-slot cache at position 5: each part by hand."""
+    cfg = dataclasses.replace(scaled_down(get_config("llama3_2-1b")),
+                              tie_embeddings=False)
+    cell = dryrun.build_cell("llama3_2-1b", "small", cfg=cfg,
+                             shape=ShapeSpec("small", 16, 2, "decode"))
+    parts = roofline.least_bytes("decode", cell.model, cell.batch,
+                                 cache=cell.cache, cur_index=5)
+    D, V, KV, hd = cfg.d_model, cfg.vocab_size, cfg.n_kv_heads, 16
+    params = oa.nbytes(cell.model)
+    embed = V * D * 2  # bf16 in the serving copy
+    assert parts["params_in"] == params - embed + 2 * D * 2
+    kv_per_pos = 2 * KV * hd * 2  # k and v, bf16, a row
+    layers = cfg.n_layers
+    assert parts["cache_in"] == layers * (2 * 6 * kv_per_pos + 16 * 4)
+    assert parts["cache_out"] == layers * (2 * kv_per_pos + 4)
+    assert parts["logits_out"] == 2 * V * 4
+    assert parts["batch_in"] == 2 * 4

@@ -48,8 +48,8 @@ def test_repro_torch_imports_neither_jax_nor_repro():
     seen, failed, leaked = json.loads(out.stdout.strip().splitlines()[-1])
     assert failed == [], failed
     assert leaked == [], leaked
-    # Every module of the port was walked, the LM stack's and training's
-    # included.
+    # Every module of the port was walked, the LM stack's, training's and
+    # the analysis tools' included.
     on_disk = {p.relative_to(SRC).with_suffix("").as_posix()
                .replace("/", ".").removesuffix(".__init__")
                for p in (SRC / "repro_torch").rglob("*.py")}
@@ -59,5 +59,8 @@ def test_repro_torch_imports_neither_jax_nor_repro():
                  "repro_torch.train.optimizer", "repro_torch.train.steps",
                  "repro_torch.train.router_stats",
                  "repro_torch.checkpoint.checkpoint",
-                 "repro_torch.data.tokens", "repro_torch.launch.train"):
+                 "repro_torch.data.tokens", "repro_torch.launch.train",
+                 "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                 "repro_torch.launch.op_analysis",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
         assert name in seen
