@@ -8,7 +8,8 @@ Phases, each fatal on failure:
 1. device — a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
 2. build — compiles the four CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all at once);
+   and phase 5's probed copies of the two hops (one ``nvcc`` per source,
+   all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
    bitwise: cluster-KNN (ids, sims) at W 1-64, k 1-64 (lists in the
    warps' registers) and k 65, 100, 256 and 2,048 (lists merged in shared
@@ -150,6 +151,24 @@ Phases, each fatal on failure:
    incidence rows (raw mode, W = 5,355), every Step-2 batch of the raw
    build bitwise against the plain version and its edge sims equal to the
    exact Jaccard, with the raw sweep's device time beside its bound;
+4k. one device per shard (run after phase 4f; the device list is
+   ``cuda:i mod the cards present``, so one card runs every entry and S
+   cards place them truly) — (i) ``distributed_c2`` of ml1M@1.0
+   (``params_for("ml1M", k=30)``) over 4 LPT bins, its ids and sims
+   bitwise phase 4's single-card build, with the LPT imbalance and each
+   bin's cluster-KNN launches; (ii) ``QueryEngine(shard_devices=...)`` at
+   ``--shards 4`` serving the 2,048 profiles as wave x fused hop and
+   continuous (256 slots) x DMA hop, one hop launch a shard, rid by rid
+   bitwise phase 4c's one-launch serve; (iii) a forced re-balance swap
+   (rebuilt from the host index, which holds the merge of the old
+   shards' rows), its tables a fresh build's, its merge audit printed
+   and a re-serve bitwise phase 4c's; (iv) ``kill:1@2`` in waves of 64
+   x fused hop with its failover, rid by rid and in fault stats phase
+   4e's stacked run; (v) one 4-shard x 256-query hop of each
+   kernel as 4 per-device launches beside the one launch for all shards,
+   device time in turns, bitwise equal outputs; (vi) each
+   ``examples/*_torch.py`` once (``train_lm_torch --steps 20``,
+   ``knn_recommend_torch --kernel``), each launching its kernels;
 4g. LM serving (the dense family; no C² kernel runs, none may launch;
    run after phase 5, whose conditions stay as they were) —
    (a) Llama-3.2-1B at its full published config (16 layers, d 2,048,
@@ -242,15 +261,17 @@ Phases, each fatal on failure:
    ml1M@1.0 build's clustering and one wave's routing spend their host
    clock (item hashes, distinct hashes, splits, the rest).
 
-Prints one ``{"kernels": [...]}`` JSON line (the hop rows also carry the
+Prints one ``{"kernels": [...]}`` JSON line (every row also carries phase
+4k's launches under ``phase_4k``; the hop rows also carry the
 sharded placement's launches and 4-shard hop time under ``sharded``, and
 phases 4d's and 4e's launches path by path under ``phase_4d`` and
 ``phase_4e``; the cluster-KNN row the raw build's sweep under ``raw``;
 the FastRandomHash row phase 4i's launches under ``phase_4i``) after a
 ``{"phase_4e": ...}``, a ``{"phase_4f": ...}``, an ``{"lm_serve": ...}``
 (phase 4g's figures and checks), an ``{"lm_serve_4h": ...}`` (phase
-4h's), an ``{"lm_train": ...}`` (phase 4i's) and an ``{"lm_analysis":
-...}`` line (phase 4j's); then the card's
+4h's), an ``{"lm_train": ...}`` (phase 4i's), an ``{"lm_analysis":
+...}`` (phase 4j's) and a ``{"phase_4k": ..., "phase_seconds": ...}``
+line (phase 4k's figures, each phase's seconds); then the card's
 name and power limit; then phase 4f's times, qualities and counts, the
 cluster-KNN row's times, OLMoE's tokens/s, decode ms and bounds and
 phase 4i's losses, step ms, tokens/s, idle share and checkpoint times
@@ -262,6 +283,7 @@ then as the last line
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -2783,7 +2805,7 @@ def injector(spec: str):
                          health=HealthConfig(**P4E["health"]))
 
 
-def serve4e(ctx, label, kernel, qc, spec, stream):
+def serve4e(ctx, label, kernel, qc, spec, stream, shard_devices=None):
     """One serve of the ``stream`` (rids 0..) through ``QueryEngine`` on a
     fresh copy of the paper index at ``--shards 4``, with the fault plan
     ``spec``: each step's host clock and completions, and each failover
@@ -2795,7 +2817,8 @@ def serve4e(ctx, label, kernel, qc, spec, stream):
 
     engine = QueryEngine(KNNIndex.load(ctx["index_path"]),
                          QueryConfig(**{**SERVE_QC, **P4E["qc"], **qc}),
-                         device=ctx["dev"], faults=injector(spec))
+                         device=ctx["dev"], faults=injector(spec),
+                         shard_devices=shard_devices)
     engine.plan.sync()
     engine.index.path_lut()
     sync = device_sync(ctx["dev"])
@@ -2901,6 +2924,7 @@ def kill_serves(ctx) -> None:
                     or f["deaths"] != 1 or f["degraded_served"] < 1
                     or f["merge"]["excluded"] != [1]):
                 fail(f"{label}: {stats['requests']} served, faults {f}")
+            ctx["kill_results"][label] = (by_rid(engine), f)
             if base is None:
                 base = (by_rid(engine), f, label)
             else:
@@ -3148,7 +3172,8 @@ def faults_and_recovery(dev, run: dict, shard: dict, tmp: Path) -> dict:
     """Phase 4e on the paper index of phase 4."""
     qds = main_queries()
     ctx = {"dev": dev, "index_path": run["index_path"], "launches": {},
-           "numbers": {}, "healthy": by_rid(shard["engine"]),
+           "numbers": {}, "kill_results": {},
+           "healthy": by_rid(shard["engine"]),
            "healthy_engine": shard["engine"],
            "profiles": [qds.profile(u) for u in range(P4D["queries"])],
            "inserts": [qds.profile(qds.n_users - 1 - m)
@@ -3522,6 +3547,364 @@ def decode_bound(model, cache: dict, tok, S: int, alloc: int,
 def bound_text(b: dict) -> str:
     return (f"{b['ms']:.4f} ms by {b['bound_by']} (compute "
             f"{b['compute_ms']:.4f}, memory {b['memory_ms']:.4f})")
+
+
+# -- phase 4k: one device per shard (the reference's mesh) -----------------
+
+# Shards (and Step-2 LPT bins) of the phase, and the examples it runs
+# once each on the card: (file, argv, the kernels that must launch).
+P4K_SHARDS = 4
+P4K_BUILD = ("ml1M", 1.0, 0, 30)  # phase 4's build: dataset, scale, seed, k
+P4K_EXAMPLES = (
+    ("quickstart_torch", [], ("goldfinger_knn",)),
+    ("knn_recommend_torch", ["--kernel"], ("goldfinger_knn", "descent_hop")),
+    ("serve_demo_torch", [], ()),
+    ("train_lm_torch", ["--steps", "20"], ("frh_minhash",)),
+    ("distributed_knn_torch", [], ("goldfinger_knn",)),
+)
+
+
+def shard_devices(n: int) -> list:
+    """Entry i of an ``n``-entry device list: ``cuda:i mod the cards
+    present``, so one card runs every entry and n cards place them truly."""
+    import torch
+
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+def distributed_build(run: dict, devices: list) -> dict:
+    """(i) ``distributed_c2`` of ml1M@1.0 (``params_for("ml1M", k=30)``)
+    over ``devices``, one LPT bin each: ids and sims bitwise phase 4's
+    single-card build; the LPT imbalance and each bin's cluster-KNN
+    launches (every cluster brute-forced: none reaches ρk² here)."""
+    import numpy as np
+
+    from repro_torch.core import distributed
+    from repro_torch.core.params import params_for
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels.goldfinger_knn import ops as gk_ops
+
+    name, scale, seed, k = P4K_BUILD
+    ds = make_dataset(name, scale=scale, seed=seed)
+    params = params_for(name, k=k)
+    per_bin = [0] * len(devices)
+    calls = [0]
+    plain = gk_ops.cluster_knn
+
+    def counted(words, card, ids, k):
+        # distributed_local_knn calls bin by bin within each group.
+        before = gk_ops.launches
+        out = plain(words, card, ids, k)
+        per_bin[calls[0] % len(devices)] += gk_ops.launches - before
+        calls[0] += 1
+        return out
+
+    reset_launches()
+    gk_ops.cluster_knn = counted
+    try:
+        t0 = time.perf_counter()
+        graph, stats = distributed.distributed_c2(ds, params, devices)
+        seconds = time.perf_counter() - t0
+    finally:
+        gk_ops.cluster_knn = plain
+    counts = read_launches()
+    ref = run["built"]["graph"]
+    if not (np.array_equal(graph.ids, ref.ids)
+            and np.array_equal(graph.sims, ref.sims)):
+        bad = int((~((graph.ids == ref.ids)
+                     & (graph.sims == ref.sims)).all(1)).sum())
+        fail(f"distributed_c2 over {len(devices)} bins differs from phase "
+             f"4's build in {bad} rows")
+    if (sum(per_bin) != counts["goldfinger_knn"] or min(per_bin) < 1
+            or any(v for k, v in counts.items() if k != "goldfinger_knn")):
+        fail(f"distributed_c2 launched {counts}, per bin {per_bin}")
+    if int((params.bf_threshold <= run["built"]["plan"].sizes).sum()):
+        fail(f"a cluster of {name}@{scale} reaches rho k^2: the single-card "
+             f"build took Hyrec where the bins brute-force")
+    log(f"[mesh] (i) distributed_c2 of {name}@{scale} (k={k}) over "
+        f"{[str(d) for d in devices]}: {stats['n_clusters']} clusters, "
+        f"{stats['n_sims']} sims, LPT imbalance "
+        f"{stats['lpt_imbalance']:.4f}, cluster-KNN launches per bin "
+        f"{per_bin}; ids and sims bitwise phase 4's single-card build; "
+        f"{seconds:.2f} s (cluster {stats['t_cluster']:.3f}, Step 2 "
+        f"{stats['t_local']:.3f}, merge {stats['t_merge']:.3f})")
+    return {"launches": counts["goldfinger_knn"], "per_bin": per_bin,
+            "imbalance": stats["lpt_imbalance"], "seconds": seconds}
+
+
+def qe_serve(ctx, qc, shard_devices=None):
+    """The 2,048 profiles through ``QueryEngine`` at ``--shards 4`` after
+    a one-request warm-up (as ``knn_serve`` warms up), the launches counted
+    from 0 just before the timed serve: (engine, stats, launches)."""
+    from repro_torch.query.engine import QueryConfig, QueryEngine, QueryRequest
+    from repro_torch.query.index import KNNIndex
+
+    engine = QueryEngine(
+        KNNIndex.load(ctx["index_path"]),
+        QueryConfig(**{**SERVE_QC, "shards": P4K_SHARDS, **qc}),
+        device=ctx["devices"][0], shard_devices=shard_devices)
+    engine.submit(QueryRequest(rid=-1, profile=ctx["profiles"][0]))
+    engine.run()
+    engine.done.clear()
+    reset_launches()
+    for i, p in enumerate(ctx["profiles"]):
+        engine.submit(QueryRequest(rid=i, profile=p))
+    stats = engine.run()
+    return engine, stats, read_launches()
+
+
+def per_device_serve(ctx, label, kernel, qc) -> object:
+    """(ii) The 2,048 profiles at ``--shards 4`` with one device per shard
+    (one hop launch a shard, through the sharded entry alone), rid by rid
+    bitwise phase 4c's one-launch serve; in turns with the stacked layout
+    through the same ``QueryEngine`` path (stacked, per-device, per-device,
+    stacked) for their QPS side by side."""
+    qps = {"stacked": [], "per-device": []}
+    engine = None
+    for layout in ("stacked", "per-device", "per-device", "stacked"):
+        # One device stacks the shards, whatever the cards present.
+        devs = ctx["devices"] if layout == "per-device" \
+            else ctx["devices"][:1]
+        eng, stats, counts = qe_serve(ctx, qc, devs)
+        sd = eng.sharded_state()
+        if sd.layout != layout:
+            fail(f"{label}: layout {sd.layout}, expected {layout}")
+        check_sharded_launches(f"{label} ({layout})", counts, kernel)
+        same_results(by_rid(eng), ctx["healthy"], f"{label} ({layout})",
+                     "phase 4c's one-launch --shards 4 serve")
+        qps[layout].append(stats["qps"])
+        if layout == "per-device" and engine is None:
+            engine = eng
+            ctx["launches"][label] = counts
+            if len(sd.tables.parts) != P4K_SHARDS:
+                fail(f"{label}: {len(sd.tables.parts)} parts")
+            log(f"[mesh] (ii) {label}: {stats['requests']} served in "
+                f"{stats['waves']} steps, p95 "
+                f"{stats['p95_latency_s'] * 1e3:.2f} ms; launches {counts}; "
+                f"{sharded_line(eng)}; rid by rid bitwise phase 4c's "
+                f"one-launch serve")
+    ctx["numbers"][label] = qps
+    log(f"[mesh] (ii) {label} QPS in turns: stacked "
+        f"{qps['stacked'][0]:.1f}, per-device {qps['per-device'][0]:.1f}, "
+        f"{qps['per-device'][1]:.1f}, stacked {qps['stacked'][1]:.1f} "
+        f"(both layouts through QueryEngine after a warm-up request)")
+    return engine
+
+
+def per_device_swap(ctx, engine) -> dict:
+    """(iii) A forced re-balance swap of the per-device engine (rebuilt
+    from the host index): the tables after it a fresh build's, its merge
+    audit printed, a re-serve still phase 4c's answers."""
+    sync = device_sync(ctx["devices"][0])
+    sync()
+    t0 = time.perf_counter()
+    engine.rebalance.swap()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_fresh_shard_tables(engine, "(iii) per-device swap")
+    stats = dict(engine.rebalance.merge_stats)
+    if stats.get("rows") != engine.index.n or \
+            engine.sharded_state().generation != 1:
+        fail(f"(iii) per-device swap: merge stats {stats}")
+    reserve(engine, ctx["profiles"], "(iii) per-device swap", ctx["healthy"])
+    log(f"[mesh] (iii) forced swap: "
+        f"{ms:.1f} ms host clock, merge audit {stats}; tables equal a "
+        f"fresh ShardedDescent; re-serve bitwise phase 4c's")
+    return {"merge": stats, "swap_ms": ms}
+
+
+def per_device_kill(ctx) -> dict:
+    """(iv) ``kill:1@2`` in waves of 64 x fused hop with one device per
+    shard: rid by rid and in fault stats phase 4e's stacked run; the
+    tables after the failover a fresh build's."""
+    label = "per-device kill wave x pallas"
+    engine, stats, steps, swaps = serve4e(
+        ctx, label, FUSED, dict(kernel=True), P4E["kill"], ctx["profiles"],
+        shard_devices=ctx["devices"])
+    base, f_base = ctx["kill_results"]["kill wave x pallas"]
+    f = stats["faults"]
+    same_results(by_rid(engine), base, label, "phase 4e's kill wave x pallas")
+    if f != f_base:
+        fail(f"{label}: fault stats {f} != phase 4e's {f_base}")
+    check_fresh_shard_tables(engine, label)
+    log(f"[mesh] (iv) {label}: {stats['requests']} served, faults {f}, "
+        f"failover host ms {[round(x, 3) for x in swaps]}; launches "
+        f"{ctx['launches'][label]}; rid by rid and in fault stats phase "
+        f"4e's stacked run; tables after the failover a fresh build's")
+    return {"faults": f, "failover_ms": swaps}
+
+
+def cards_ms(fn, devices, reps: int = 7, inner: int = 20) -> float:
+    """Median host ms of one ``fn()`` from its first launch to the last
+    card's end (``inner`` calls, then every card synchronised): the time
+    of launches spread over several cards, which one card's events do
+    not span."""
+    import torch
+
+    def sync():
+        for d in sorted(set(devices), key=str):
+            torch.cuda.synchronize(d)
+
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3 / inner)
+    return statistics.median(times)
+
+
+def per_device_hops(ctx, engine) -> dict:
+    """(v) One 4-shard x 256-query hop of each kernel as 4 launches, one a
+    shard (the per-device layout's: the sharded entry at S = 1 on each
+    shard's device), beside the one launch for all shards, in turns in
+    one run, device time with a sleep kernel holding the card (on
+    several cards: host clock to the last card's end); bitwise the one
+    launch's outputs."""
+    import torch
+
+    args, _, _ = first_sharded_hop(engine, P4K_SHARDS, 32, 256)
+    parts = []
+    for s, dev in enumerate(ctx["devices"]):
+        a = [t[s:s + 1] for t in args[:4]] + list(args[4:6]) \
+            + [t[s:s + 1] for t in args[6:]]
+        parts.append(tuple(x.to(dev) for x in a))
+    out = {}
+    for name, dma in ((FUSED, False), (DMA, True)):
+        one = sharded_kernel(args, dma)
+        per = [sharded_kernel(p, dma) for p in parts]
+        joined = tuple(torch.cat([o[i].to(one[i].device) for o in per])
+                       for i in range(len(one)))
+        if not all(torch.equal(a, b) for a, b in zip(one, joined)):
+            fail(f"(v) {name}: 4 per-shard launches differ from one launch")
+        ms = {"one_launch": [], "per_device": []}
+        cards = len(set(ctx["devices"])) > 1
+        for _ in range(2):
+            ms["one_launch"].append(cuda_ms(lambda: sharded_kernel(args, dma),
+                                            reps=7, inner=20, hold=True))
+            every = lambda: [sharded_kernel(p, dma) for p in parts]  # noqa: E731
+            ms["per_device"].append(cards_ms(every, ctx["devices"]) if cards
+                                    else cuda_ms(every, reps=7, inner=20,
+                                                 hold=True))
+        out[name] = {k: statistics.median(v) for k, v in ms.items()}
+        log(f"[mesh] (v) {name}, 4 shards x 256 queries (shard beam "
+            f"{args[6].shape[-1]}): one launch {ms['one_launch'][0]:.4f} / "
+            f"{ms['one_launch'][1]:.4f} ms, 4 per-device launches "
+            f"{ms['per_device'][0]:.4f} / {ms['per_device'][1]:.4f} ms "
+            f"{'host clock to the last card' if cards else 'device time'} "
+            f"on {sorted({str(d) for d in ctx['devices']})}; bitwise equal "
+            f"outputs")
+    return out
+
+
+def example_runs(ctx) -> dict:
+    """(vi) Each ``examples/*_torch.py`` once on the card, its launches
+    from 0."""
+    import importlib.util
+
+    out = {}
+    for name, argv, kernels in P4K_EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        missing = [k for k in kernels if counts[k] <= 0]
+        others = [k for k in ("goldfinger_knn", "descent_hop",
+                              "descent_hop_dma", "frh_minhash")
+                  if k not in kernels and counts[k]]
+        if missing or others:
+            fail(f"(vi) {name} {argv}: launches {counts}")
+        short = {k: v for k, v in res.items()
+                 if isinstance(v, (int, float, bool))}
+        out[name] = {"launches": counts, "seconds": seconds, **short}
+        log(f"[mesh] (vi) examples/{name}.py {' '.join(argv)}: "
+            f"{seconds:.1f} s, launches {counts}, {short}")
+    if out["train_lm_torch"]["launches"]["frh_minhash"] != 1:
+        fail("(vi) train_lm_torch launched FastRandomHash "
+             f"{out['train_lm_torch']['launches']['frh_minhash']} times")
+    return out
+
+
+def one_device_per_shard(dev, run: dict, shard: dict, faults: dict) -> dict:
+    """Phase 4k: the per-device layout of C² (distributed Step 2, serving
+    with one device per shard, the swap and failover, the hop as one
+    launch per shard) and the examples."""
+    t0 = time.perf_counter()
+    devices = shard_devices(P4K_SHARDS)
+    qds = main_queries()
+    ctx = {"dev": devices[0], "devices": devices,
+           "index_path": run["index_path"], "launches": {}, "numbers": {},
+           "healthy": by_rid(shard["engine"]),
+           "healthy_engine": shard["engine"],
+           "kill_results": faults["kill_results"],
+           "profiles": [qds.profile(u) for u in range(P4D["queries"])]}
+    out = {"devices": [str(d) for d in devices],
+           "build": distributed_build(run, devices)}
+    wave = per_device_serve(ctx, "per-device --shards 4 wave x pallas",
+                            FUSED, dict(kernel=True))
+    per_device_serve(ctx, "per-device --shards 4 continuous x pallas_dma",
+                     DMA, dict(continuous=True, kernel=True, dma=True))
+    out["swap"] = per_device_swap(ctx, wave)
+    out["kill"] = per_device_kill(ctx)
+    out["hops"] = per_device_hops(ctx, wave)
+    out["examples"] = example_runs(ctx)
+    out["launches"] = ctx["launches"]
+    out["qps"] = ctx["numbers"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase 4k: {out['seconds']:.1f} s")
+    return out
+
+
+def mesh_alone() -> dict:
+    """Phase 4k with only what it reads from the earlier phases (the
+    kernels built, phase 4's main path, phase 4c's ``--shards`` serves,
+    phase 4e's kill wave x fused hop), on every card present: phases 4c
+    and 4e stay stacked on the first card (the default layout), and phase
+    4k's per-device serves, one card per shard when there are S cards, are
+    held to them. Run through the
+    tool as ``PYTHONPATH=src python3 -c "import chip_smoke as c;
+    c.mesh_alone()"`` (``--chips 4`` places the four shards on four
+    cards)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True, timeout=60).stdout.strip())
+    build.build()
+    log(f"[mesh] {torch.cuda.device_count()} cards; kernels built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    made: dict = {}
+    with datasets_made_once(made), tempfile.TemporaryDirectory() as tmp:
+        run = main_path(dev, Path(tmp))
+        shard = sharded_serves(run["serve_args"])
+        qds = main_queries()
+        ctx = {"dev": dev, "index_path": run["index_path"], "launches": {},
+               "numbers": {}, "kill_results": {},
+               "profiles": [qds.profile(u) for u in range(P4D["queries"])]}
+        label = "kill wave x pallas"
+        engine, stats, _, _ = serve4e(ctx, label, FUSED, dict(kernel=True),
+                                      P4E["kill"], ctx["profiles"])
+        log(f"[mesh] phase 4c's and 4e's layouts: "
+            f"{shard['engine'].sharded_state().layout}, "
+            f"{engine.sharded_state().layout}")
+        mesh = one_device_per_shard(
+            dev, run, shard,
+            {"kill_results": {label: (by_rid(engine), stats["faults"])}})
+    log(f"[mesh] alone: {time.perf_counter() - t0:.1f} s")
+    return mesh
 
 
 # -- phase 4g: LM serving (the dense family) -------------------------------
@@ -5543,6 +5926,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    from repro_torch.bench import hop_phases
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -5554,14 +5938,30 @@ def main() -> int:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    phase_s = {}
     t0 = time.perf_counter()
-    report = build.build()
-    log(f"[build] {len(report)} kernels in {time.perf_counter() - t0:.1f} s "
+    # Phase 5's probed hop copies (``bench.hop_phases``) compile beside the
+    # kernels, one nvcc each, all at once.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probes = pool.submit(hop_phases.prebuild)
+        report = build.build()
+        probes.result()
+    log(f"[build] {len(report)} kernels and phase 5's "
+        f"{len(hop_phases.copies())} hop copies in "
+        f"{time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k}: {v['seconds']:.1f} s" for k, v in report.items()))
     for name, r in report.items():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    lap = time.perf_counter()
+    phase_s["2"] = lap - t0
+
+    def took(key):
+        nonlocal lap
+        now = time.perf_counter()
+        phase_s[key] = now - lap
+        lap = now
 
     n_ck, err_ck = check_cluster_knn(dev)
     n_wide, err_wide = check_cluster_knn_wide(dev)
@@ -5576,6 +5976,7 @@ def main() -> int:
         f"{n_shapes} two-hop, {n_shard} sharded two-hop, {n_dead} all-PAD-"
         f"shard two-hop and {n_mh} minhash cases bitwise equal to the plain "
         f"versions")
+    took("3")
 
     made: dict = {}
     with contextlib.ExitStack() as stack:
@@ -5583,11 +5984,19 @@ def main() -> int:
         tmp = stack.enter_context(tempfile.TemporaryDirectory())
         small_build_matches_cpu()
         run = main_path(dev, Path(tmp))
+        took("4")
         bf = mutable_index(dev, run, Path(tmp))
+        took("4b")
         shard = sharded_placement(dev, run)
+        took("4c")
         slice8 = slo_cache_rebalance(dev, run, shard)
+        took("4d")
         slice9 = faults_and_recovery(dev, run, shard, Path(tmp))
+        took("4e")
         slice10 = baselines_and_raw_mode(dev)
+        took("4f")
+        mesh = one_device_per_shard(dev, run, shard, slice9)
+        took("4k")
         launches = run["launches"]
         ck_row, err_ck_main = time_cluster_knn(
             dev, run["built"], run["engine"].index, launches["goldfinger_knn"])
@@ -5604,10 +6013,15 @@ def main() -> int:
         mh_row, err_mh_main = time_minhash(dev, launches["frh_minhash"])
         tick_breakdown(run["cont_engine"])
         build_stages(run["engine"])
+        took("5")
     lm = lm_serving(dev, smi)
+    took("4g")
     lm4h = lm_moe_recurrent(dev, smi)
+    took("4h")
     lm4i = lm_training(dev, smi)
+    took("4i")
     lm4j = lm_analysis(dev, smi, lm4i)
+    took("4j")
     ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
                                 slice10["AM@0.055"].pop("raw_err"))
     # Phase 4f: the raw-mode build's Step-2 sweep (W = 5,355 on AM@0.055),
@@ -5641,6 +6055,26 @@ def main() -> int:
             "frh_minhash"],
         "restarts at 2 layers (llama, olmoe), 6 runs": lm4i[
             "restart_launches"]["frh_minhash"]}
+    # Phase 4k: the per-device layout's launches (each path counted from
+    # 0; the hop one launch a shard a hop) and the examples'.
+    ex = mesh["examples"]
+    ck_row["phase_4k"] = {
+        "distributed_c2 ml1M@1.0 over 4 bins": mesh["build"]["launches"],
+        "per bin": mesh["build"]["per_bin"],
+        **{f"examples/{n}.py": e["launches"]["goldfinger_knn"]
+           for n, e in ex.items() if e["launches"]["goldfinger_knn"]}}
+    for row in (hop_row, dma_row):
+        row["phase_4k"] = {
+            **{label: c[row["name"]] for label, c in
+               mesh["launches"].items() if c[row["name"]]},
+            **{f"examples/{n}.py": e["launches"][row["name"]]
+               for n, e in ex.items() if e["launches"][row["name"]]},
+            "4 per-device launches, one 256-query hop: ms":
+                mesh["hops"][row["name"]]["per_device"],
+            "one launch for the 4 shards: ms":
+                mesh["hops"][row["name"]]["one_launch"]}
+    mh_row["phase_4k"] = {"examples/train_lm_torch.py --steps 20":
+                          ex["train_lm_torch"]["launches"]["frh_minhash"]}
     rows = [ck_row, hop_row, dma_row, mh_row]
     for name, st in list(run["serves"].items()) + list(
             shard["serves"].items()):
@@ -5652,9 +6086,10 @@ def main() -> int:
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms by "
             f"{row['bound_by']}) over {row.pop('shape')}")
     log(datasets_line(made))
-    log(f"[done] {time.perf_counter() - t_start:.1f} s (phases 4g-4j: "
-        f"{lm['seconds']:.1f}, {lm4h['seconds']:.1f}, {lm4i['seconds']:.1f}, "
-        f"{lm4j['seconds']:.1f} s)")
+    phase_s["all"] = time.perf_counter() - t_start
+    log(f"[done] {phase_s['all']:.1f} s; by phase "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()
+                    if k != "all") + " s")
     # Phase 4e's figures near the end, where the tail of a run's log keeps
     # them.
     print(json.dumps({"phase_4e": slice9["numbers"],
@@ -5665,6 +6100,10 @@ def main() -> int:
     print(json.dumps({"lm_serve_4h": lm4h}, default=lambda o: o.tolist()))
     print(json.dumps({"lm_train": lm4i}, default=lambda o: o.tolist()))
     print(json.dumps({"lm_analysis": lm4j}))
+    print(json.dumps({"phase_4k": {k: v for k, v in mesh.items()
+                                   if k != "launches"},
+                      "phase_seconds": phase_s},
+                     default=lambda o: o.tolist()))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h, lm4i, lm4j),

@@ -30,9 +30,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -303,26 +305,70 @@ def probed_source(csrc: Path, kernel: str):
     return None, None
 
 
-def build_copy(csrc: Path, kernel: str, tag: str, src: str | None = None):
-    """Build ``src`` (default: the kernel's source in ``csrc``, as it is)
-    into ``_build/phases/<tag>/`` against the headers of ``csrc``."""
-    out_dir = build.BUILD_DIR / "phases" / tag
+def compile_copy(csrc: Path, kernel: str, tag: str,
+                 src: str | None = None) -> Path:
+    """Compile ``src`` (default: the kernel's source in ``csrc``, as it is)
+    into ``_build/phases/<tag>-<digest>/`` against the headers of ``csrc``.
+    The digest hashes the flags, the text and the shared headers, as
+    ``kernels/build.py`` does, so a copy already compiled from the same
+    inputs is kept and any other change compiles anew. Returns the
+    library's path."""
+    text = src if src is not None else (csrc / f"{kernel}.cu").read_text()
+    h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+    h.update(text.encode())
+    for name in build.HEADERS:
+        header = csrc / name
+        if header.exists():
+            h.update(name.encode())
+            h.update(header.read_bytes())
+    out_dir = build.BUILD_DIR / "phases" / f"{tag}-{h.hexdigest()[:16]}"
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"{kernel}.cu"
-    path.write_text(src if src is not None
-                    else (csrc / f"{kernel}.cu").read_text())
     lib_path = out_dir / f"lib{kernel}.so"
+    if lib_path.exists():
+        return lib_path
+    path.write_text(text)
+    tmp = lib_path.with_name(lib_path.name + ".tmp")
     done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
-                           str(csrc), "-o", str(lib_path), str(path)],
+                           str(csrc), "-o", str(tmp), str(path)],
                           capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed for {path}:\n"
                            f"{done.stdout}{done.stderr}")
+    tmp.replace(lib_path)
     spills = {line.strip() for line in (done.stdout + done.stderr).splitlines()
               if "spill" in line and not line.strip().startswith("0 bytes")}
     if spills:
         print(f"[phases] {path}: " + "; ".join(sorted(spills)), flush=True)
-    lib = ctypes.CDLL(str(lib_path))
+    return lib_path
+
+
+def copies(csrcs=(None,)) -> list:
+    """Every copy :func:`run` builds: (csrc, kernel, tag, source or None),
+    the kernels as they are and their probed copies."""
+    out = []
+    for t, csrc in enumerate(csrcs):
+        csrc = Path(csrc) if csrc is not None else build.CSRC
+        for kernel in ("descent_hop", "descent_hop_dma"):
+            out.append((csrc, kernel, f"t{t}", None))
+            src, pset = probed_source(csrc, kernel)
+            if pset is not None:
+                out.append((csrc, kernel, f"t{t}p", src))
+    return out
+
+
+def prebuild(csrcs=(None,)) -> None:
+    """Compile every copy of :func:`run` at once, one ``nvcc`` each (run
+    beside the kernels' own build, it takes none of ``run``'s time)."""
+    jobs = copies(csrcs)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(compile_copy, *job) for job in jobs]:
+            f.result()
+
+
+def build_copy(csrc: Path, kernel: str, tag: str, src: str | None = None):
+    """:func:`compile_copy`, loaded."""
+    lib = ctypes.CDLL(str(compile_copy(csrc, kernel, tag, src)))
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -218,6 +218,8 @@ KernelFn kernel_for(int B, int global_state) {
   return global_state ? kernel_for<true>(B) : kernel_for<false>(B);
 }
 
+// Set before every launch, on the launch's device: the attribute is per
+// device, so nothing is cached.
 cudaError_t allow_smem(KernelFn fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;  // the default cap
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -702,7 +702,7 @@ REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
       (lists != nullptr && k <= 64) || chunk < 0 || chunk % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // One instance per (whole or chunked rows, list kind, warps); the
-  // largest dynamic shared memory each was allowed so far.
+  // largest dynamic shared memory each was allowed so far, per device.
   static void (*const kernels[2][3][4])(
       const uint32_t*, const int*, const int*, const uint32_t*, const int*,
       const int*, int*, float*, int, int, int, int, int, int, Key*, int) = {
@@ -718,7 +718,12 @@ REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
         goldfinger_knn_kernel<2, 4, true>, goldfinger_knn_kernel<2, 8, true>},
        {goldfinger_knn_kernel<0, 1, true>, goldfinger_knn_kernel<0, 2, true>,
         goldfinger_knn_kernel<0, 4, true>, goldfinger_knn_kernel<0, 8, true>}}};
-  static size_t allowed[2][3][4] = {};
+  // cudaFuncSetAttribute acts on the current device only, so the opt-in
+  // is remembered per device (devices past kMaxDevices opt in every call).
+  constexpr int kMaxDevices = 64;
+  static size_t allowed[kMaxDevices][2][3][4] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) device = kMaxDevices;
   int wi;
   switch (warps) {
     case 1: wi = 0; break;
@@ -731,12 +736,14 @@ REPRO_EXPORT int repro_goldfinger_knn(const void* q_words, const void* q_card,
   const int li = k <= 32 ? 0 : k <= 64 ? 1 : 2;
   const size_t smem =
       layout(W, k, warps, stages, lists != nullptr, chunk).total;
-  if (smem > 48 * 1024 && smem > allowed[ci][li][wi]) {
+  size_t* seen = device < kMaxDevices ? &allowed[device][ci][li][wi]
+                                       : nullptr;
+  if (smem > 48 * 1024 && (seen == nullptr || smem > *seen)) {
     cudaError_t e = cudaFuncSetAttribute(
         kernels[ci][li][wi], cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    allowed[ci][li][wi] = smem;
+    if (seen != nullptr) *seen = smem;
   }
   const dim3 grid((nq + kRows - 1) / kRows, batches);
   kernels[ci][li][wi]<<<grid, warps * 32, smem,

@@ -21,3 +21,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} "
                          f"(expected 'cuda' or 'cpu')")
     return dev
+
+
+def resolve_devices(devices) -> list[torch.device]:
+    """:func:`resolve_device` of each entry of a device list (one entry a
+    shard or an LPT bin; entries may repeat), a CUDA entry without an index
+    taking the current card's, so that equal cards compare equal."""
+    out = []
+    for d in devices:
+        dev = resolve_device(d)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        out.append(dev)
+    if not out:
+        raise ValueError("a device list needs at least one device")
+    return out

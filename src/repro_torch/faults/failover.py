@@ -19,10 +19,10 @@ scheduler-step boundary:
   :meth:`ShardedDescent.adopt_plan` blue/green-swaps it in between
   steps: beams remapped, the result cache flushed through
   ``note_replan``, as a re-balance swap does. The reference rebuilds
-  the tables from the SURVIVORS' subgraphs; on one card the index holds
-  the same rows, so the swap rebuilds from it and keeps the merge's
-  audit with the unhealthy shards excluded (``rebalance.merge_audit``).
-  The table merge waits for the mesh (ROADMAP queue 1 item 5, rest).
+  the tables from the SURVIVORS' subgraphs; the port's host index holds
+  the same rows in either shard layout, so the swap rebuilds from it and
+  keeps the merge's audit with the unhealthy shards excluded
+  (``rebalance.merge_audit``).
 * **Isolation**: while any shard is unhealthy the re-balancer defers
   (``Rebalancer.check`` reads ``sd.dead``) and lifecycle maintenance
   stands down (``LifecycleManager.maintain`` reads the engine's

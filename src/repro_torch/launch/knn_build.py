@@ -9,7 +9,10 @@ already checkpointed.
 Step 2 runs through the cluster-KNN CUDA kernel on ``--device cuda`` (the
 default); without a card that raises at once. ``--device cpu`` runs the
 plain PyTorch version. The ``--index-out`` artifact has the reference's
-npz layout: either package's ``knn_serve`` loads it.
+npz layout: either package's ``knn_serve`` loads it. :func:`build` takes
+``devices`` (one device an LPT bin, ``core/distributed``), the
+counterpart of the reference's ``mesh=``; the CLI has no flag for it, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.core.clustering import ClusterPlan, build_plan
+from repro_torch.core.distributed import distributed_local_knn
 from repro_torch.core.local_knn import local_knn
 from repro_torch.core.merge import merge_partial
 from repro_torch.core.params import C2Params, params_for
@@ -31,8 +35,12 @@ from repro_torch.types import NEG_INF, PAD_ID
 
 
 def build(ds, params: C2Params, ckpt_dir: str | None = None,
-          verbose: bool = True, gf=None, device="cuda"):
-    dev = resolve_device(device)
+          verbose: bool = True, gf=None, device="cuda", devices=None):
+    """Build the C² graph configuration by configuration; returns (graph,
+    plan). With ``devices``, each configuration's Step 2 runs one LPT bin
+    per entry (``distributed_local_knn``: every cluster brute-forced, as
+    the reference's mesh) and the merge runs on ``devices[0]``."""
+    dev = resolve_device(device if devices is None else devices[0])
     if gf is None:
         gf = fingerprint_dataset(ds, n_bits=params.n_bits, seed=params.seed)
     plan = build_plan(ds, params)
@@ -62,7 +70,10 @@ def build(ds, params: C2Params, ckpt_dir: str | None = None,
             members=sub_members,
             config_of=np.zeros(len(sub_members), dtype=np.int32),
             n_users=n, t=1)
-        i1, s1 = local_knn(sub, gf, params, device=dev)
+        if devices is not None:
+            i1, s1, _ = distributed_local_knn(sub, gf, params, devices)
+        else:
+            i1, s1 = local_knn(sub, gf, params, device=dev)
         ids[i], sims[i] = i1[0], s1[0]
         if cdir:
             cdir.mkdir(parents=True, exist_ok=True)

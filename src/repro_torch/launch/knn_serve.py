@@ -26,8 +26,10 @@ M query profiles), with one repair pass when ``--repair-every`` is set;
 during the serve.
 
 ``--shards S`` serves the sharded placement (LPT cluster shards, all on
-``--device``, one hop launch for every shard) and prints a ``[serve]
-sharded:`` line with the reference's numbers.
+``--device`` with one hop launch for every shard; the per-device layout
+is the library's opt-in ``QueryEngine(shard_devices=)``) and prints a
+``[serve] sharded:`` line with the reference's numbers, the layout in the
+place of the reference's ``mesh`` / ``vmap``.
 
 SLO flags: ``--admission slo`` ranks pending requests by (priority class,
 deadline) and sheds expired and overflow requests with a ``rejected``
@@ -259,8 +261,10 @@ def _serve(args, engine, index, dev):
               f"{[len(r) for r in sd.plan.residents]} ({mb} MB"
               + (f", configs {sd.plan.resident_configs}/{index.t}"
                  if sd.plan.resident_configs else "")
-              + f"), imbalance {sd.plan.imbalance:.2f}, shard-grid "
-              f"execution (one hop launch for all shards)")
+              + f"), imbalance {sd.plan.imbalance:.2f}, {sd.layout} "
+              + (f"execution (devices {[str(d) for d in sd.devices]})"
+                 if sd.devices else
+                 "execution (one hop launch for all shards)"))
 
     if not profiles:
         print("[serve] no queries requested")

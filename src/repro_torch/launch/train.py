@@ -130,7 +130,10 @@ def run(argv=None, cfg=None) -> dict:
                   f" ({(time.time() - t0):.1f}s)")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             save_state(args.ckpt_dir, model, opt_state, step)
-    if args.ckpt_dir:
+    # The final state, unless the cadence has just written this very step
+    # (the reference writes it twice, the same files).
+    if args.ckpt_dir and not (args.steps > start_step
+                              and args.steps % args.ckpt_every == 0):
         save_state(args.ckpt_dir, model, opt_state, args.steps - 1)
     final = losses[-1] if losses else math.nan
     print(f"[train] done: {args.steps - start_step} steps, "

@@ -99,6 +99,7 @@ class QueryConfig:
     hops: int = 3              # descent depth
     max_wave: int = 256        # queries per wave
     shards: int = 1            # >1: LPT cluster shards + cross-shard merge
+    shard_oversample: float = 1.5  # fleet frontier vs single-device beam
     seeds_per_config: int = 16 # routed seed candidates per hash config
     refresh_every: int = 64    # cohort size triggering re-clustering
     continuous: bool = False   # slot-based streaming admission (sched/)
@@ -143,6 +144,7 @@ class QueryConfig:
                         hops=self.hops, max_wave=self.max_wave,
                         slots=self.slots,
                         seeds_per_config=self.seeds_per_config,
+                        shard_oversample=self.shard_oversample,
                         admission=self.admission,
                         max_pending=self.max_pending,
                         adaptive=self.adaptive, cache=self.cache,
@@ -151,7 +153,8 @@ class QueryConfig:
 
 class QueryEngine:
     def __init__(self, index: KNNIndex, qc: QueryConfig | None = None, *,
-                 device="cuda", clock=None, faults=None, store=None):
+                 device="cuda", clock=None, faults=None, store=None,
+                 shard_devices=None):
         self.index = index
         self.qc = qc or QueryConfig()
         if self.qc.rebalance_every > 0 and self.qc.shards <= 1:
@@ -162,7 +165,8 @@ class QueryEngine:
         # deadline shedding deterministic).
         self.clock = clock or time.perf_counter
         self.plan = DescentPlan(index, self.qc.spec(), device=device,
-                                clock=self.clock)
+                                clock=self.clock,
+                                shard_devices=shard_devices)
         self.device = self.plan.device
         self.queue: deque[QueryRequest] = deque()
         self.done: list[QueryRequest] = []
@@ -363,7 +367,8 @@ class QueryEngine:
 
     @classmethod
     def recover(cls, path, qc: QueryConfig | None = None, *, device="cuda",
-                clock=None, faults=None, store=None) -> "QueryEngine":
+                clock=None, faults=None, store=None,
+                shard_devices=None) -> "QueryEngine":
         """Rebuild an engine from a :class:`~repro_torch.faults.CrashStore`
         directory (written by either package): load the last snapshot,
         replay the WAL suffix, and, for a sharded config whose shard count
@@ -376,7 +381,8 @@ class QueryEngine:
         """
         from repro_torch.faults.wal import CrashStore
         index, base_plan, manifest = CrashStore.load(path)
-        eng = cls(index, qc, device=device, clock=clock, faults=faults)
+        eng = cls(index, qc, device=device, clock=clock, faults=faults,
+                  shard_devices=shard_devices)
         eng.lifecycle.clock = int(manifest.get("lifecycle_clock", 0))
         if base_plan is not None:
             eng.plan.restore_sharded(base_plan)

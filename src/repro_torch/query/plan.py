@@ -5,8 +5,9 @@ A :class:`PlanSpec` names the three serving axes of the reference:
 
 * **placement** — ``1`` (the whole index on one device) or ``S`` LPT
   cluster shards (``query/sharded.py``: owner-partitioned seeds, per-shard
-  local subgraphs, a cross-shard top-k merge), all S on one device with
-  one hop launch for every shard;
+  local subgraphs, a cross-shard top-k merge): stacked on one device
+  with one hop launch for every shard, or one device per shard
+  (``DescentPlan(shard_devices=)``, opt-in) with one launch per shard;
 * **batching** — ``"wave"`` (closed waves) or ``"continuous"`` (a slot
   scheduler, streaming admission, per-request hop budgets);
 * **scorer** — ``"jnp"`` (the plain unfused hop), ``"pallas"`` (the fused
@@ -25,8 +26,9 @@ placement keeps padded copies of the index tables on the plan's device,
 kept current by :meth:`DescentPlan.sync` from the index's row journal; the
 sharded placement keeps a :class:`~repro_torch.query.sharded.
 ShardedDescent`, delta-resharded from the index's journals, and never a
-full-index copy. Continuous plans add the slot arrays (beams ``[S,
-n_slots, shard_beam]`` under sharding). Every wave, seeded descent and
+full-index copy. Continuous plans add the slot arrays (under sharding,
+every shard's beams ``[n_slots, shard_beam]`` on its tables' device, as
+the reference pins them to its mesh). Every wave, seeded descent and
 tick syncs first, so an index mutation between two steps reaches
 in-flight slots as the tombstone mask of their next hop.
 
@@ -54,14 +56,13 @@ from repro_torch.device import resolve_device
 from repro_torch.query.cache import ResultCache
 from repro_torch.query.index import KNNIndex
 from repro_torch.query.router import fingerprint_profiles, profiles_to_csr, route
-from repro_torch.query.search import (batched_descent, map_shard_ids,
-                                      shard_slot_admit, shard_slot_hop,
-                                      shard_slot_topk, slot_admit, slot_hop,
+from repro_torch.query.search import (batched_descent, new_slot_part,
+                                      slot_admit, slot_hop,
                                       slot_prefix_stable)
 from repro_torch.sched import (ADMISSION_POLICIES, SlotScheduler,
                                shed_and_select)
 from repro_torch.sketch.goldfinger import words_tensor
-from repro_torch.types import NEG_INF, PAD_ID
+from repro_torch.types import PAD_ID
 
 BATCHINGS = ("wave", "continuous")
 SCORERS = ("jnp", "pallas", "pallas_dma")
@@ -92,6 +93,8 @@ class PlanSpec:
     max_wave: int = 256         # wave batching: queries per descent
     slots: int = 32             # continuous batching: in-flight capacity
     seeds_per_config: int = 16
+    shard_oversample: float = 1.5  # sharded: the fleet's frontier vs the
+                                   # single placement's beam
     admission: str = "fifo"     # "fifo" | "slo" (priority + deadline
                                 # admission with explicit shedding)
     max_pending: int = 0        # slo: pending-queue bound (0 = unbounded)
@@ -181,38 +184,43 @@ class PlanSpec:
 class _SlotState:
     """Device-resident per-slot state of a continuous plan: the query
     fingerprints and beams of the ``n_slots`` rows, and on the host each
-    slot's hops done and hop budget. Under a sharded placement the beams
-    carry a leading shard axis (``[S, n_slots, shard_beam]``): every shard
-    advances its own beam per slot, merged across shards at release.
+    slot's hops done and hop budget. :attr:`parts` holds the device arrays
+    (``search.new_slot_part``): one set of ``[n_slots, beam]`` beams for
+    the single placement; under sharding one set per part of the shard
+    tables, on its device (``ShardedDescent.new_slots``), beams ``[shards
+    of the part, n_slots, shard_beam]``: every shard advances its own beam
+    per slot, merged across shards at release.
 
     Adaptive budgets add, per slot, the count of consecutive hops whose
-    top-k prefix held (``streak``), the prefix it is compared with
-    (``prefix_ids``, on the device) and a ``fresh`` flag, so a re-admitted
-    slot never compares against its previous occupant's prefix."""
+    top-k prefix held (``streak``), the prefix it is compared with (each
+    part's ``prefix_ids``, on the device) and a ``fresh`` flag, so a
+    re-admitted slot never compares against its previous occupant's
+    prefix."""
 
     def __init__(self, index: KNNIndex, spec: PlanSpec, beam: int, device,
-                 clock):
+                 clock, sd=None):
         n_slots = spec.slots
         self.beam = beam
         self.sched = SlotScheduler(n_slots, policy=spec.admission,
                                    max_pending=spec.max_pending, clock=clock)
-        self.q_words = torch.zeros((n_slots, index.words.shape[1]),
-                                   dtype=torch.int32, device=device)
-        self.q_card = torch.zeros(n_slots, dtype=torch.int32, device=device)
-        shape = ((spec.placement, n_slots, beam) if spec.placement > 1
-                 else (n_slots, beam))
-        self.beam_ids = torch.full(shape, PAD_ID, dtype=torch.int32,
-                                   device=device)
-        self.beam_sims = torch.full(shape, NEG_INF, dtype=torch.float32,
-                                    device=device)
+        W = index.words.shape[1]
+        k_prefix = spec.k if spec.adaptive > 0 else 0
+        self.parts = ([new_slot_part(n_slots, W, beam, k_prefix, device)]
+                      if sd is None
+                      else sd.new_slots(n_slots, W, beam, k_prefix))
         self.hops_done = np.zeros(n_slots, np.int64)
         self.budget = np.full(n_slots, spec.hops, np.int64)
         self.streak = np.zeros(n_slots, np.int64)
         self.fresh = np.ones(n_slots, bool)
-        self.prefix_ids = None
-        if spec.adaptive > 0:
-            self.prefix_ids = torch.full(shape[:-1] + (spec.k,), PAD_ID,
-                                         dtype=torch.int32, device=device)
+
+    @property
+    def beam_ids(self) -> torch.Tensor:
+        """The slot beams, ``[S, n_slots, beam]`` under sharding (gathered
+        on the first part's device), for inspection."""
+        if len(self.parts) == 1:
+            return self.parts[0].beam_ids
+        dev = self.parts[0].beam_ids.device
+        return torch.cat([p.beam_ids.to(dev) for p in self.parts])
 
 
 class DescentPlan:
@@ -220,10 +228,13 @@ class DescentPlan:
     owning its device state and serving loop."""
 
     def __init__(self, index: KNNIndex, spec: PlanSpec, device="cuda",
-                 clock=None):
+                 clock=None, shard_devices=None):
         self.index = index
         self.spec = spec
         self.device = resolve_device(device)
+        # Sharded placement: one device per shard (None: the reference's
+        # rule, ShardedDescent(devices=None)).
+        self.shard_devices = shard_devices
         # Every completion, shed and deadline stamp reads this clock.
         self.clock = clock or time.perf_counter
         self.beam = max(spec.beam, spec.k)
@@ -329,8 +340,9 @@ class DescentPlan:
                 or self._sharded.n_shards != self.spec.placement):
             self._sharded = ShardedDescent(
                 self.index, self.spec.placement,
+                oversample=self.spec.shard_oversample,
                 resident_configs=self.spec.resident_configs,
-                device=self.device)
+                device=self.device, devices=self.shard_devices)
         else:
             self.sync_stats[self._sharded.sync()] += 1
         return self._sharded
@@ -355,8 +367,9 @@ class DescentPlan:
         self._sharded = ShardedDescent(
             self.index, base_plan.n_shards,
             plan=extend_plan(base_plan, self.index),
+            oversample=self.spec.shard_oversample,
             resident_configs=self.spec.resident_configs,
-            device=self.device)
+            device=self.device, devices=self.shard_devices)
 
     def _degraded(self) -> bool:
         """True while any shard is masked out of serving (the fault layer,
@@ -377,9 +390,7 @@ class DescentPlan:
         if not down.any():
             return
         st = self._slots
-        d = torch.from_numpy(down).to(self.device)[:, None, None]
-        st.beam_ids.masked_fill_(d, PAD_ID)
-        st.beam_sims.masked_fill_(d, NEG_INF)
+        self._sharded.mask_slots(st.parts, down)
         if self.spec.adaptive > 0:
             # The stored prefixes were taken on the whole fleet: restart
             # every streak rather than free a slot on such a comparison.
@@ -543,24 +554,26 @@ class DescentPlan:
 
     def _slot_state(self) -> _SlotState:
         if self._slots is None:
-            beam = self.beam
+            beam, sd = self.beam, None
             if self.spec.placement > 1:
-                beam = self._sync_sharded().shard_beam(self.beam, self.spec.k)
+                sd = self._sync_sharded()
+                beam = sd.shard_beam(self.beam, self.spec.k)
             self._slots = _SlotState(self.index, self.spec, beam,
-                                     self.device, self.clock)
+                                     self.device, self.clock, sd=sd)
         return self._slots
 
     def _slot_results(self, st: _SlotState):
         """(ids int32[n_slots, k], sims f32[n_slots, k]) host snapshots:
         the beam is sorted, so the top k is its prefix; under sharding the
-        shards' prefixes merged in global ids (:func:`shard_slot_topk`)."""
+        shards' prefixes merged in global ids
+        (:meth:`ShardedDescent.slot_topk`)."""
         k = self.spec.k
         if self.spec.placement > 1:
-            ids, sims = shard_slot_topk(self._sharded._dev[4], st.beam_ids,
-                                        st.beam_sims, k=k)
+            ids, sims = self._sharded.slot_topk(st.parts, k=k)
             return ids.cpu().numpy(), sims.cpu().numpy()
-        return (st.beam_ids[:, :k].cpu().numpy(),
-                st.beam_sims[:, :k].cpu().numpy())
+        p = st.parts[0]
+        return (p.beam_ids[:, :k].cpu().numpy(),
+                p.beam_sims[:, :k].cpu().numpy())
 
     def _admit(self, st: _SlotState, admitted, done) -> int:
         """Fingerprint, route and scatter one admission generation into
@@ -612,23 +625,17 @@ class DescentPlan:
             st.budget[slot] = req.hops if req.hops is not None else spec.hops
             st.streak[slot] = 0
             st.fresh[slot] = True
-        q_words = words_tensor(qw, dev)
-        q_card = torch.from_numpy(np.asarray(qc, np.int32)).to(dev)
-        slot_idx = torch.from_numpy(slots).to(dev)
         if spec.placement > 1:
-            sd = self._sync_sharded()
-            shard_slot_admit(
-                sd._dev[2], sd._dev[3], q_words, q_card,
-                torch.from_numpy(sd.shard_seeds(np.asarray(seeds))
-                                 .astype(np.int32)).to(dev),
-                slot_idx, st.q_words, st.q_card, st.beam_ids, st.beam_sims,
-                beam=st.beam, l_tomb=sd._dev[5])
+            self._sync_sharded().slot_admit(st.parts, qw, qc, seeds, slots,
+                                            beam=st.beam)
             return n_hit
         words, card, tomb = self.sync()[2:5]
-        slot_admit(words, card, q_words, q_card,
+        p = st.parts[0]
+        slot_admit(words, card, words_tensor(qw, dev),
+                   torch.from_numpy(np.asarray(qc, np.int32)).to(dev),
                    torch.from_numpy(np.asarray(seeds, np.int32)).to(dev),
-                   slot_idx, st.q_words, st.q_card, st.beam_ids,
-                   st.beam_sims, beam=st.beam, tomb=tomb)
+                   torch.from_numpy(slots).to(dev), p.q_words, p.q_card,
+                   p.beam_ids, p.beam_sims, beam=st.beam, tomb=tomb)
         return n_hit
 
     def _step_continuous(self, queue, done) -> int:
@@ -655,13 +662,10 @@ class DescentPlan:
             # so relabel them before the next hop.
             remap = self._sharded.take_beam_remap()
             if remap is not None and had_state:
-                st.beam_ids = map_shard_ids(
-                    torch.from_numpy(remap).to(self.device), st.beam_ids)
                 # Lanes the map sends to PAD (rows a swap evicted from
                 # their shard) lose their sims; under the frozen-base
                 # extension no live lane maps to PAD.
-                st.beam_sims = torch.where(st.beam_ids == PAD_ID, NEG_INF,
-                                           st.beam_sims)
+                self._sharded.remap_slots(st.parts, remap)
                 if spec.adaptive > 0:
                     # Stored prefixes hold the old local ids: restart every
                     # streak rather than compare across labels.
@@ -690,25 +694,27 @@ class DescentPlan:
         hop_active = active & (st.hops_done < st.budget)
         changed = np.zeros(active.shape[0], bool)
         if hop_active.any():
-            mask = torch.from_numpy(hop_active).to(self.device)
             if spec.placement > 1:
                 sd = self._sync_sharded()
-                st.beam_ids, st.beam_sims, changed_t, stats = shard_slot_hop(
-                    *sd._dev[:4], st.q_words, st.q_card, st.beam_ids,
-                    st.beam_sims, mask, kernel=spec.kernel, dma=spec.dma,
-                    l_tomb=sd._dev[5])
+                changed_t, stats = sd.slot_hop(
+                    st.parts, hop_active, kernel=spec.kernel, dma=spec.dma)
+                if spec.adaptive > 0:
+                    stable_t = sd.slot_prefix_stable(st.parts, k=spec.k)
             else:
                 graph_ids, rev_ids, words, card, tomb = self.sync()
-                st.beam_ids, st.beam_sims, changed_t, stats = slot_hop(
-                    graph_ids, rev_ids, words, card, st.q_words, st.q_card,
-                    st.beam_ids, st.beam_sims, mask, kernel=spec.kernel,
-                    dma=spec.dma, tomb=tomb)
+                p = st.parts[0]
+                p.beam_ids, p.beam_sims, changed_t, stats = slot_hop(
+                    graph_ids, rev_ids, words, card, p.q_words, p.q_card,
+                    p.beam_ids, p.beam_sims,
+                    torch.from_numpy(hop_active).to(self.device),
+                    kernel=spec.kernel, dma=spec.dma, tomb=tomb)
+                if spec.adaptive > 0:
+                    stable_t, p.prefix_ids = slot_prefix_stable(
+                        p.beam_ids, p.prefix_ids, k=spec.k)
             # The hop's counts, `changed` and (adaptive) `stable` reach the
             # host in one copy.
             cols = [stats.to(torch.int32), changed_t[:, None].to(torch.int32)]
             if spec.adaptive > 0:
-                stable_t, st.prefix_ids = slot_prefix_stable(
-                    st.beam_ids, st.prefix_ids, k=spec.k)
                 cols.append(stable_t[:, None].to(torch.int32))
             host = torch.cat(cols, dim=1).cpu().numpy()
             changed = host[:, 3].astype(bool)

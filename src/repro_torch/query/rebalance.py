@@ -21,12 +21,13 @@ offline:
   global row with non-resident lanes dropped to PAD, so uniting the
   copies of all shards hosting a user gives back the global row lane by
   lane, and lanes no shard kept (an edge whose endpoints never shared a
-  shard) are patched from the index. On one card the index holds that
-  merged content already, so the swap rebuilds from the index (the table
-  merge waits for the mesh, ROADMAP queue 1 item 5 (rest), where the
-  shards are the only copy). :func:`merge_audit` counts, from the old
-  partition's residency alone, the lanes the merge would have had to
-  patch (``merge_coverage``), with the reference's figures.
+  shard) are patched from the index. The port keeps the host index
+  beside the shard tables in both layouts (stacked on one device, or one
+  device per shard), and the index holds that merged content already, so
+  the swap rebuilds from the index and reads no table back from a device.
+  :func:`merge_audit` counts, from the old partition's residency alone,
+  the lanes the merge would have had to patch (``merge_coverage``), with
+  the reference's figures.
 * **Swap.** :meth:`ShardedDescent.adopt_plan` installs plan, tables and
   the old → new local-id beam map in one host-side call between steps:
   in-flight continuous slots keep descending (rows evicted from their

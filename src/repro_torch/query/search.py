@@ -21,12 +21,15 @@ implementations with bitwise-identical results:
 Waves run :func:`batched_descent`; continuous batching runs the same
 pieces a hop at a time over a fixed slot array (:func:`slot_admit`,
 :func:`slot_hop`, and :func:`slot_prefix_stable` for adaptive budgets).
-The sharded placement has its counterparts over stacked shards
+The sharded placement has its counterparts over a stack of shards
 (:func:`batched_descent_sharded`, :func:`shard_slot_admit`,
-:func:`shard_slot_hop`, :func:`shard_slot_topk`), one hop launch for all
-shards.
+:func:`shard_slot_hop`, :func:`shard_slot_prefix`), one hop launch for the
+stack: ``query/sharded.py`` holds every shard in one stack, or one stack
+of one shard per device.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -329,20 +332,33 @@ def shard_slot_hop(l_graph, l_rev, l_words, l_card, q_words, q_card,
             stats.sum(dim=0, dtype=torch.int32))
 
 
-def shard_slot_topk(l2g, beam_ids, beam_sims, *, k: int):
-    """Cross-shard top-k of every slot's per-shard beams, in global ids.
+def shard_slot_prefix(l2g, beam_ids, beam_sims, *, k: int):
+    """Every shard's top k of its slot beams ``[S, n_slots, B]``, in
+    global ids: each beam is a ``merge_topk`` output, so its top k is its
+    k-prefix, the wave's per-shard closing merge. Returns (ids int32[S,
+    n_slots, k], sims f32[S, n_slots, k]); merged shard-major across shards
+    (``sharded._merge_shard_topk``) they give the sharded wave's bits."""
+    return (map_shard_ids(l2g, beam_ids[:, :, :k].contiguous()),
+            beam_sims[:, :, :k])
 
-    Each shard's beam is a ``merge_topk`` output, so its top k is its
-    k-prefix, the wave's per-shard closing merge; the prefixes are mapped
-    to global ids and merged shard-major, as ``sharded._merge_shard_topk``
-    does, which keeps the sharded continuous plan bitwise the sharded
-    wave. Returns (ids int32[n_slots, k], sims f32[n_slots, k]).
-    """
-    gids = map_shard_ids(l2g, beam_ids[:, :, :k].contiguous())
-    sims_k = beam_sims[:, :, :k]
-    S, n_slots, kk = gids.shape
-    return merge_topk(gids.transpose(0, 1).reshape(n_slots, S * kk),
-                      sims_k.transpose(0, 1).reshape(n_slots, S * kk), k)
+
+def new_slot_part(n_slots: int, W: int, beam: int, k_prefix: int, device,
+                  shards: int | None = None):
+    """Empty slot arrays on ``device``: query fingerprints int32[n_slots,
+    W] and card int32[n_slots], beams ``[n_slots, beam]`` (``[shards,
+    n_slots, beam]`` for a set of shards) of PAD / -inf, and with
+    ``k_prefix`` the adaptive budgets' stored k-prefixes of PAD."""
+    lead = () if shards is None else (shards,)
+    shape = lead + (n_slots, beam)
+    return SimpleNamespace(
+        q_words=torch.zeros((n_slots, W), dtype=torch.int32, device=device),
+        q_card=torch.zeros(n_slots, dtype=torch.int32, device=device),
+        beam_ids=torch.full(shape, PAD_ID, dtype=torch.int32, device=device),
+        beam_sims=torch.full(shape, NEG_INF, dtype=torch.float32,
+                             device=device),
+        prefix_ids=(torch.full(lead + (n_slots, k_prefix), PAD_ID,
+                               dtype=torch.int32, device=device)
+                    if k_prefix else None))
 
 
 def _exact_block(words, card, tomb, q_words, q_card, k: int,

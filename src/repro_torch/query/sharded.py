@@ -18,16 +18,21 @@ per-shard top-k results, in global ids, are merged shard-major with
 ``knn/topk.merge_topk``. The reference vmaps the descent over the shard
 axis on one device (its Pallas hop batches the shard axis into one
 ``pallas_call``) or runs it under ``shard_map`` with a device per shard.
-This port runs every shard on one card: the shards' tables are stacked
-``[S, cap, ·]`` and each hop is ONE launch for all shards, the shard
-being a grid axis of both hop kernels
-(``kernels/descent_score/ops.descent_hop_sharded``). One card per shard
-is ROADMAP queue 1 item 5 (rest): the mesh.
+The port has both layouts behind :class:`ShardTables`: stacked ``[S, cap,
+·]`` tables on one device, each hop ONE launch for all shards (the shard a
+grid axis of both hop kernels, ``kernels/descent_score/
+ops.descent_hop_sharded``); or one device per shard (a list of devices,
+which may repeat one), each hop one launch per shard on its own device,
+the shards' results copied to the first device and merged there, as the
+reference merges after its ``shard_map``. ``ShardedDescent(devices=None)``
+stacks: the per-device layout is taken only when a device list is passed,
+since on one H100 and on four it measured slower than one launch for all
+shards (PERF.md §6). Both layouts give the same bits.
 
-Each shard's beam is ``max(k, ceil(SHARD_OVERSAMPLE · beam /
-n_shards))``: the fleet's total frontier stays ~``SHARD_OVERSAMPLE ×``
-the single placement's,
-and every shard's selection is ``n_shards ×`` narrower.
+Each shard's beam is ``max(k, ceil(oversample · beam / n_shards))`` (the
+reference's ``oversample``, default 1.5): the fleet's total frontier stays
+~``oversample ×`` the single placement's, and every shard's selection is
+``n_shards ×`` narrower.
 
 Incremental resharding (:meth:`ShardedDescent.sync`): the partition is
 frozen at construction and *extended*, never re-balanced, as the index
@@ -52,7 +57,7 @@ local-id map, rows evicted from a shard mapping to PAD.
 Degraded serving (:meth:`ShardedDescent.set_dead`, driven by
 ``faults/failover.py``): a dead shard's owned seeds are dropped and its
 merge lanes set to PAD / -inf. The mask lives on the host and stays out
-of the kernels: the one hop launch still covers all S shards, and a dead
+of the kernels: the hop launches still cover all S shards, and a dead
 shard's blocks see all-PAD beams and score nothing.
 """
 from __future__ import annotations
@@ -64,14 +69,15 @@ import torch
 
 from repro_torch.core.distributed import lpt_assign, lpt_loads
 from repro_torch.core.local_knn import capacity_of
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_devices
 from repro_torch.knn.topk import merge_topk
 from repro_torch.query.index import KNNIndex
-from repro_torch.query.search import batched_descent_sharded
+from repro_torch.query.search import (batched_descent_sharded, map_shard_ids,
+                                      new_slot_part, shard_slot_admit,
+                                      shard_slot_hop, shard_slot_prefix,
+                                      slot_prefix_stable)
 from repro_torch.sketch.goldfinger import words_tensor
 from repro_torch.types import NEG_INF, PAD_ID
-
-SHARD_OVERSAMPLE = 1.5  # the fleet's frontier vs the single placement's beam
 
 
 @dataclasses.dataclass
@@ -221,29 +227,111 @@ def extend_plan(base: ShardPlan, index: KNNIndex) -> ShardPlan:
                      version=base.version, resident_configs=rc).validate()
 
 
+TABLES = ("l_graph", "l_rev", "l_words", "l_card", "l2g", "l_tomb")
+
+
+def _upload(dev, graph, rev, words, card, l2g, tomb) -> tuple:
+    """Host tables (any leading axes) → tensors on ``dev``, in
+    :data:`TABLES` order."""
+    return (torch.from_numpy(graph).to(dev), torch.from_numpy(rev).to(dev),
+            words_tensor(words, dev), torch.from_numpy(card).to(dev),
+            torch.from_numpy(l2g).to(dev), torch.from_numpy(tomb).to(dev))
+
+
+class ShardTables:
+    """The device tables of S shards, in one of two layouts.
+
+    * **stacked** (``devices`` None): one ``[S, cap, ·]`` set on
+      ``device``; each hop is ONE launch for every shard (the shard a grid
+      axis of both hop kernels);
+    * **per device**: shard s's ``[1, cap, ·]`` set on ``devices[s]``; each
+      hop is one launch per shard, on its own device (the reference's mesh,
+      one device per shard). A device may repeat.
+
+    :attr:`parts` lists ``(lo, hi, device, tables)``: shards ``[lo, hi)``
+    and their tables in :data:`TABLES` order (``l_graph int32[·, cap, kg],
+    l_rev int32[·, cap, kr], l_words int32[·, cap, W]`` bit-views,
+    ``l_card int32[·, cap], l2g int32[·, cap], l_tomb bool[·, cap]``).
+    """
+
+    def __init__(self, n_shards: int, device, devices=None):
+        self.per_device = devices is not None
+        spans = ([(s, s + 1, d) for s, d in enumerate(devices)]
+                 if self.per_device else [(0, n_shards, device)])
+        self.parts = [(lo, hi, dev, ()) for lo, hi, dev in spans]
+
+    def load(self, *host) -> None:
+        """Install every shard's tables from host arrays ``[S, cap, ·]``."""
+        self.parts = [(lo, hi, dev, _upload(dev, *(a[lo:hi] for a in host)))
+                      for lo, hi, dev, _ in self.parts]
+
+    def _find(self, s: int):
+        for lo, hi, dev, tables in self.parts:
+            if lo <= s < hi:
+                return s - lo, dev, tables
+        raise IndexError(f"no shard {s}")
+
+    def set_shard(self, s: int, *host) -> None:
+        """Overwrite shard ``s``'s tables with host arrays ``[cap, ·]``."""
+        i, dev, tables = self._find(s)
+        for a, u in zip(tables, _upload(dev, *host)):
+            a[i].copy_(u)
+
+    def scatter(self, s: int, rows: np.ndarray, *host) -> None:
+        """Write host rows ``[len(rows), ·]`` into shard ``s``'s local rows
+        ``rows``."""
+        i, dev, tables = self._find(s)
+        li = torch.from_numpy(rows.astype(np.int64)).to(dev)
+        for a, u in zip(tables, _upload(dev, *host)):
+            a[i].index_copy_(0, li, u)
+
+    def stacked(self) -> tuple:
+        """Every shard's tables ``[S, cap, ·]``: the stacked layout's own
+        tensors, or the per-device tables gathered on the first device."""
+        if len(self.parts) == 1:
+            return self.parts[0][3]
+        dev = self.parts[0][2]
+        return tuple(torch.cat([p[3][i].to(dev) for p in self.parts])
+                     for i in range(len(TABLES)))
+
+
 class ShardedDescent:
-    """Per-shard local subgraphs on one device and the descent/merge over
-    them.
+    """Per-shard local subgraphs and the descent/merge over them.
 
     Owned by a :class:`~repro_torch.query.plan.DescentPlan`'s sharded
-    placement. ``_dev`` holds the stacked device tables, in the
-    reference's order: ``(l_graph int32[S, cap, kg], l_rev int32[S, cap,
-    kr], l_words int32[S, cap, W] bit-views, l_card int32[S, cap], l2g
-    int32[S, cap], l_tomb bool[S, cap])``; ``_g2l`` (host int32[S,
-    index capacity]) maps global rows to each shard's local rows, PAD
-    where not resident. :meth:`sync` repairs them after index mutations.
+    placement. :attr:`tables` (:class:`ShardTables`) holds the device
+    tables, stacked on ``device`` or one shard per entry of ``devices``
+    (the reference's ``use_mesh``; a one-entry list stacks every shard on
+    it). ``devices`` None stacks every shard on ``device``: the per-device
+    layout is opt-in, unlike the reference's rule, because it measured
+    slower on every workload so far. ``_g2l`` (host int32[S,
+    index capacity]) maps global rows to each shard's local rows, PAD where
+    not resident. :meth:`sync` repairs both after index mutations.
     """
 
     def __init__(self, index: KNNIndex, n_shards: int,
-                 plan: ShardPlan | None = None, *,
-                 resident_configs: int = 0, device="cuda"):
+                 plan: ShardPlan | None = None, *, oversample: float = 1.5,
+                 resident_configs: int = 0, device="cuda", devices=None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.index = index
-        self.device = resolve_device(device)
+        self.oversample = oversample
         self.base_plan = plan or plan_shards(
             index, n_shards, resident_configs=resident_configs)
         self.plan = self.base_plan
+        S = self.plan.n_shards
+        if devices is None:
+            self.device = resolve_device(device)
+        else:
+            devices = resolve_devices(devices)
+            if len(devices) not in (1, S):
+                raise ValueError(f"{S} shards need {S} devices (or one, "
+                                 f"stacked), got {len(devices)}")
+            self.device = devices[0]  # where shards' results merge
+            if len(devices) == 1:  # the reference's use_mesh=False
+                devices = None
+        self.devices = devices
+        self.tables = ShardTables(S, self.device, devices)
         # Bumped by every re-balance swap (adopt_plan): the tables, plan
         # and pending beam remap move together between scheduler steps.
         self.generation = 0
@@ -253,8 +341,19 @@ class ShardedDescent:
         self.last_hop_stats: np.ndarray | None = None
         # Degraded-serving mask (set_dead): True where a shard must not
         # seed or contribute to merges.
-        self.dead = np.zeros(self.plan.n_shards, dtype=bool)
+        self.dead = np.zeros(S, dtype=bool)
         self._materialize()
+
+    @property
+    def layout(self) -> str:
+        """``"per-device"`` (one launch a shard) or ``"stacked"``."""
+        return "per-device" if self.tables.per_device else "stacked"
+
+    @property
+    def _dev(self) -> tuple:
+        """Every shard's device tables ``[S, cap, ·]`` in :data:`TABLES`
+        order (gathered on the first device in the per-device layout)."""
+        return self.tables.stacked()
 
     # -- tensor materialisation / repair -----------------------------------
 
@@ -290,14 +389,6 @@ class ShardedDescent:
         tomb[:m] = ix.tombstone[res]
         return l2g, g2l, graph, rev, words, card, tomb
 
-    def _upload(self, graph, rev, words, card, l2g, tomb) -> tuple:
-        """Host tables (leading shard axis or not) → device tensors, in
-        ``_dev`` order."""
-        dev = self.device
-        return (torch.from_numpy(graph).to(dev), torch.from_numpy(rev).to(dev),
-                words_tensor(words, dev), torch.from_numpy(card).to(dev),
-                torch.from_numpy(l2g).to(dev), torch.from_numpy(tomb).to(dev))
-
     def _materialize(self):
         """Full (re)build of every shard's tables: first use, ``cap``
         crossings, journal expiry and re-balance swaps."""
@@ -308,10 +399,16 @@ class ShardedDescent:
         self.cap = cap
         blocks = [self._shard_block(s, cap) for s in range(S)]
         self._g2l = np.stack([b[1] for b in blocks])
-        self._dev = self._upload(*(np.stack([b[i] for b in blocks])
-                                   for i in (2, 3, 4, 5, 0, 6)))
+        self.tables.load(*(np.stack([b[i] for b in blocks])
+                           for i in (2, 3, 4, 5, 0, 6)))
         self.version = ix.version
         self._n_seen = ix.n
+
+    def _l2g_host(self) -> np.ndarray:
+        """Every shard's local → global map read back, host int32[S,
+        cap]."""
+        return np.concatenate([p[3][4].cpu().numpy()
+                               for p in self.tables.parts])
 
     def sync(self) -> str:
         """Repair the device tables to the index's current version.
@@ -327,7 +424,7 @@ class ShardedDescent:
             return "noop"
         # Snapshot the local→global map before any mutation: if local ids
         # shift, in-flight slot beams need the old→new remap it produces.
-        old_l2g = self._dev[4].cpu().numpy().copy()
+        old_l2g = self._l2g_host()
         rows = ix.rows_changed_since(self.version)
         mems = ix.members_added_since(self.version)
         tombs = ix.tombstones_since(self.version)
@@ -390,15 +487,13 @@ class ShardedDescent:
             self._record_remap(old_l2g)
             return "rebuild"
         self._g2l = g2l
-        dev = self.device
         for s in range(S):
             if s in stale:
                 l2g_b, g2l_b, graph, rev, words, card, tomb = \
                     self._shard_block(s, cap)
                 self._g2l[s] = g2l_b
-                for a, u in zip(self._dev, self._upload(graph, rev, words,
-                                                        card, l2g_b, tomb)):
-                    a[s].copy_(u)
+                self.tables.set_shard(s, graph, rev, words, card, l2g_b,
+                                      tomb)
                 continue
             res = residents[s]
             # Delta adds are all fresh rows (ids >= old_n) here, so the
@@ -417,13 +512,12 @@ class ShardedDescent:
                              dtype=np.int64)
             if not len(touch):
                 continue
-            li = torch.from_numpy(self._g2l[s, touch].astype(np.int64)).to(dev)
-            for a, u in zip(self._dev, self._upload(
-                    self._remap(self._g2l[s], ix.graph_ids[touch]),
-                    self._remap(self._g2l[s], ix.rev_ids[touch]),
-                    ix.words[touch], ix.card[touch],
-                    touch.astype(np.int32), ix.tombstone[touch])):
-                a[s].index_copy_(0, li, u)
+            self.tables.scatter(
+                s, self._g2l[s, touch],
+                self._remap(self._g2l[s], ix.graph_ids[touch]),
+                self._remap(self._g2l[s], ix.rev_ids[touch]),
+                ix.words[touch], ix.card[touch], touch.astype(np.int32),
+                ix.tombstone[touch])
         self.version = ix.version
         self._n_seen = ix.n
         if stale:  # locals shifted on the rematerialised shards
@@ -435,16 +529,16 @@ class ShardedDescent:
         every shard's tables in one host-side call between scheduler steps.
 
         The one reshard where residency is not monotone: rows move off
-        shards. The rows are read from the index: on one card it holds
-        the row content a merge of the old shard tables gives back (the
-        reference merges them for a mesh, where the shards are the only
-        copy: ROADMAP queue 1 item 5 (rest)). In-flight slot beams follow
-        through the recorded old → new local-id map: rows still resident
-        keep descending under their new labels, evicted rows map to PAD
-        (the continuous plan masks their sims). ``cap`` may change with the
-        plan; the map is ``[S, old cap]``.
+        shards. The rows are read from the index, which the port keeps on
+        the host in both layouts: it holds the row content a merge of the
+        old shard tables gives back (the reference's
+        ``merge_subgraph_rows``; ``rebalance.merge_audit`` counts the lanes
+        that merge would patch). In-flight slot beams follow through the recorded old → new local-id
+        map: rows still resident keep descending under their new labels,
+        evicted rows map to PAD (the continuous plan masks their sims).
+        ``cap`` may change with the plan; the map is ``[S, old cap]``.
         """
-        old_l2g = self._dev[4].cpu().numpy().copy()
+        old_l2g = self._l2g_host()
         self.base_plan = plan
         self.plan = plan
         self._materialize()
@@ -474,8 +568,9 @@ class ShardedDescent:
         """Consume the pending old→new local-id map (int32[S, old cap]), or
         None when local ids were stable since the last take. The
         continuous plan applies it to in-flight per-shard slot beams
-        before their next hop: the beams' contents (global identity and
-        sims) are unchanged, only their local labels move."""
+        before their next hop (:meth:`remap_slots`): the beams' contents
+        (global identity and sims) are unchanged, only their local labels
+        move."""
         mp, self._beam_remap = self._beam_remap, None
         return mp
 
@@ -512,6 +607,20 @@ class ShardedDescent:
         local = self._g2l[:, safe]
         return np.where(owned, local, PAD_ID)
 
+    def _queries(self, q_words, q_card) -> dict:
+        """Host query fingerprints on each distinct device of the parts."""
+        out = {}
+        for _, _, dev, _ in self.tables.parts:
+            if dev not in out:
+                out[dev] = (words_tensor(q_words, dev), torch.from_numpy(
+                    np.asarray(q_card, dtype=np.int32)).to(dev))
+        return out
+
+    def _gather(self, parts_out, fn) -> torch.Tensor:
+        """Each part's ``[s, ·]`` result copied to ``device`` and joined in
+        shard order."""
+        return torch.cat([fn(o).to(self.device) for o in parts_out])
+
     def descend(self, q_words, q_card, seeds: np.ndarray, *,
                 k: int, beam: int, hops: int, kernel: bool = False,
                 dma: bool = False):
@@ -521,24 +630,29 @@ class ShardedDescent:
         ``seeds`` global ids (router output, PAD padded); ``beam`` is the
         single-placement frontier, divided among shards
         (:meth:`shard_beam`). ``kernel`` selects the fused hop, ``dma``
-        the DMA hop (bitwise the same results): one launch per hop for
-        all shards. Returns (ids int32[q, k], sims float32[q, k]) tensors
-        on the device, in global ids. ``last_hop_stats`` holds the call's
-        per-query ``(n_scored, dma_bytes, bytes_saved)`` int32[q, 3]
+        the DMA hop (bitwise the same results): per hop, one launch for
+        the stacked shards, or one per shard on its own device (every
+        device's hops queued before any result is read). The shards'
+        ``[q, k]`` results and counts are copied to ``device`` and merged
+        in shard order. Returns (ids int32[q, k], sims float32[q, k])
+        tensors on ``device``, in global ids. ``last_hop_stats`` holds the
+        call's per-query ``(n_scored, dma_bytes, bytes_saved)`` int32[q, 3]
         summed over the alive shards.
         """
-        dev = self.device
-        l_seeds = torch.from_numpy(
-            self.shard_seeds(np.asarray(seeds)).astype(np.int32)).to(dev)
-        ids, sims, stats = batched_descent_sharded(
-            *self._dev, words_tensor(q_words, dev),
-            torch.from_numpy(np.asarray(q_card, dtype=np.int32)).to(dev),
-            l_seeds, k=k, beam=self.shard_beam(beam, k), hops=hops,
-            kernel=kernel, dma=dma)
+        l_seeds = self.shard_seeds(np.asarray(seeds)).astype(np.int32)
+        queries = self._queries(q_words, q_card)
+        outs = [batched_descent_sharded(
+            *tables, *queries[dev],
+            torch.from_numpy(l_seeds[lo:hi]).to(dev), k=k,
+            beam=self.shard_beam(beam, k), hops=hops, kernel=kernel,
+            dma=dma) for lo, hi, dev, tables in self.tables.parts]
+        ids, sims, stats = (self._gather(outs, lambda o, i=i: o[i])
+                            for i in range(3))
         if self.dead.any():
             # On top of the seed drop: a dead shard adds nothing to the
             # merge or the counts, whatever its blocks computed.
-            alive = torch.from_numpy(~self.dead).to(dev)[:, None, None]
+            alive = torch.from_numpy(~self.dead).to(self.device)[:, None,
+                                                                 None]
             ids = torch.where(alive, ids, PAD_ID)
             sims = torch.where(alive, sims, NEG_INF)
             stats = torch.where(alive, stats, 0)
@@ -547,9 +661,9 @@ class ShardedDescent:
         return _merge_shard_topk(ids, sims, k)
 
     def shard_beam(self, beam: int, k: int) -> int:
-        """Per-shard frontier width for a fleet-level ``beam``."""
-        return max(k, int(np.ceil(SHARD_OVERSAMPLE * beam
-                                  / self.n_shards)))
+        """Per-shard frontier width for a fleet-level ``beam``: the fleet's
+        frontier is ~``oversample ×`` the single placement's."""
+        return max(k, int(np.ceil(self.oversample * beam / self.n_shards)))
 
     def resident_bytes(self) -> list[int]:
         """Per-shard bytes of resident rows (adjacency, reverse adjacency,
@@ -557,6 +671,88 @@ class ShardedDescent:
         is excluded."""
         per_row = self.index.row_bytes
         return [len(r) * per_row for r in self.plan.residents]
+
+    # -- continuous slots: every shard's beams on its tables' device -------
+
+    def new_slots(self, n_slots: int, W: int, beam: int,
+                  k_prefix: int = 0) -> list:
+        """Empty slot arrays, one set per part of :attr:`tables` on its
+        device (the reference pins the beams' shard axis to the mesh):
+        beams ``[shards of the part, n_slots, beam]``."""
+        return [new_slot_part(n_slots, W, beam, k_prefix, dev,
+                              shards=hi - lo)
+                for lo, hi, dev, _ in self.tables.parts]
+
+    def slot_admit(self, slots: list, q_words, q_card, seeds,
+                   slot_idx: np.ndarray, *, beam: int) -> None:
+        """Admit requests (host fingerprints, routed global seeds, their
+        slots) into every shard's slot beams, in place: each shard
+        initialises its rows from the seeds it owns."""
+        l_seeds = self.shard_seeds(np.asarray(seeds)).astype(np.int32)
+        queries = self._queries(q_words, q_card)
+        for (lo, hi, dev, tables), sl in zip(self.tables.parts, slots):
+            shard_slot_admit(
+                tables[2], tables[3], *queries[dev],
+                torch.from_numpy(l_seeds[lo:hi]).to(dev),
+                torch.from_numpy(slot_idx).to(dev), sl.q_words, sl.q_card,
+                sl.beam_ids, sl.beam_sims, beam=beam, l_tomb=tables[5])
+
+    def slot_hop(self, slots: list, active: np.ndarray, *,
+                 kernel: bool = False, dma: bool = False):
+        """One hop of every shard's slot beams (``active`` bool[n_slots]
+        rows keep the result). Returns ``(changed bool[n_slots], stats
+        int32[n_slots, 3])`` on ``device``: a slot changed when its beam
+        moved on any shard; the counts are summed over shards."""
+        outs = []
+        for (lo, hi, dev, tables), sl in zip(self.tables.parts, slots):
+            sl.beam_ids, sl.beam_sims, changed, stats = shard_slot_hop(
+                *tables[:4], sl.q_words, sl.q_card, sl.beam_ids,
+                sl.beam_sims, torch.from_numpy(active).to(dev),
+                kernel=kernel, dma=dma, l_tomb=tables[5])
+            outs.append((changed, stats))
+        changed, stats = (o.to(self.device) for o in outs[0])
+        for c, s in outs[1:]:
+            changed = changed | c.to(self.device)
+            stats = stats + s.to(self.device)
+        return changed, stats
+
+    def slot_prefix_stable(self, slots: list, *, k: int) -> torch.Tensor:
+        """Adaptive budgets: bool[n_slots] on ``device``, True where every
+        shard's top-k prefix held since the last call (each part's prefix
+        stored for the next)."""
+        stable = None
+        for sl in slots:
+            st, sl.prefix_ids = slot_prefix_stable(sl.beam_ids,
+                                                   sl.prefix_ids, k=k)
+            st = st.to(self.device)
+            stable = st if stable is None else stable & st
+        return stable
+
+    def slot_topk(self, slots: list, *, k: int):
+        """Cross-shard top-k of every slot, in global ids on ``device``:
+        each shard's k-prefix mapped through its l2g and merged shard-major,
+        the sharded wave's bits."""
+        pre = [shard_slot_prefix(tables[4], sl.beam_ids, sl.beam_sims, k=k)
+               for (_, _, _, tables), sl in zip(self.tables.parts, slots)]
+        return _merge_shard_topk(self._gather(pre, lambda o: o[0]),
+                                 self._gather(pre, lambda o: o[1]), k)
+
+    def remap_slots(self, slots: list, remap: np.ndarray) -> None:
+        """Relabel in-flight beams through a reshard's old → new local-id
+        map (:meth:`take_beam_remap`); lanes mapped to PAD (rows a swap
+        evicted from their shard) lose their sims."""
+        for (lo, hi, dev, _), sl in zip(self.tables.parts, slots):
+            sl.beam_ids = map_shard_ids(
+                torch.from_numpy(remap[lo:hi]).to(dev), sl.beam_ids)
+            sl.beam_sims = torch.where(sl.beam_ids == PAD_ID, NEG_INF,
+                                       sl.beam_sims)
+
+    def mask_slots(self, slots: list, down: np.ndarray) -> None:
+        """Wipe the slot beams of the shards ``down`` (bool[S]) in place."""
+        for (lo, hi, dev, _), sl in zip(self.tables.parts, slots):
+            d = torch.from_numpy(down[lo:hi]).to(dev)[:, None, None]
+            sl.beam_ids.masked_fill_(d, PAD_ID)
+            sl.beam_sims.masked_fill_(d, NEG_INF)
 
 
 def g2l_local(g2l_row: np.ndarray, r: int) -> bool:

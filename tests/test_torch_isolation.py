@@ -2,7 +2,8 @@
 
 In a fresh interpreter, ``jax`` and ``repro`` are blocked
 (``sys.modules[name] = None`` makes any import of them raise), then every
-module of ``repro_torch`` found by ``pkgutil.walk_packages`` is imported.
+module of ``repro_torch`` found by ``pkgutil.walk_packages`` is imported;
+so is each of the port's examples, ``examples/*_torch.py``.
 """
 import json
 import os
@@ -15,6 +16,8 @@ import pytest
 pytest.importorskip("torch")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = ("quickstart_torch", "knn_recommend_torch", "serve_demo_torch",
+            "train_lm_torch", "distributed_knn_torch")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -62,5 +65,38 @@ def test_repro_torch_imports_neither_jax_nor_repro():
                  "repro_torch.data.tokens", "repro_torch.launch.train",
                  "repro_torch.launch.mesh", "repro_torch.launch.specs",
                  "repro_torch.launch.op_analysis",
-                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                 "repro_torch.core.distributed", "repro_torch.query.sharded"):
         assert name in seen
+
+
+EXAMPLE_PROBE = r"""
+import importlib.util, json, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+failed = []
+for name in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
+    try:
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    except Exception as exc:
+        failed.append((name, repr(exc)))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                and sys.modules[m] is not None)
+print(json.dumps([failed, leaked]))
+"""
+
+
+def test_port_examples_import_neither_jax_nor_repro():
+    root = SRC.parent
+    on_disk = {p.stem for p in (root / "examples").glob("*_torch.py")}
+    assert on_disk == set(EXAMPLES)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", EXAMPLE_PROBE, *EXAMPLES],
+                         env=env, capture_output=True, text=True,
+                         timeout=300, cwd=str(root))
+    assert out.returncode == 0, out.stderr
+    failed, leaked = json.loads(out.stdout.strip().splitlines()[-1])
+    assert failed == [], failed
+    assert leaked == [], leaked
