@@ -247,6 +247,25 @@ Phases, each fatal on failure:
    equal as integers, with kernels, eager bytes and peaks beside; (b) the
    dry-run's predicted peak of the train step within 25% of phase 4i's
    measured peak;
+4l. the mesh's LM half (run after phase 4j; FastRandomHash is the one C²
+   kernel on the path) — a one-rank ``nccl`` process group in this
+   process and ``make_host_mesh()``'s (1, 1) ("data", "model") mesh,
+   every collective an identity, under ``torch.use_deterministic_
+   algorithms`` (the backward's float atomics then add in a fixed order):
+   (a) Llama-3.2-1B at its full published config, 3 ``train_step``s with
+   ``ctx`` and ``grad_shardings`` (the parameters') on ``data/tokens``'
+   c2-ordered 8 x 512 batches (FastRandomHash launched once), and the
+   unsharded steps from the same init: losses, gradient norms, every
+   parameter and moment bitwise, step ms and peak GB of both; (b)
+   OLMoE-1B-7B at its full published config, 8 requests through
+   ``Engine(ctx=)`` in a wave and through 8 slots (the expert-parallel
+   branch at model size 1) and through the unsharded engine: tokens rid
+   by rid and every MoE call's expert choices equal, every logit finite;
+   (c) a 2-layer Llama-3.2-1B checkpoint (params and AdamW state) saved
+   whole and read back by ``restore_sharded``, every leaf bitwise.
+   ``lm_mesh_alone`` runs the phase alone and, on four cards, one process
+   a card over meshes (2, 2), (1, 4) and (4, 1), held to the one-card
+   results, with each card's peak memory;
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -266,11 +285,13 @@ Prints one ``{"kernels": [...]}`` JSON line (every row also carries phase
 sharded placement's launches and 4-shard hop time under ``sharded``, and
 phases 4d's and 4e's launches path by path under ``phase_4d`` and
 ``phase_4e``; the cluster-KNN row the raw build's sweep under ``raw``;
-the FastRandomHash row phase 4i's launches under ``phase_4i``) after a
+the FastRandomHash row phase 4i's launches under ``phase_4i`` and
+phase 4l's under ``phase_4l``) after a
 ``{"phase_4e": ...}``, a ``{"phase_4f": ...}``, an ``{"lm_serve": ...}``
 (phase 4g's figures and checks), an ``{"lm_serve_4h": ...}`` (phase
 4h's), an ``{"lm_train": ...}`` (phase 4i's), an ``{"lm_analysis":
-...}`` (phase 4j's) and a ``{"phase_4k": ..., "phase_seconds": ...}``
+...}`` (phase 4j's), an ``{"lm_mesh": ...}`` (phase 4l's) and a
+``{"phase_4k": ..., "phase_seconds": ...}``
 line (phase 4k's figures, each phase's seconds); then the card's
 name and power limit; then phase 4f's times, qualities and counts, the
 cluster-KNN row's times, OLMoE's tokens/s, decode ms and bounds and
@@ -3924,8 +3945,8 @@ LM_BF16_TOL = 0.15
 
 
 def watch_logits(engine) -> "torch.Tensor":
-    """Wrap the engine's prefill and decode so the last-position logits of
-    every call are checked; returns the card-side count of non-finite
+    """Wrap the engine's prefill and decode so the last-position logits
+    ([B, V]) of every call are checked; returns the card-side count of non-finite
     values (read once, after the serve)."""
     import torch
 
@@ -3934,7 +3955,7 @@ def watch_logits(engine) -> "torch.Tensor":
     def wrap(fn):
         def call(*args):
             logits, cache = fn(*args)
-            bad.add_((~torch.isfinite(logits[:, -1])).sum())
+            bad.add_((~torch.isfinite(logits)).sum())
             return logits, cache
         return call
 
@@ -4352,8 +4373,8 @@ def record_moe(calls: list, logits: bool = False, prefill_only=False):
 
     apply = L.apply_moe
 
-    def recorded(p, x, cfg):
-        y, (lg, gate_e) = apply(p, x, cfg)
+    def recorded(p, x, cfg, ctx=None):
+        y, (lg, gate_e) = apply(p, x, cfg, ctx)
         if not prefill_only or x.shape[1] > 1:
             calls.append((lg.detach().clone() if logits else None,
                           gate_e.clone(), x.shape[0] * x.shape[1]))
@@ -5294,6 +5315,450 @@ def lm_training(dev, smi: str) -> dict:
     return out
 
 
+# -- phase 4l: the mesh's LM half on the card ------------------------------
+
+# (a) Llama-3.2-1B training: phase 4i's launch/train batches (8 x 512, the
+# c2 order), 3 steps from one init. (b) OLMoE-1B-7B serving: 8 requests
+# (prompts 4-128 tokens, budgets 2-16) in one wave of 8 and through 8
+# slots. (c) A 2-layer Llama checkpoint, saved whole, read back sharded.
+P4L_TRAIN_STEPS = 3
+P4L_SERVE = {"max_batch": 8, "max_prompt": 128, "max_new": 16}
+P4L_REQUESTS = 8
+# The four-card entry's meshes, each held to the one-card results.
+P4L_MESHES = ((2, 2), (1, 4), (4, 1))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def process_group(rank: int = 0, world: int = 1, port: int = 0):
+    """An ``nccl`` process group over ``localhost``, destroyed on exit."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{port or free_port()}", rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def p4l_train(dev, ctx, whole: bool) -> dict:
+    """(a) 3 ``train_step``s of Llama-3.2-1B sharded under ``ctx``
+    (``grad_shardings`` the parameters'); with ``whole`` also the
+    unsharded steps from the same init, held bitwise: losses, gradient
+    norms, and every parameter and moment."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, TokenPipeline
+    from repro_torch.models.model import LM, init_params
+    from repro_torch.models.sharding import to_shardings
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.steps import train_step
+
+    cfg = get_config("llama3.2-1b")
+    oc = OptConfig()
+    pipe = TokenPipeline(cfg, DataConfig(seq_len=512, global_batch=8,
+                                         seed=0, ordering="c2",
+                                         n_docs=1024), dev)
+    batches = [pipe.batch(s) for s in range(P4L_TRAIN_STEPS)]
+    init = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state = {k: v.detach() for k, v in init.state_dict().items()}
+    del init
+
+    def run(model, **kw):
+        opt = init_opt_state(dict(model.named_parameters()), oc)
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = {"loss": [], "grad_norm": [], "step_ms": []}
+        for b in batches:
+            t0 = time.perf_counter()
+            _, _, m = train_step(model, opt, b, oc, **kw)
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        # Above what the card held before the steps (the parameters and
+        # moments of this side, and the other side's with ``whole``), and
+        # all the card held (this side's footprint without ``whole``).
+        rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        rec["card_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        return model, opt, rec
+
+    out = {}
+    if whole:
+        a, opt_a, out["unsharded"] = run(LM(cfg, {
+            k: v.clone() for k, v in state.items()}, trainable=True))
+    sharded = LM(cfg, state, trainable=True).shard(ctx)
+    del state
+    torch.cuda.empty_cache()
+    b, opt_b, out["sharded"] = run(
+        sharded, ctx=ctx, grad_shardings=to_shardings(sharded.specs,
+                                                      ctx.mesh))
+    if whole:
+        sa, sb = a.state_dict(), b.state_dict()
+        differ = [k for k in sa if not (torch.equal(sa[k], sb[k]) and all(
+            torch.equal(opt_a[key][k], opt_b[key][k])
+            for key in ("m", "v")))]
+        same = len(sa) - len(differ)
+        out["leaves_bitwise"] = [same, len(sa)]
+        ua, ub = out["unsharded"], out["sharded"]
+        if (same != len(sa) or ua["loss"] != ub["loss"]
+                or ua["grad_norm"] != ub["grad_norm"]):
+            fail(f"phase 4l (a): the one-rank mesh's train steps against "
+                 f"the unsharded ones: losses {ub['loss']} / {ua['loss']}, "
+                 f"norms {ub['grad_norm']} / {ua['grad_norm']}, {same} of "
+                 f"{len(sa)} parameters (with m and v) bitwise; differ: "
+                 f"{differ[:4]}")
+        del a, opt_a
+    del b, opt_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def p4l_requests(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    lens = rng.integers(4, P4L_SERVE["max_prompt"] + 1, P4L_REQUESTS)
+    budgets = rng.integers(2, P4L_SERVE["max_new"] + 1, P4L_REQUESTS)
+    return [(rng.integers(0, vocab, int(n)).astype(np.int32), int(b))
+            for n, b in zip(lens, budgets)]
+
+
+def p4l_serve(dev, ctx, whole: bool) -> dict:
+    """(b) OLMoE-1B-7B's 8 requests through ``Engine(ctx=)`` in a wave
+    and through 8 slots; with ``whole`` also through the unsharded
+    engine, the tokens rid by rid and every MoE call's expert choices
+    equal (at model size 1 the expert-parallel branch buckets every
+    expert over the rank's tokens, as one device does)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    cfg = get_config("olmoe-1b-7b")
+    built = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    served = built.serving_copy()
+    del built
+    if not whole:  # only this rank's shards stay on its card
+        served = served.shard(ctx)
+    torch.cuda.empty_cache()
+    reqs = p4l_requests(cfg.vocab_size)
+    out = {}
+    for mode in ("wave", "continuous"):
+        sc = ServeConfig(**P4L_SERVE, continuous=mode == "continuous",
+                         slots=P4L_SERVE["max_batch"])
+        sides = {}
+        for side in (("unsharded", "sharded") if whole else ("sharded",)):
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            calls: list = []
+            with record_moe(calls):
+                eng = Engine(served, sc,
+                             ctx=ctx if side == "sharded" else None)
+                bad = watch_logits(eng)
+                for rid, (prompt, budget) in enumerate(reqs):
+                    eng.submit(Request(rid=rid, prompt=prompt,
+                                       max_new=budget))
+                t0 = time.perf_counter()
+                stats = eng.run()
+                secs = time.perf_counter() - t0
+            if int(bad) or stats["completed"] != P4L_REQUESTS:
+                fail(f"phase 4l (b) {mode} {side}: {int(bad)} non-finite "
+                     f"logits, {stats['completed']} requests completed")
+            sides[side] = {
+                "tokens": {r.rid: r.output.tolist() for r in eng.done},
+                "choices": [c[1] for c in calls],
+                "record": {"tokens": stats["tokens"], "seconds": secs,
+                           "tokens_per_s": stats["tokens"] / secs,
+                           "decode_steps": stats["decode_steps"],
+                           "peak_gb": (torch.cuda.max_memory_allocated(dev)
+                                       - held) / 1e9,
+                           "card_gb": torch.cuda.max_memory_allocated(dev)
+                           / 1e9}}
+            del eng
+            torch.cuda.empty_cache()
+        rec = {side: v["record"] for side, v in sides.items()}
+        if whole:
+            u, s_ = sides["unsharded"], sides["sharded"]
+            same_calls = (len(u["choices"]) == len(s_["choices"]) and all(
+                torch.equal(a, b) for a, b in zip(u["choices"],
+                                                  s_["choices"])))
+            rec["moe_calls_equal"] = [same_calls, len(s_["choices"])]
+            if u["tokens"] != s_["tokens"] or not same_calls:
+                fail(f"phase 4l (b) {mode}: the one-rank mesh's engine "
+                     f"against the unsharded one: tokens equal "
+                     f"{u['tokens'] == s_['tokens']}, expert choices of "
+                     f"{len(s_['choices'])} MoE calls equal {same_calls}")
+        rec["tokens_by_rid"] = sides["sharded"]["tokens"]
+        out[mode] = rec
+    del served
+    torch.cuda.empty_cache()
+    return out
+
+
+def p4l_checkpoint(dev, ctx, tmp: Path) -> dict:
+    """(c) A 2-layer Llama-3.2-1B (params and AdamW state after one
+    step), saved whole by ``launch/train``'s ``save_state`` on rank 0,
+    read back by ``restore_sharded`` under ``ctx``'s mesh: every leaf
+    bitwise this rank's shard of the saved one."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_sharded
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import full_shapes, init_params, \
+        params_to_tree
+    from repro_torch.models.sharding import param_pspecs, to_shardings
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.steps import train_step
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    oc = OptConfig()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev,
+                        trainable=True)
+    opt = init_opt_state(dict(model.named_parameters()), oc)
+    toks = torch.arange(2 * 64, device=dev).reshape(2, 64) % cfg.vocab_size
+    train_step(model, opt, {"tokens": toks, "labels": toks}, oc)
+    t0 = time.perf_counter()
+    if ctx.mesh.rank == 0:
+        launch.save_state(tmp, model, opt, 1)
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    shapes = params_to_tree(full_shapes(cfg), cfg)
+    psh = to_shardings(param_pspecs(cfg, shapes, ctx.mesh), ctx.mesh)
+    like = (shapes, {"m": shapes, "step": torch.zeros((), device="meta"),
+                     "v": shapes})
+    shardings = (psh, {"m": psh, "step": None, "v": psh})
+    t0 = time.perf_counter()
+    tree, step = restore_sharded(tmp, like, shardings)
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    from repro_torch.checkpoint.checkpoint import (_sharding_leaves,
+                                                   tree_leaves)
+    want = tree_leaves(launch.state_tree(model, opt))
+    got = tree_leaves(tree)
+    plan = _sharding_leaves(tree, shardings)
+    same = sum(torch.equal(g.to(dev), w if sh is None else sh.shard(w))
+               for g, w, sh in zip(got, want, plan))
+    if step != 1 or same != len(want):
+        fail(f"phase 4l (c): restore_sharded gave {same} of {len(want)} "
+             f"leaves bitwise (step {step})")
+    del model, opt, tree, want, got
+    torch.cuda.empty_cache()
+    return {"leaves": same, "save_s": save_s, "restore_s": restore_s}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for a block: the backward
+    of an index (the embedding lookup) and of ``repeat_interleave`` (kv
+    heads) add with float atomics on the card, in the order the threads
+    run, so two runs of one step may differ in the last bit; here they
+    add in a fixed order. cuBLAS runs one stream, so its warning about a
+    workspace for many is silenced."""
+    import warnings
+
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*[Dd]eterministic")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def p4l_drive(dev, ctx, whole: bool, tmp: Path) -> dict:
+    """Phase 4l's main path under ``ctx``, its C² launches counted from
+    0: FastRandomHash once (the training batches' c2 order), nothing
+    else. Both sides run under ``deterministic()``, so that "bitwise"
+    compares the paths and not the order of float atomics."""
+    import torch
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    with deterministic():
+        out = {"train": p4l_train(dev, ctx, whole),
+               "serve": p4l_serve(dev, ctx, whole),
+               "checkpoint": p4l_checkpoint(dev, ctx, tmp)}
+    out["launches"] = read_launches()
+    if out["launches"]["frh_minhash"] != 1 or any(
+            v for k, v in out["launches"].items() if k != "frh_minhash"):
+        fail(f"phase 4l launched {out['launches']}; expected "
+             f"FastRandomHash once and nothing else")
+    return out
+
+
+def lm_mesh(dev, smi: str) -> dict:
+    """Phase 4l: the mesh's LM half on one card: a one-rank ``nccl``
+    process group in this process, ``make_host_mesh()``'s (1, 1) mesh,
+    every collective an identity; the sharded path held bitwise to the
+    unsharded one."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import make_ctx
+
+    t0 = time.perf_counter()
+    with process_group(), tempfile.TemporaryDirectory() as tmp:
+        ctx = make_ctx(make_host_mesh(dev))
+        out = p4l_drive(dev, ctx, True, Path(tmp))
+    tr, sv = out["train"], out["serve"]
+    out.update(card=smi, seconds=time.perf_counter() - t0)
+    for side in ("unsharded", "sharded"):
+        t = tr[side]
+        log(f"[lm4l] Llama-3.2-1B train 8 x 512, {side}: losses "
+            + ", ".join(f"{x:.6f}" for x in t["loss"]) + "; step ms "
+            + ", ".join(f"{x:.1f}" for x in t["step_ms"])
+            + f"; peak {t['peak_gb']:.2f} GB; {smi}")
+    for mode in ("wave", "continuous"):
+        for side in ("unsharded", "sharded"):
+            r = sv[mode][side]
+            log(f"[lm4l] OLMoE-1B-7B {mode}, {side}: {r['tokens']} tokens, "
+                f"{r['tokens_per_s']:.1f} tok/s, {r['decode_steps']} decode "
+                f"steps, peak {r['peak_gb']:.2f} GB")
+    ck = out["checkpoint"]
+    log(f"[lm4l] one rank: train steps bitwise ({tr['leaves_bitwise'][0]} "
+        f"leaves), engine tokens and expert choices equal "
+        f"({sv['wave']['moe_calls_equal'][1]} + "
+        f"{sv['continuous']['moe_calls_equal'][1]} MoE calls); "
+        f"restore_sharded {ck['leaves']} leaves bitwise (save "
+        f"{ck['save_s']:.1f} s, restore {ck['restore_s']:.1f} s); launches "
+        f"{out['launches']}; phase 4l: {out['seconds']:.1f} s")
+    return out
+
+
+def lm_mesh_rank(rank: int, world: int, port: int, one_card: str,
+                 out_dir: str) -> None:
+    """One rank of the four-card entry (``lm_mesh_alone``): every mesh of
+    ``P4L_MESHES`` in turn over one ``nccl`` group, each held to the
+    one-card results (``one_card``, a JSON file): losses of step 1 within
+    TRAIN_BF16_REL (bf16 sums in other orders), later steps printed; the
+    engine's requests complete with finite logits (tokens equal to the
+    one card's counted: the expert capacity follows each rank's batch
+    shard); ``restore_sharded`` bitwise. Writes each mesh's figures and
+    this card's peak memory over the training steps and over each serve
+    to ``out_dir``."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.sharding import make_ctx
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    ref = json.loads(Path(one_card).read_text())
+    res = {}
+    with process_group(rank, world, port):
+        for shape in P4L_MESHES:
+            ctx = make_ctx(Mesh(shape, ("data", "model"), dev))
+            t0 = time.perf_counter()
+            tmp = Path(out_dir) / f"ckpt_{shape[0]}x{shape[1]}"
+            out = p4l_drive(dev, ctx, False, tmp)
+            loss, ref_loss = (out["train"]["sharded"]["loss"],
+                              ref["train"]["sharded"]["loss"])
+            if rel_err(loss[0], ref_loss[0]) > TRAIN_BF16_REL:
+                fail(f"phase 4l {shape}: step-1 loss {loss[0]} against "
+                     f"one card's {ref_loss[0]}")
+            same = {mode: sum(out["serve"][mode]["tokens_by_rid"][r]
+                              == ref["serve"][mode]["tokens_by_rid"][str(r)]
+                              for r in out["serve"][mode]["tokens_by_rid"])
+                    for mode in ("wave", "continuous")}
+            res[f"{shape[0]}x{shape[1]}"] = {
+                "loss": loss, "one_card_loss": ref_loss,
+                "step_ms": out["train"]["sharded"]["step_ms"],
+                "train_card_gb": out["train"]["sharded"]["card_gb"],
+                "serve": {m: {k: v for k, v in out["serve"][m][
+                    "sharded"].items()} for m in ("wave", "continuous")},
+                "tokens_equal_one_card": same,
+                "checkpoint": out["checkpoint"],
+                "seconds": time.perf_counter() - t0}
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def lm_mesh_alone() -> dict:
+    """Phase 4l alone, one ``nccl`` process a card: the one-rank run in
+    this process on the first card, then, with more than one card, one
+    process a card over every mesh of ``P4L_MESHES`` held to it, with
+    each card's peak memory. Run as ``PYTHONPATH=src python3 -c "import
+    chip_smoke as c; c.lm_mesh_alone()"`` on a machine with one card, or
+    with four for the meshes."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    log(smi)
+    build.build()
+    one = lm_mesh(dev, smi)
+    n = torch.cuda.device_count()
+    out = {"one_card": one}
+    if n >= 4:
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = Path(tmp) / "one_card.json"
+            ref.write_text(json.dumps(
+                {"train": one["train"], "serve": one["serve"]}))
+            port = free_port()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as c; "
+                 f"c.lm_mesh_rank({r}, 4, {port}, {str(ref)!r}, "
+                 f"{tmp!r})"], cwd=str(ROOT),
+                env=dict(__import__("os").environ,
+                         PYTHONPATH=str(ROOT / "src")))
+                for r in range(4)]
+            codes = [p.wait(timeout=900) for p in procs]
+            if any(codes):
+                fail(f"phase 4l on 4 cards: ranks exited {codes}")
+            ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                     for r in range(4)]
+        out["meshes"] = {}
+        for key in ranks[0]:
+            r0 = ranks[0][key]
+            out["meshes"][key] = {
+                **{k: r0[k] for k in ("loss", "one_card_loss", "step_ms",
+                                      "tokens_equal_one_card",
+                                      "checkpoint", "seconds")},
+                "train_card_gb": [r[key]["train_card_gb"] for r in ranks],
+                "serve_card_gb": [max(r[key]["serve"][m]["card_gb"]
+                                      for m in ("wave", "continuous"))
+                                  for r in ranks],
+                "serve": r0["serve"]}
+            m = out["meshes"][key]
+            log(f"[lm4l] mesh {key} on 4 cards: losses "
+                + ", ".join(f"{x:.6f}" for x in m["loss"]) + " (one card "
+                + ", ".join(f"{x:.6f}" for x in m["one_card_loss"])
+                + "); step ms " + ", ".join(f"{x:.1f}" for x in m["step_ms"])
+                + "; peak GB by card: training " + ", ".join(
+                    f"{x:.2f}" for x in m["train_card_gb"])
+                + ", serving " + ", ".join(
+                    f"{x:.2f}" for x in m["serve_card_gb"])
+                + f"; OLMoE tokens equal to one card's {m['tokens_equal_one_card']}"
+                f"; restore_sharded {m['checkpoint']['leaves']} leaves bitwise"
+                f"; {m['seconds']:.1f} s")
+    log(f"[lm4l] alone: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"lm_mesh": out}, default=lambda o: o.tolist()))
+    return out
+
+
 # -- phase 4j: the LM analysis tools against the card ----------------------
 
 # The decode steps phase 4j counts: each family's batch-8 step as phases
@@ -5856,11 +6321,12 @@ TAIL_KEYS = {"seconds": "s", "quality": "q", "launches": "n", "iters": "it",
 
 
 def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict,
-                 lm4i: dict, lm4j: dict) -> dict:
+                 lm4i: dict, lm4j: dict, lm4l: dict) -> dict:
     """Phase 4f's times, qualities and counts, the cluster-KNN row's times
     (main-path sweep, its launches' device time, the raw sweep), phase
     4g's LM serving figures, phase 4h's OLMoE figures, phase 4i's
-    training figures and phase 4j's agreement and peaks."""
+    training figures, phase 4j's agreement and peaks and phase 4l's
+    step ms and peaks of both sides."""
     def r(x):
         return round(x, 4) if isinstance(x, float) else x
 
@@ -5914,9 +6380,15 @@ def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict,
         "flops_equal": all(r["flops_equal"] for r in lm4j["steps"].values()),
         "train_peak_gb": {k: r(v) for k, v in lm4j["train_peak"].items()},
         "s": r(lm4j["seconds"])}
+    mesh_short = {side: {"step_ms": [r(x) for x in t["step_ms"]],
+                         "peak_gb": r(t["peak_gb"])}
+                  for side, t in lm4l["train"].items()
+                  if side in ("unsharded", "sharded")}
+    mesh_short["bitwise_leaves"] = lm4l["train"]["leaves_bitwise"]
+    mesh_short["s"] = r(lm4l["seconds"])
     return {"phase_4f": out, "lm_serve": lm_short, "olmoe": olmoe_short,
             "goldfinger_knn": ck_short, "lm_train": train_short,
-            "lm_analysis": analysis_short}
+            "lm_analysis": analysis_short, "lm_mesh": mesh_short}
 
 
 def main() -> int:
@@ -6022,6 +6494,8 @@ def main() -> int:
     took("4i")
     lm4j = lm_analysis(dev, smi, lm4i)
     took("4j")
+    lm4l = lm_mesh(dev, smi)
+    took("4l")
     ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
                                 slice10["AM@0.055"].pop("raw_err"))
     # Phase 4f: the raw-mode build's Step-2 sweep (W = 5,355 on AM@0.055),
@@ -6075,6 +6549,11 @@ def main() -> int:
                 mesh["hops"][row["name"]]["one_launch"]}
     mh_row["phase_4k"] = {"examples/train_lm_torch.py --steps 20":
                           ex["train_lm_torch"]["launches"]["frh_minhash"]}
+    # Phase 4l: the one-rank mesh's path (train, serve, restore), its
+    # launches counted from 0: the training batches' c2 order.
+    mh_row["phase_4l"] = {
+        "Llama-3.2-1B train_step(ctx, grad_shardings), c2 batches":
+            lm4l["launches"]["frh_minhash"]}
     rows = [ck_row, hop_row, dma_row, mh_row]
     for name, st in list(run["serves"].items()) + list(
             shard["serves"].items()):
@@ -6100,13 +6579,16 @@ def main() -> int:
     print(json.dumps({"lm_serve_4h": lm4h}, default=lambda o: o.tolist()))
     print(json.dumps({"lm_train": lm4i}, default=lambda o: o.tolist()))
     print(json.dumps({"lm_analysis": lm4j}))
+    print(json.dumps({"lm_mesh": {k: v for k, v in lm4l.items()}},
+                     default=lambda o: o.tolist()))
     print(json.dumps({"phase_4k": {k: v for k, v in mesh.items()
                                    if k != "launches"},
                       "phase_seconds": phase_s},
                      default=lambda o: o.tolist()))
     print(json.dumps({"kernels": rows}))
     print(smi)
-    print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h, lm4i, lm4j),
+    print(json.dumps(tail_summary(slice10, ck_row, lm, lm4h, lm4i, lm4j,
+                                  lm4l),
                      separators=(",", ":"), default=lambda o: o.tolist()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

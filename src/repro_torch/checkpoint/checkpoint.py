@@ -22,11 +22,15 @@ reads the manifest's dtype and gives the bits back as a bf16 tensor.
 (The reference's own ``restore`` returns such a leaf as ``|V2``, which
 JAX refuses: it cannot resume a bf16 leaf; the port can.)
 
-``restore_sharded``, which places leaves under a device mesh, waits for
-the mesh (ROADMAP item 5, rest).
+Elasticity, as the reference's: leaves are stored unsharded, so a
+checkpoint restores under any mesh. ``save(..., shardings=)`` of a
+sharded tree gathers each leaf whole (a collective every rank joins) and
+rank 0 writes; ``restore_sharded`` reads the whole leaves and keeps this
+rank's shard of each under the current mesh, at any world size.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 
 BF16 = "bfloat16"
+# Leaves read or written at once.
+IO_THREADS = 4
 
 
 def _is_node(x) -> bool:
@@ -115,29 +121,72 @@ def _read_leaf(path: Path, dtype: str) -> torch.Tensor:
     if dtype == BF16:
         bits = np.ascontiguousarray(arr).view(np.uint16).astype(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16)
-    return torch.from_numpy(np.array(arr))
+    # np.load reads into an array of its own: no second copy.
+    return torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
 
 
-def save(ckpt_dir: str | os.PathLike, tree: Any, step: int) -> Path:
-    """Atomically write one checkpoint. Returns the committed path."""
+def save(ckpt_dir: str | os.PathLike, tree: Any, step: int,
+         shardings: Any = None) -> Path:
+    """Atomically write one checkpoint. Returns the committed path.
+
+    ``shardings`` (a tree like ``tree`` of ``models.sharding.
+    NamedSharding``, or None where a leaf is whole) says how a sharded
+    tree's leaves are cut: each is gathered whole, one leaf at a time,
+    and only rank 0 of the mesh writes; every rank returns after the
+    commit."""
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
+    leaves = tree_leaves(tree)
+    mesh = None
+    if shardings is not None:
+        plan = _sharding_leaves(tree, shardings)
+        mesh = next((sh.mesh for sh in plan if sh is not None), None)
+    if mesh is not None and mesh.rank != 0:
+        for leaf, sh in zip(leaves, plan):
+            if sh is not None:
+                sh.gather(leaf)
+        torch.distributed.barrier()
+        return final
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    leaves = tree_leaves(tree)
     manifest = {"step": step, "n_leaves": len(leaves),
                 "treedef": treedef_str(tree), "leaves": []}
-    for i, leaf in enumerate(leaves):
-        name = f"leaf_{i:05d}"
-        manifest["leaves"].append(
-            {"name": name, **_write_leaf(tmp / f"{name}.npy", leaf)})
+    # Leaves are written by a few threads (file writes release the GIL),
+    # each gathered (a collective, in leaf order) before its write.
+    with concurrent.futures.ThreadPoolExecutor(IO_THREADS) as pool:
+        writes = []
+        for i, leaf in enumerate(leaves):
+            if mesh is not None and plan[i] is not None:
+                leaf = plan[i].gather(leaf)
+            writes.append(pool.submit(
+                _write_leaf, tmp / f"leaf_{i:05d}.npy", leaf))
+        manifest["leaves"] = [{"name": f"leaf_{i:05d}", **w.result()}
+                              for i, w in enumerate(writes)]
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)  # atomic commit
+    if mesh is not None:
+        torch.distributed.barrier()
     return final
+
+
+def _sharding_leaves(tree: Any, shardings: Any) -> list:
+    """``shardings`` aligned with ``tree``'s leaves (None: whole)."""
+    def walk(node, sh):
+        if node is None:
+            return []
+        if isinstance(node, dict):
+            return [x for k in sorted(node)
+                    for x in walk(node[k], None if sh is None
+                                  else sh.get(k))]
+        if isinstance(node, (tuple, list)):
+            return [x for i, sub in enumerate(node)
+                    for x in walk(sub, None if sh is None else sh[i])]
+        return [sh]
+    return walk(tree, shardings)
 
 
 def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
@@ -164,11 +213,30 @@ def restore(ckpt_dir: str | os.PathLike, like: Any, step: int | None = None):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, target "
             f"structure has {len(like_leaves)}: incompatible trees")
-    leaves = []
     for i, (meta, ref) in enumerate(zip(manifest["leaves"], like_leaves)):
         shape = getattr(ref, "shape", None)
         if shape is not None and list(shape) != meta["shape"]:
             raise ValueError(f"leaf {i} has shape {meta['shape']} in the "
                              f"checkpoint, {list(shape)} in the target")
-        leaves.append(_read_leaf(d / f"{meta['name']}.npy", meta["dtype"]))
+    with concurrent.futures.ThreadPoolExecutor(IO_THREADS) as pool:
+        leaves = list(pool.map(
+            lambda meta: _read_leaf(d / f"{meta['name']}.npy",
+                                    meta["dtype"]), manifest["leaves"]))
     return tree_unflatten(like, leaves), step
+
+
+def restore_sharded(ckpt_dir: str | os.PathLike, like: Any, shardings: Any,
+                    step: int | None = None):
+    """Elastic restore: every leaf read whole and cut to this rank's
+    shard under the *current* mesh (``shardings`` as for ``save``; None
+    keeps a leaf whole), on the mesh's device; the world size may differ
+    from the run that saved. Returns (tree, step)."""
+    tree, step = restore(ckpt_dir, like, step)
+    leaves = tree_leaves(tree)
+    plan = _sharding_leaves(tree, shardings)
+    placed = []
+    for leaf, sh in zip(leaves, plan):
+        if sh is not None:
+            leaf = sh.shard(leaf.to(sh.mesh.device))
+        placed.append(leaf)
+    return tree_unflatten(tree, placed), step

@@ -48,8 +48,8 @@ from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.steps import train_step
 
 ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
-NEEDS_MESH = ("spans many cards; the port runs on one H100 until "
-                   "ROADMAP item 5 (rest), the mesh")
+NEEDS_MESH = ("counts every rank of a many-card mesh, which waits for "
+              "ROADMAP item 5.2, the mesh dry-run")
 # Sizes a fitted cell is counted at: groups (counters affine in them),
 # or sequence positions (quadratic: autograd's per-step ``select``
 # gradients write a whole-sequence buffer each step).
@@ -278,7 +278,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(f"--mesh {args.mesh} {NEEDS_MESH}")
     if args.grad_scatter:
         raise NotImplementedError(
-            f"--grad-scatter shards gradients over a mesh, which "
+            f"--grad-scatter shards gradients over a mesh and "
             f"{NEEDS_MESH}")
 
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]

@@ -1,4 +1,4 @@
-"""One card's published peaks, and the production mesh (counterpart of
+"""One card's published peaks, and the device meshes (counterpart of
 ``repro.launch.mesh``, whose constants are a TPU v5e's).
 
 The port runs on one NVIDIA H100 SXM5 80GB. Its peaks, from NVIDIA's
@@ -6,8 +6,25 @@ H100 Tensor Core GPU data sheet (SXM form factor, dense rates, 700 W),
 are the only hardware constants the roofline and the on-card bounds
 use. f32 products run on the CUDA cores: the port keeps f32 operands in
 full f32, with TF32 off, so TF32's rate is listed for the record only.
+
+A mesh is one process per card (rank), laid out row-major over named
+axes as the reference's ``np.array(jax.devices()).reshape(shape)``:
+``MeshShape`` carries only the axis names and sizes, which is all the
+sharding rules (``models/sharding.py``) read, so they run at production
+sizes with no process group; ``Mesh`` adds the process sub-group of every
+set of axes over an initialised ``torch.distributed`` default group
+(``nccl`` on the cards, ``gloo`` on the CPU) and the plain collectives the
+layers build on. ``make_production_mesh`` and ``make_host_mesh`` are
+functions, so importing this module starts no process group.
 """
 from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Sequence
+
+import torch
 
 # Dense tensor-core rates (FLOP/s; int8: operations/s).
 PEAK_FLOPS_BF16 = 989e12
@@ -25,9 +42,126 @@ PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float16": PEAK_FLOPS_BF16,
               "float32": PEAK_FLOPS_F32}
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 256- and 512-chip meshes have no one-card
-    counterpart."""
-    raise NotImplementedError(
-        f"the production mesh (multi_pod={multi_pod}) spans many cards; "
-        "the port runs on one H100 until ROADMAP item 5 (rest), the mesh")
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Named mesh axes and their sizes, without processes."""
+
+    axis_names: tuple
+    shape: tuple
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape)
+
+
+def _funcol():
+    import torch.distributed._functional_collectives as fc
+    return fc
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return t.wait() if hasattr(t, "wait") else t
+
+
+class Mesh(MeshShape):
+    """A ``MeshShape`` over the ranks of the default process group: rank
+    r sits at ``np.unravel_index(r, shape)``. Every non-empty set of axes
+    gets its process sub-groups (one per coordinate of the other axes),
+    made once here, in the same order on every rank. ``device`` is this
+    rank's card (``cuda:<rank % cards>``) unless the caller names one."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device=None):
+        import torch.distributed as dist
+        super().__init__(tuple(axis_names), tuple(int(s) for s in shape))
+        if not dist.is_initialized():
+            raise RuntimeError("a Mesh spans the ranks of a process group: "
+                               "call torch.distributed.init_process_group "
+                               "first")
+        world = dist.get_world_size()
+        if world != self.n_devices:
+            raise ValueError(f"a {self.shape} mesh needs {self.n_devices} "
+                             f"ranks; the process group has {world}")
+        rank = dist.get_rank()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: pass device='cpu' to "
+                                   "run the mesh on the CPU")
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+        object.__setattr__(self, "device", torch.device(device))
+        object.__setattr__(self, "rank", rank)
+        grid = torch.arange(world).reshape(self.shape)
+        object.__setattr__(self, "coords", tuple(
+            int(c) for c in (grid == rank).nonzero()[0]))
+        groups = {}
+        n = len(self.shape)
+        for k in range(1, n + 1):
+            for axes in itertools.combinations(range(n), k):
+                rest = [d for d in range(n) if d not in axes]
+                # Axes first, row-major: each row is one sub-group.
+                rows = grid.permute(*rest, *axes).reshape(
+                    -1, math.prod(self.shape[d] for d in axes))
+                for row in rows.tolist():
+                    g = dist.new_group(row)
+                    if rank in row:
+                        groups[tuple(self.axis_names[d] for d in axes)] = g
+        object.__setattr__(self, "_groups", groups)
+
+    def _axes(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def group(self, axes):
+        return self._groups[self._axes(axes)]
+
+    def index(self, axes) -> int:
+        """This rank's position along ``axes`` taken together, row-major."""
+        idx = 0
+        for a in self._axes(axes):
+            i = self.axis_names.index(a)
+            idx = idx * self.shape[i] + self.coords[i]
+        return idx
+
+    def count(self, axes) -> int:
+        return math.prod(self.size(a) for a in self._axes(axes))
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0):
+        """The shards of ``t`` along ``axes`` concatenated on ``dim``."""
+        fc = _funcol()
+        ag = getattr(fc, "all_gather_single", None) or fc.all_gather_tensor
+        return _wait(ag(t.contiguous(), dim, self.group(axes)))
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"):
+        fc = _funcol()
+        return _wait(fc.all_reduce(t.contiguous(), op, self.group(axes)))
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0):
+        """The sum of ``t`` over ``axes``, this rank's shard of ``dim``."""
+        fc = _funcol()
+        rs = getattr(fc, "reduce_scatter_single", None) \
+            or fc.reduce_scatter_tensor
+        return _wait(rs(t.contiguous(), "sum", dim, self.group(axes)))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's (16, 16) ("data", "model") mesh, or (2, 16, 16)
+    with "pod" first: one rank a card, so 256 or 512 of them."""
+    import torch.distributed as dist
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != math.prod(shape):
+        raise ValueError(
+            f"the production mesh {shape} (multi_pod={multi_pod}) needs "
+            f"{math.prod(shape)} ranks, one a card; this process group "
+            f"has a world size of {world}")
+    return Mesh(shape, axes, device)
+
+
+def make_host_mesh(device=None) -> Mesh:
+    """A (1, 1) ("data", "model") mesh over a one-rank process group (the
+    axes kept for the rules)."""
+    return Mesh((1, 1), ("data", "model"), device)

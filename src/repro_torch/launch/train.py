@@ -28,9 +28,8 @@ from repro_torch.configs import get_config
 from repro_torch.data.tokens import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models.config import scaled_down
-from repro_torch.models.model import (init_params, opt_state_from_tree,
-                                      opt_state_to_tree, params_from_jax,
-                                      params_to_tree)
+from repro_torch.models.model import (init_params, load_tree_,
+                                      opt_state_to_tree, params_to_tree)
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.steps import train_step
 
@@ -74,16 +73,14 @@ def save_state(ckpt_dir, model, opt_state, step: int):
 def restore_state(ckpt_dir, model, opt_state, step=None) -> int:
     """Load a checkpoint of either package into ``model`` and
     ``opt_state`` (in place, on their device); returns its step."""
-    cfg = model.cfg
     (params, opt), step = ckpt.restore(
         ckpt_dir, state_tree(model, opt_state, "meta"), step)
-    model.load_state_dict(params_from_jax(params, cfg))
-    restored = opt_state_from_tree(opt, cfg)
+    load_tree_(model.state_dict(), params)
     with torch.no_grad():
-        opt_state["step"].copy_(restored["step"])
-        for key in ("m", "v", "err"):
-            for k, t in restored.get(key, {}).items():
-                opt_state[key][k].copy_(t)
+        opt_state["step"].copy_(opt["step"])
+    for key in ("m", "v", "err"):
+        if key in opt:
+            load_tree_(opt_state[key], opt[key])
     return step
 
 

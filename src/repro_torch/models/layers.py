@@ -1,20 +1,31 @@
 """Decoder blocks: RMSNorm, RoPE, GQA/MQA attention (chunked online
 softmax, one-token decode over a ring cache, sliding window), the gated /
 plain MLPs, the sort-based capacity MoE, RG-LRU (RecurrentGemma) and
-mLSTM / sLSTM (xLSTM) (torch port of ``repro.models.layers``; the MoE's
-single-device branch: the expert-parallel ``shard_map`` goes with the
-mesh).
+mLSTM / sLSTM (xLSTM) (torch port of ``repro.models.layers``).
 
 Pure-function style, as the reference: ``init_*`` builds a dict of
 tensors from a ``torch.Generator``, ``apply_*`` consumes a mapping of
 tensors (a dict or the ``nn.ParameterDict`` of ``models/model.py``).
-There is no mesh on one card, so nothing takes the reference's
-``ShardCtx``. Compute dtype is ``cfg.dtype`` (bf16 by default); norms,
+Compute dtype is ``cfg.dtype`` (bf16 by default); norms,
 softmax and the products the reference accumulates into f32
 (``preferred_element_type=jnp.float32``) run in f32: their bf16 operands
 are upcast, which keeps every product exact, and the result stays f32.
 The other products (q/k/v, ``wo``, the MLP) return ``cfg.dtype`` as the
 reference's do. Masked scores are -1e30, not -inf, as in the reference.
+
+Every ``apply_*`` takes the reference's ``ShardCtx`` as ``ctx``; None
+(or a ctx without a mesh) is the one-device path. On a mesh
+(``launch.mesh.Mesh``, one process a rank) a block gets its parameters
+already gathered over the data axes (FSDP, ``models/model.py``) and still
+sharded on "model" as ``models/sharding.py`` says; the activations hold
+this rank's batch rows, whole over "model". Where the reference fixes a
+layout with ``ctx.csp``, the port makes it real with collectives: heads,
+``d_ff``, the RG-LRU width and the experts are split on "model" when the
+axis divides them (column-parallel in, each rank's partial product
+all-reduced over "model" out: the reference's ``"tp_out"``), and a block
+whose dims do not divide runs whole on every model rank. The autograd
+form is Megatron's: ``enter_tp`` is the identity forward and an
+all-reduce of the gradient over "model", ``psum_model`` the converse.
 
 Decode updates the cache tensors it is given IN PLACE (the reference
 returns a new cache); callers that want to keep a cache clone it first.
@@ -24,8 +35,9 @@ them: the MoE ``router``, RG-LRU's ``lam`` and sLSTM's ``r_z``
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +51,144 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MASKED = -1e30  # the reference's mask value and online-softmax start
 # Parameters every block reads in f32, never rounded to the compute dtype.
 F32_PARAMS = ("router", "lam", "r_z")
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over mesh axes; the backward sums the gradient over
+    them and keeps this rank's shard (``reduce``: the ranks hold different
+    rows, as the batch axes do) or only keeps the shard (the ranks ran the
+    same computation on the whole tensor)."""
+
+    @staticmethod
+    def forward(fctx, t, mesh, axes, dim, reduce):
+        fctx.args = (mesh, axes, dim, reduce)
+        return mesh.all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes, dim, reduce = fctx.args
+        if reduce:
+            g = mesh.reduce_scatter(g, axes, dim)
+        else:
+            n = g.shape[dim] // mesh.count(axes)
+            g = g.narrow(dim, mesh.index(axes) * n, n).contiguous()
+        return g, None, None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    """All-reduce (sum) over mesh axes forward, identity backward."""
+
+    @staticmethod
+    def forward(fctx, t, mesh, axes):
+        return mesh.all_reduce(t, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _EnterTp(torch.autograd.Function):
+    """Identity forward, gradient all-reduced over mesh axes backward."""
+
+    @staticmethod
+    def forward(fctx, t, mesh, axes):
+        fctx.args = (mesh, axes)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes = fctx.args
+        return mesh.all_reduce(g, axes), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Optional mesh context; None mesh → the one-device path.
+
+    ``rows_local`` says whether the activations hold this rank's rows of
+    the batch (the batch divides over the batch axes) or all of them
+    (it does not: every batch rank computes every row, as the
+    reference's ``cache_pspecs`` replicate such a batch)."""
+
+    mesh: Any = None
+    batch_axes: tuple = ("data",)
+    model_axis: str = "model"
+    rows_local: bool = True
+
+    @property
+    def model_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size(self.model_axis)
+
+    @property
+    def model_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.index(self.model_axis)
+
+    @property
+    def n_batch(self) -> int:
+        return 1 if self.mesh is None else self.mesh.count(self.batch_axes)
+
+    def splits(self, n: int) -> bool:
+        """True where the model axis divides ``n`` (on a mesh)."""
+        return self.mesh is not None and n % self.model_size == 0
+
+    def for_batch(self, batch: int) -> "ShardCtx":
+        """This ctx for a global batch of ``batch`` rows."""
+        return dataclasses.replace(self,
+                                   rows_local=batch % self.n_batch == 0)
+
+    def row_range(self, batch: int) -> tuple:
+        """(first row, rows) of this rank in a global batch."""
+        if self.mesh is None or batch % self.n_batch:
+            return 0, batch
+        n = batch // self.n_batch
+        return self.mesh.index(self.batch_axes) * n, n
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global tensor (dim 0)."""
+        r0, n = self.row_range(t.shape[0])
+        return t if n == t.shape[0] else t[r0:r0 + n]
+
+    # -- collectives (autograd-aware) --------------------------------------
+
+    def gather(self, t, axes, dim: int, reduce: bool = True):
+        return _Gather.apply(t, self.mesh, axes, dim, reduce)
+
+    def gather_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """All rows from this rank's rows (identity when not split)."""
+        if not self.rows_local:
+            return t
+        if t.is_floating_point():
+            return self.gather(t, self.batch_axes, 0)
+        return self.mesh.all_gather(t, self.batch_axes, 0)
+
+    def fsdp(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """A parameter gathered over every axis but "model" that its spec
+        shards (the data axis), its gradient summed back over them. A
+        gather over one rank is the shard itself: no copy."""
+        for d, entry in enumerate(spec):
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            axes = tuple(a for a in axes if a != self.model_axis)
+            if axes and self.mesh.count(axes) > 1:
+                t = self.gather(t, axes, d)
+        return t
+
+    def whole(self, t: torch.Tensor, full_shape) -> torch.Tensor:
+        """A parameter gathered over "model" on every dim it is split on,
+        for a block every model rank computes whole."""
+        for d, n in enumerate(full_shape):
+            if t.shape[d] != n:
+                t = self.gather(t, self.model_axis, d, reduce=False)
+        return t
+
+    def enter_tp(self, t: torch.Tensor) -> torch.Tensor:
+        return _EnterTp.apply(t, self.mesh, self.model_axis)
+
+    def psum_model(self, t: torch.Tensor) -> torch.Tensor:
+        return _Psum.apply(t, self.mesh, self.model_axis)
+
+
+def _on(ctx) -> bool:
+    return ctx is not None and ctx.mesh is not None
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -182,7 +332,8 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                positions: Optional[torch.Tensor] = None,
                want_cache: bool = False,
                s_alloc: int = 0,
-               chunk_q: int = 512, chunk_kv: int = 1024):
+               chunk_q: int = 512, chunk_kv: int = 1024,
+               ctx: Optional[ShardCtx] = None):
     """GQA attention; returns (y [B, S, D], cache or None).
 
     Train/prefill when ``cache`` is None (``want_cache`` also returns a
@@ -191,22 +342,50 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     {"k", "v", "pos"}, written in place at ``cur_index``: a scalar with
     ``pos`` int32[S_alloc], or per row (continuous batching) with
     ``cur_index`` int[B] and ``pos`` int32[B, S_alloc], so every row masks
-    by its own timeline."""
+    by its own timeline.
+
+    On a mesh the heads split on "model" when it divides them, and so do
+    the kv heads and the cache's; kv heads that do not divide are
+    computed whole on every model rank (``wk``/``wv`` gathered over
+    "model" if their head dim was split) and cached whole, and each rank
+    reads the ones its heads map to. Per-row ``pos`` is whole over the
+    batch (``cache_pspecs``), ``cur_index`` global."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    G = H // KV
     dt = compute_dtype(cfg)
+    on = _on(ctx)
+    par = on and ctx.splits(H)       # heads split on "model"
+    kvp = on and ctx.splits(KV)      # kv heads (and the cache's) too
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+    xi = ctx.enter_tp(x) if par else x
 
-    q = rope(_project(x, p["wq"], dt), positions, cfg.rope_theta)
-    k = rope(_project(x, p["wk"], dt), positions, cfg.rope_theta)
-    v = _project(x, p["wv"], dt)
+    q = rope(_project(xi, p["wq"], dt), positions, cfg.rope_theta)
+    H_l = q.shape[2]                 # this rank's heads
+    kv_idx = None
+    if on and not kvp:
+        # Whole kv heads on every model rank (the reference's replicated
+        # k), then this rank's heads' kv heads.
+        wk = ctx.whole(p["wk"], (D, KV, hd))
+        wv = ctx.whole(p["wv"], (D, KV, hd))
+        k = rope(_project(x, wk, dt), positions, cfg.rope_theta)
+        v = _project(x, wv, dt)
+        if par:
+            k, v = ctx.enter_tp(k), ctx.enter_tp(v)
+        kv_idx = ((ctx.model_rank * H_l if par else 0)
+                  + torch.arange(H_l, device=x.device)) // (H // KV)
+    else:
+        k = rope(_project(xi, p["wk"], dt), positions, cfg.rope_theta)
+        v = _project(xi, p["wv"], dt)
 
     if cache is None:
-        k_rep = k.repeat_interleave(G, dim=2) if G > 1 else k
-        v_rep = v.repeat_interleave(G, dim=2) if G > 1 else v
+        if kv_idx is not None:
+            k_rep, v_rep = k[:, :, kv_idx], v[:, :, kv_idx]
+        else:
+            G = H_l // k.shape[2]
+            k_rep = k.repeat_interleave(G, dim=2) if G > 1 else k
+            v_rep = v.repeat_interleave(G, dim=2) if G > 1 else v
         out = _online_softmax_attn(q, k_rep, v_rep, positions, positions,
                                    window, chunk_q, chunk_kv)
         new_cache = None
@@ -218,12 +397,13 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         ck_, cv_, cpos = cache["k"], cache["v"], cache["pos"]
         if cpos.dim() == 2:
             ci = cur_index.to(x.device, torch.int32)
+            r0 = ctx.row_range(ci.shape[0])[0] if on else 0
             slot = (ci % S_alloc).long()
             rows = torch.arange(B, device=x.device)
-            ck_[rows, slot] = k[:, 0]
-            cv_[rows, slot] = v[:, 0]
-            cpos[rows, slot] = ci
-            kp = cpos[:, None, :]
+            ck_[rows, slot[r0:r0 + B]] = k[:, 0]
+            cv_[rows, slot[r0:r0 + B]] = v[:, 0]
+            cpos[torch.arange(ci.shape[0], device=x.device), slot] = ci
+            kp = cpos[r0:r0 + B, None, :]
         else:
             slot = int(cur_index) % S_alloc
             ck_[:, slot:slot + 1] = k
@@ -234,7 +414,10 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             cpos[slot:slot + 1].fill_(int(cur_index))
             kp = cpos[None, None, :]
         new_cache = cache
-        qg = q.reshape(B, 1, KV, G, hd).float()
+        if kv_idx is not None:
+            ck_, cv_ = ck_[:, :, kv_idx], cv_[:, :, kv_idx]
+        KV_u = ck_.shape[2]
+        qg = q.reshape(B, 1, KV_u, H_l // KV_u, hd).float()
         s = (torch.einsum("bqhgd,bkhd->bqhgk", qg, ck_.float())
              * (1.0 / math.sqrt(hd)))
         qp = positions[:, :, None]
@@ -246,8 +429,10 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = torch.einsum("bqhgk,bkhd->bqhgd", w.to(dt).float(),
                            cv_.float())
 
-    out = out.reshape(B, -1, H * hd).to(dt)
-    y = out @ p["wo"].to(dt).reshape(H * hd, D)
+    out = out.reshape(B, -1, H_l * hd).to(dt)
+    y = out @ p["wo"].to(dt).reshape(H_l * hd, D)
+    if par:
+        y = ctx.psum_model(y)
     return y, new_cache
 
 
@@ -283,10 +468,15 @@ def init_mlp(gen: torch.Generator, cfg, device=None) -> dict:
     }
 
 
-def apply_mlp(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, cfg,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """SwiGLU, GeGLU or plain GELU MLP. GELU is the tanh approximation,
-    as ``jax.nn.gelu``'s default."""
+    as ``jax.nn.gelu``'s default. On a mesh ``d_ff`` splits on "model"
+    when it divides."""
     dt = compute_dtype(cfg)
+    par = _on(ctx) and ctx.splits(cfg.d_ff)
+    if par:
+        x = ctx.enter_tp(x)
     up = x @ p["w_up"].to(dt)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["w_gate"].to(dt)) * up
@@ -297,7 +487,8 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}; "
                          f"supported: {MLP_TYPES}")
-    return h @ p["w_down"].to(dt)
+    y = h @ p["w_down"].to(dt)
+    return ctx.psum_model(y) if par else y
 
 
 # ---------------------------------------------------------------- MoE
@@ -334,20 +525,23 @@ def moe_route(xt: torch.Tensor, router: torch.Tensor, k: int):
     return logits, gate_w, gate_e
 
 
-def _moe_slots(gate_e: torch.Tensor, capacity: int, n_experts: int):
-    """The reference's capacity buckets: the flat expert ids sorted
-    stably, each entry's position in its expert's run from a left
-    searchsorted, slot e·C + position, or the trash slot E·C past
-    capacity. Returns (order, slot in sorted order, valid in sorted
-    order)."""
+def _moe_slots(gate_e: torch.Tensor, capacity: int, n_experts: int,
+               e0: int = 0):
+    """The reference's capacity buckets for experts [e0, e0 + n_experts):
+    the flat expert ids sorted stably, each entry's position in its
+    expert's run from a left searchsorted, slot (e - e0)·C + position,
+    or the trash slot n_experts·C past capacity or outside the range.
+    Returns (order, slot in sorted order, valid in sorted order)."""
     T, k = gate_e.shape
     flat_e = gate_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     run_start = torch.searchsorted(se, se, side="left")
     pos = torch.arange(T * k, device=gate_e.device) - run_start
-    valid = pos < capacity
-    slot = torch.where(valid, se * capacity + pos, n_experts * capacity)
+    local_e = se - e0
+    valid = (local_e >= 0) & (local_e < n_experts) & (pos < capacity)
+    slot = torch.where(valid, local_e * capacity + pos,
+                       n_experts * capacity)
     return order, slot, valid
 
 
@@ -361,8 +555,11 @@ def moe_kept(gate_e: torch.Tensor, capacity: int,
     return kept.reshape(gate_e.shape)
 
 
-def _moe_bucketed(xt, gate_w, gate_e, wg, wu, wd, capacity: int, dt):
-    """Sort-based capacity-bucketed dispatch over all experts: every
+def _moe_bucketed(xt, gate_w, gate_e, wg, wu, wd, capacity: int, dt,
+                  e0: int = 0):
+    """Sort-based capacity-bucketed dispatch over experts [e0, e0 + E)
+    (``wg``'s E; all of them from e0 = 0), the other experts' choices
+    left to the ranks that hold them: every
     expert computes its ``capacity`` rows [E, C, D] (empty rows are zero),
     each row's output is scaled by its gate weight rounded to ``dt``, and
     each token sums its kept choices in ascending expert id, in ``dt`` —
@@ -370,7 +567,7 @@ def _moe_bucketed(xt, gate_w, gate_e, wg, wu, wd, capacity: int, dt):
     gives the same sum on every run (no atomics)."""
     T, k = gate_e.shape
     E = wg.shape[0]
-    order, slot, valid = _moe_slots(gate_e, capacity, E)
+    order, slot, valid = _moe_slots(gate_e, capacity, E, e0)
     tok = order // k
     gw = gate_w.reshape(-1)[order]
     n_slots = E * capacity + 1  # the last one is the trash
@@ -401,18 +598,54 @@ def _moe_bucketed(xt, gate_w, gate_e, wg, wu, wd, capacity: int, dt):
     return out
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg):
-    """Top-k MoE on one device; returns (y [B, S, D], (router logits f32
-    [B·S, E], gate_e [B·S, k])). The capacity comes from this call's
+def apply_moe(p: Params, x: torch.Tensor, cfg,
+              ctx: Optional[ShardCtx] = None):
+    """Top-k MoE; returns (y [B, S, D], (router logits f32 [B·S, E],
+    gate_e [B·S, k])). The capacity comes from this call's
     B·S tokens, pads included, so which tokens are dropped depends on the
-    batch (waves and continuous slots can give different tokens)."""
+    batch (waves and continuous slots can give different tokens).
+
+    On a mesh whose model axis divides the experts (the reference's
+    ``shard_map`` branch), each rank buckets its own experts [e0, e0 +
+    E/m) over the tokens of its batch shard, with the capacity from those
+    tokens, and the per-token partial sums are all-reduced over "model".
+    A batch that does not divide over the batch axes is on every rank
+    whole; it is then cut as the reference's ``shard_map`` cuts the
+    flattened tokens, into n_batch runs of B·S / n_batch, each bucketed
+    alone. Otherwise (experts that do not divide) every rank buckets all
+    B·S tokens, gathered over the batch axes, with the capacity from all
+    of them, as the reference's GSPMD program does, and keeps its rows."""
     B, S, D = x.shape
     dt = compute_dtype(cfg)
     xt = x.reshape(B * S, D)
     logits, gate_w, gate_e = moe_route(xt, p["router"],
                                        cfg.experts_per_token)
-    out = _moe_bucketed(xt, gate_w, gate_e, p["w_gate"], p["w_up"],
-                        p["w_down"], moe_capacity(B * S, cfg), dt)
+    if not _on(ctx):
+        out = _moe_bucketed(xt, gate_w, gate_e, p["w_gate"], p["w_up"],
+                            p["w_down"], moe_capacity(B * S, cfg), dt)
+    elif ctx.splits(cfg.n_experts):
+        T = B * S
+        runs = 1 if ctx.rows_local else ctx.n_batch
+        if T % runs:
+            raise ValueError(f"{T} tokens do not split over the "
+                             f"{runs} batch shards")
+        t_local = T // runs
+        cap = moe_capacity(t_local, cfg)
+        e0 = ctx.model_rank * p["w_gate"].shape[0]
+        xi, gw = ctx.enter_tp(xt), ctx.enter_tp(gate_w)
+        out = torch.cat([
+            _moe_bucketed(xi[i:i + t_local], gw[i:i + t_local],
+                          gate_e[i:i + t_local], p["w_gate"], p["w_up"],
+                          p["w_down"], cap, dt, e0)
+            for i in range(0, T, t_local)])
+        out = ctx.psum_model(out)
+    else:
+        xa, gwa, gea = (ctx.gather_batch(t) for t in (xt, gate_w, gate_e))
+        out = _moe_bucketed(xa, gwa, gea, p["w_gate"], p["w_up"],
+                            p["w_down"], moe_capacity(xa.shape[0], cfg), dt)
+        if ctx.rows_local:
+            n = B * S
+            out = out[ctx.mesh.index(ctx.batch_axes) * n:][:n]
     return out.reshape(B, S, D), (logits, gate_e)
 
 
@@ -469,21 +702,27 @@ def _causal_conv(xc: torch.Tensor, conv_w: torch.Tensor, S: int):
 
 
 def apply_rglru(p: Params, x: torch.Tensor, cfg, *, cache=None,
-                want_cache: bool = False):
+                want_cache: bool = False, ctx: Optional[ShardCtx] = None):
     """Griffin recurrent block: conv1d → RG-LRU, GeGLU-style gating.
     Prefill (``cache`` None) runs the recurrence as a log-depth scan in
     f32 from h = 0, left pads included; ``want_cache`` returns {"h" f32
     [B, w], "conv" [B, cw-1, w]}. Decode (S == 1) steps ``cache`` in
-    place."""
+    place. On a mesh the width w splits on "model" when it divides (the
+    gates read the whole conv output, gathered over "model"), and so do
+    the cache's."""
     B, S, D = x.shape
     dt = compute_dtype(cfg)
     w = cfg.rglru_width or D
     cw = cfg.conv_width
+    par = _on(ctx) and ctx.splits(w)
+    if par:
+        x = ctx.enter_tp(x)
     xb = x @ p["w_x"].to(dt)                             # [B, S, w]
     gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
     conv_w = p["conv_w"].to(dt)
+    w_l = xb.shape[-1]
     if cache is None:
-        pad = torch.zeros((B, cw - 1, w), dtype=xb.dtype, device=x.device)
+        pad = torch.zeros((B, cw - 1, w_l), dtype=xb.dtype, device=x.device)
         xc = torch.cat([pad, xb], dim=1)
         conv = _causal_conv(xc, conv_w, S)
         conv_state = xc[:, S:] if cw > 1 else None
@@ -492,8 +731,9 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg, *, cache=None,
         conv = _causal_conv(hist, conv_w, 1)
         conv_state = hist[:, 1:]
 
-    r = torch.sigmoid((conv @ p["w_rec_gate"].to(dt)).float())
-    i = torch.sigmoid((conv @ p["w_in_gate"].to(dt)).float())
+    conv_all = ctx.gather(conv, ctx.model_axis, 2) if par else conv
+    r = torch.sigmoid((conv_all @ p["w_rec_gate"].to(dt)).float())
+    i = torch.sigmoid((conv_all @ p["w_in_gate"].to(dt)).float())
     lam = p["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
     a = torch.exp(-RGLRU_C * softplus * r)               # [B, S, w]
@@ -510,7 +750,7 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg, *, cache=None,
         cache["conv"].copy_(conv_state.to(dt))
         new_cache = cache
     y = (h.to(dt) * gate) @ p["w_out"].to(dt)
-    return y, new_cache
+    return (ctx.psum_model(y) if par else y), new_cache
 
 
 def init_rglru_cache(cfg, batch: int, device=None) -> dict:
@@ -610,38 +850,66 @@ def _mlstm_scan(q, k, v, i_g, f_g, C, n):
     return torch.stack(hs, dim=1), C, n
 
 
+def _lstm_params(p: Params, cfg, ctx, par: bool, names,
+                 gate_width: int) -> dict:
+    """An xLSTM block's parameters as its compute reads them: as given
+    (one device, or split on "model" by heads), or gathered whole over
+    "model" where the block runs whole on every model rank. The input
+    and forget gates are ``gate_width`` wide."""
+    if not _on(ctx) or par:
+        return {n: p[n] for n in names}
+    D = cfg.d_model
+    w, H, hd = lstm_dims(cfg)
+    full = {"w_up": (D, w), "w_i": (w, gate_width), "w_f": (w, gate_width),
+            "w_down": (w, D), "r_z": (H, hd, hd)}
+    return {n: ctx.whole(p[n], full.get(n, (w, w))) for n in names}
+
+
 def apply_mlstm(p: Params, x: torch.Tensor, cfg, *, cache=None,
-                want_cache: bool = False):
+                want_cache: bool = False, ctx: Optional[ShardCtx] = None):
     """mLSTM block (xLSTM): matrix memory C_t = f C_{t−1} + i v kᵀ per
     head, f32 [B, H, hd, hd]. The keys are f32: the reference divides
     the compute-dtype product by a numpy float64 scalar, which promotes
     it to f32. Prefill with ``cfg.mlstm_chunk`` > 0 and S ≥ the chunk
     runs chunkwise; otherwise (and in decode) one step a token. Decode
-    steps ``cache`` {"C", "n"} in place."""
+    steps ``cache`` {"C", "n"} in place. On a mesh the heads split on
+    "model" when it divides them (the projections read the whole
+    up-projection, gathered over "model"), and so do the cache's."""
     B, S, D = x.shape
     dt = compute_dtype(cfg)
     w, H, hd = lstm_dims(cfg)
+    par = _on(ctx) and ctx.splits(H)
+    p = _lstm_params(p, cfg, ctx, par, ("w_up", "w_q", "w_k", "w_v", "w_i",
+                                         "w_f", "w_o", "w_down"), H)
+    if par:
+        x = ctx.enter_tp(x)
     up = x @ p["w_up"].to(dt)                            # [B, S, w]
-    q = (up @ p["w_q"].to(dt)).reshape(B, S, H, hd)
+    if par:
+        up = ctx.gather(up, ctx.model_axis, 2)
+    H_l = p["w_i"].shape[1]
+    w_l = H_l * hd
+    q = (up @ p["w_q"].to(dt)).reshape(B, S, H_l, hd)
     inv = float(torch.tensor(math.sqrt(hd), dtype=torch.float32))
-    k = (up @ p["w_k"].to(dt)).reshape(B, S, H, hd).float() / inv
-    v = (up @ p["w_v"].to(dt)).reshape(B, S, H, hd)
+    k = (up @ p["w_k"].to(dt)).reshape(B, S, H_l, hd).float() / inv
+    v = (up @ p["w_v"].to(dt)).reshape(B, S, H_l, hd)
     i_g = torch.sigmoid((up @ p["w_i"].to(dt)).float())
     f_g = torch.sigmoid((up @ p["w_f"].to(dt)).float())
     if cache is not None:
         C0, n0 = cache["C"], cache["n"]
     else:
-        C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+        C0 = torch.zeros((B, H_l, hd, hd), dtype=torch.float32,
                          device=x.device)
-        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+        n0 = torch.zeros((B, H_l, hd), dtype=torch.float32, device=x.device)
     if cache is None and cfg.mlstm_chunk and S >= cfg.mlstm_chunk:
         hmat, C, n = _mlstm_chunkwise(q, k, v, i_g, f_g, C0, n0,
                                       cfg.mlstm_chunk)
     else:
         hmat, C, n = _mlstm_scan(q, k, v, i_g, f_g, C0, n0)
-    h = hmat.reshape(B, S, w).to(dt)
+    h = hmat.reshape(B, S, w_l).to(dt)
     o = torch.sigmoid(up @ p["w_o"].to(dt))
     y = (o * h) @ p["w_down"].to(dt)
+    if par:
+        y = ctx.psum_model(y)
     new_cache = None
     if cache is not None:
         cache["C"].copy_(C)
@@ -676,43 +944,75 @@ def init_slstm(gen: torch.Generator, cfg, device=None) -> dict:
 
 
 def apply_slstm(p: Params, x: torch.Tensor, cfg, *, cache=None,
-                want_cache: bool = False):
+                want_cache: bool = False, ctx: Optional[ShardCtx] = None):
     """sLSTM block (xLSTM): scalar memory with head-wise recurrent mixing
     through the f32 ``r_z``, one step a token in f32. Decode steps
-    ``cache`` {"c", "n", "h"} in place."""
+    ``cache`` {"c", "n", "h"} in place. On a mesh the heads split on
+    "model" when it divides them (each rank mixes its heads through its
+    rows of ``r_z``); the cache splits its width w when "model" divides
+    w, so a block run whole with a split cache gathers it and writes
+    back its part."""
     B, S, D = x.shape
     dt = compute_dtype(cfg)
     w, H, hd = lstm_dims(cfg)
+    par = _on(ctx) and ctx.splits(H)
+    p = _lstm_params(p, cfg, ctx, par, ("w_up", "w_z", "w_i", "w_f", "w_o",
+                                         "r_z", "w_down"), w)
+    if par:
+        x = ctx.enter_tp(x)
     up = x @ p["w_up"].to(dt)
+    if par:
+        up = ctx.gather(up, ctx.model_axis, 2)
     z_in = (up @ p["w_z"].to(dt)).float()
     i_in = (up @ p["w_i"].to(dt)).float()
     f_in = (up @ p["w_f"].to(dt)).float()
     o_g = torch.sigmoid(up @ p["w_o"].to(dt))
     r_z = p["r_z"].float()
+    w_l = z_in.shape[-1]
+    H_l = w_l // hd
+    if par:
+        h0 = ctx.model_rank * H_l
+        r_z = ctx.enter_tp(r_z)[h0:h0 + H_l]
+    split_cache = (cache is not None and not par
+                   and cache["c"].shape[-1] != w_l)
     if cache is not None:
         c, n, h = cache["c"], cache["n"], cache["h"]
+        if split_cache:
+            c, n, h = (ctx.mesh.all_gather(t, ctx.model_axis, 1)
+                       for t in (c, n, h))
     else:
-        c = n = h = torch.zeros((B, w), dtype=torch.float32,
+        c = n = h = torch.zeros((B, w_l), dtype=torch.float32,
                                 device=x.device)
+    # The gates do not depend on the state: one sigmoid each for all t.
+    i_all, f_all = torch.sigmoid(i_in), torch.sigmoid(f_in)
     hs = []
     for t in range(S):
-        mix = torch.einsum("bhk,hkj->bhj", h.reshape(B, H, hd), r_z)
-        z = torch.tanh(z_in[:, t] + mix.reshape(B, w))
-        i = torch.sigmoid(i_in[:, t])
-        f = torch.sigmoid(f_in[:, t])
+        mix = torch.einsum("bhk,hkj->bhj", h.reshape(B, H_l, hd), r_z)
+        z = torch.tanh(z_in[:, t] + mix.reshape(B, w_l))
+        i, f = i_all[:, t], f_all[:, t]
         c = f * c + i * z
         n = f * n + i
         h = c / torch.clamp_min(n, 1.0)
         hs.append(h)
     hseq = torch.stack(hs, dim=1).to(dt)
     y = (o_g * hseq) @ p["w_down"].to(dt)
+    if par:
+        y = ctx.psum_model(y)
     new_cache = None
     if cache is not None:
         for key, t in (("c", c), ("n", n), ("h", h)):
+            if split_cache:
+                m = cache[key].shape[-1]
+                t = t[:, ctx.model_rank * m:(ctx.model_rank + 1) * m]
             cache[key].copy_(t)
         new_cache = cache
     elif want_cache:
         new_cache = {"c": c, "n": n, "h": h}
+        if _on(ctx) and not par and ctx.splits(w):
+            m = w // ctx.model_size
+            new_cache = {key: t[:, ctx.model_rank * m:
+                                (ctx.model_rank + 1) * m].clone()
+                         for key, t in new_cache.items()}
     return y, new_cache
 
 

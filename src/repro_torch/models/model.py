@@ -27,6 +27,16 @@ trainable=True)`` makes the parameters trainable; the serving copy stays
 frozen. ``params_to_tree`` / ``params_to_jax`` give the reference's
 group-stacked pytree back, ``opt_state_to_tree`` / ``opt_state_from_tree``
 the optimizer state's, and ``jax_leaves`` the reference's leaves in its order.
+
+On a mesh (``LM(..., ctx=make_ctx(mesh))``, or ``model.shard(ctx)``)
+the state dict holds this rank's shards (``models/sharding.py``'s
+``state_pspecs``, kept in ``specs``); each block gathers its parameters
+over the data axes as it runs (FSDP) and leaves the model axis to the
+layers. ``forward`` takes the global batch and returns this rank's part
+of the result: its batch rows (all of them when the batch does not
+divide over the batch axes), logits split on the vocabulary when "model"
+divides it, the cache as ``cache_pspecs`` shards it, and this rank's
+share of the aux loss (the shares sum to the batch's).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 
 BLOCK_INIT = {
@@ -85,48 +96,64 @@ class Block(nn.Module):
         super().__init__()
         self.norm = _params(norm, trainable)
         self.block = _params(block, trainable)
+        self.specs: dict = {}  # the block parameters' specs on a mesh
 
 
 def moe_aux_loss(logits: torch.Tensor, gate_e: torch.Tensor,
-                 n_experts: int) -> torch.Tensor:
+                 n_experts: int, ctx=None) -> torch.Tensor:
     """Switch-style load-balance loss E · Σ_e f_e·P_e of one MoE call:
     P_e the mean router probability, f_e the share of the choices that
     went to expert e, counted by adding 1/n once a choice as the
-    reference's scatter-add does (equal addends: any order, one sum)."""
+    reference's scatter-add does (equal addends: any order, one sum).
+    With this rank's rows of a batch split over the batch axes, f_e is
+    the whole batch's (summed over the batch axes) and the result this
+    rank's share: P_e is its rows' mean weighted by their part of the
+    batch."""
+    split = L._on(ctx) and ctx.rows_local
+    n = ctx.n_batch if split else 1
     probs = torch.softmax(logits, dim=-1)
     P_e = probs.mean(dim=0)
+    if split:
+        P_e = P_e * (1.0 / n)
     flat = gate_e.reshape(-1)
     f_e = torch.zeros(n_experts, dtype=torch.float32,
                       device=logits.device).index_add_(
-        0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
+        0, flat, torch.full(flat.shape, 1.0 / (flat.numel() * n),
                             dtype=torch.float32, device=logits.device))
+    if split:
+        f_e = ctx.mesh.all_reduce(f_e, ctx.batch_axes)
     return n_experts * torch.sum(f_e * P_e)
 
 
 def _apply_block(kind: str, bp: Block, x: torch.Tensor, cfg: ModelConfig,
-                 *, cache, cur_index, positions, want_cache, s_alloc):
+                 *, cache, cur_index, positions, want_cache, s_alloc,
+                 ctx=None):
     """Pre-norm + residual around one block; returns (x, cache, aux):
     aux is an MoE block's load-balance loss in the training form (no
     cache), else None (prefill and decode callers discard it, and it
-    would cost a step a few kernels an MoE layer)."""
+    would cost a step a few kernels an MoE layer). On a mesh the block's
+    parameters are gathered over the data axes first (FSDP)."""
     h = L.apply_rmsnorm(bp.norm, x)
+    p = bp.block
+    if L._on(ctx):
+        p = {w: ctx.fsdp(t, bp.specs[w]) for w, t in p.items()}
     new_cache = None
     aux = None
     if kind in ATTN_KINDS:
         window = cfg.window if kind == "local_attn" else 0
         y, new_cache = L.apply_attn(
-            bp.block, h, cfg, window=window, cache=cache,
+            p, h, cfg, window=window, cache=cache,
             cur_index=cur_index, positions=positions,
-            want_cache=want_cache, s_alloc=s_alloc)
+            want_cache=want_cache, s_alloc=s_alloc, ctx=ctx)
     elif kind == "mlp":
-        y = L.apply_mlp(bp.block, h, cfg)
+        y = L.apply_mlp(p, h, cfg, ctx)
     elif kind == "moe":
-        y, (logits, gate_e) = L.apply_moe(bp.block, h, cfg)
+        y, (logits, gate_e) = L.apply_moe(p, h, cfg, ctx)
         if cache is None and not want_cache:
-            aux = moe_aux_loss(logits, gate_e, cfg.n_experts)
+            aux = moe_aux_loss(logits, gate_e, cfg.n_experts, ctx)
     elif kind in RECURRENT:
-        y, new_cache = RECURRENT[kind][0](bp.block, h, cfg, cache=cache,
-                                          want_cache=want_cache)
+        y, new_cache = RECURRENT[kind][0](p, h, cfg, cache=cache,
+                                          want_cache=want_cache, ctx=ctx)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     return x + y, new_cache, aux
@@ -147,10 +174,11 @@ class LM(nn.Module):
     already hold the values the forward pass computes with."""
 
     def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor],
-                 trainable: bool = False):
+                 trainable: bool = False, ctx: Optional[L.ShardCtx] = None):
         super().__init__()
         self.cfg = cfg
         self.serving = False
+        self.ctx = ctx if L._on(ctx) else None
         self.embed = nn.Parameter(state["embed"], requires_grad=trainable)
         self.final_norm = _params({"scale": state["final_norm.scale"]},
                                   trainable)
@@ -176,6 +204,48 @@ class LM(nn.Module):
             raise KeyError(f"state dict does not fit {cfg.name}: missing "
                            f"{sorted(have - given)}, unexpected "
                            f"{sorted(given - have)}")
+        self.specs = None
+        if self.ctx is not None:
+            mesh = self.ctx.mesh
+            full = full_shapes(cfg)
+            self.specs = sharding.state_pspecs(cfg, full, mesh)
+            for key, t in state.items():
+                want = _local_shape(full[key].shape, self.specs[key], mesh)
+                if tuple(t.shape) != want:
+                    raise ValueError(
+                        f"{key} is {tuple(t.shape)}; this rank's shard of "
+                        f"{tuple(full[key].shape)} under "
+                        f"{self.specs[key]} is {want}")
+            for g, group in enumerate(self.layers):
+                for name, blk in group.items():
+                    prefix = f"layers.{g}.{name}.block."
+                    blk.specs = {w: self.specs[prefix + w]
+                                 for w in blk.block}
+
+    @property
+    def trainable(self) -> bool:
+        return self.embed.requires_grad
+
+    def shard(self, ctx: L.ShardCtx) -> "LM":
+        """This (whole) model's shards under ``ctx``'s mesh, on the
+        mesh's device: a new ``LM`` for this rank."""
+        if self.ctx is not None:
+            raise ValueError("the model is sharded already")
+        specs = sharding.state_pspecs(self.cfg, self.state_dict(), ctx.mesh)
+        state = sharding.shard_state(
+            {k: t.detach() for k, t in self.state_dict().items()}, specs,
+            ctx.mesh)
+        lm = LM(self.cfg, state, self.trainable, ctx=ctx)
+        lm.serving = self.serving
+        return lm
+
+    def full_state(self) -> dict:
+        """The whole state dict, gathered from every rank's shards
+        (collective on a mesh)."""
+        state = {k: t.detach() for k, t in self.state_dict().items()}
+        if self.ctx is None:
+            return state
+        return sharding.gather_state(state, self.specs, self.ctx.mesh)
 
     @property
     def device(self) -> torch.device:
@@ -208,9 +278,14 @@ class LM(nn.Module):
                 state[key] = t.to(dt).float()
             else:
                 state[key] = t.to(dt)
-        lm = LM(self.cfg, state)
+        lm = LM(self.cfg, state, ctx=self.ctx)
         lm.serving = True
         return lm
+
+    def _param(self, key: str) -> torch.Tensor:
+        """A top-level parameter gathered over the data axes (FSDP)."""
+        t = getattr(self, key)
+        return t if self.ctx is None else self.ctx.fsdp(t, self.specs[key])
 
     def embed_inputs(self, tokens: Optional[torch.Tensor] = None,
                      input_embeds: Optional[torch.Tensor] = None):
@@ -220,6 +295,10 @@ class LM(nn.Module):
         dt = L.compute_dtype(cfg)
         if input_embeds is not None:
             x = input_embeds.to(dt)
+        elif self.ctx is not None:
+            table = self.ctx.whole(self._param("embed"),
+                                   (cfg.vocab_size, cfg.d_model))
+            x = table[tokens].to(dt)
         else:
             x = self.embed[tokens].to(dt)
         if cfg.scale_embed:
@@ -245,43 +324,82 @@ class LM(nn.Module):
         blocks' load-balance losses."""
         cfg = self.cfg
         dt = L.compute_dtype(cfg)
-        x = self.embed_inputs(tokens, input_embeds)
-        B, S, _ = x.shape
+        ctx = self._batch_ctx(tokens, input_embeds)
+        inp = tokens if tokens is not None else input_embeds
+        B, S = inp.shape[:2]
         if positions is None:
             if cur_index is None:
                 positions = torch.arange(S, dtype=torch.int32,
-                                         device=x.device).expand(B, S)
+                                         device=inp.device).expand(B, S)
             elif torch.is_tensor(cur_index) and cur_index.dim() == 1:
-                positions = cur_index.to(x.device, torch.int32)[
+                positions = cur_index.to(inp.device, torch.int32)[
                     :, None].expand(B, S)
             else:  # a scalar: filled on the device, no host-to-device copy
                 positions = torch.full((B, S), int(cur_index),
-                                       dtype=torch.int32, device=x.device)
+                                       dtype=torch.int32, device=inp.device)
+        if ctx is not None:
+            tokens, input_embeds, positions = (
+                None if t is None else ctx.rows(t)
+                for t in (tokens, input_embeds, positions))
+        x = self.embed_inputs(tokens, input_embeds)
         x, new_cache, aux = self._trunk(
             x, positions, cache=cache, cur_index=cur_index,
-            want_cache=want_cache, s_alloc=s_alloc, remat=remat)
+            want_cache=want_cache, s_alloc=s_alloc, remat=remat, ctx=ctx)
         x = L.apply_rmsnorm(self.final_norm, x)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        return self.head_logits(x), new_cache, aux
+
+    def _batch_ctx(self, tokens, input_embeds):
+        if self.ctx is None:
+            return None
+        inp = tokens if tokens is not None else input_embeds
+        return self.ctx.for_batch(inp.shape[0])
+
+    def head_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the final-norm output ``x``; on a mesh split on
+        the vocabulary when "model" divides it."""
+        cfg = self.cfg
+        head = (self._param("embed").T if cfg.tie_embeddings
+                else self._param("lm_head"))
         if not self.serving:
-            head = head.to(dt)
-        logits = x.float() @ head.float()
-        return logits, new_cache, aux
+            head = head.to(L.compute_dtype(cfg))
+        if self.ctx is not None and self.ctx.splits(cfg.vocab_size):
+            x = self.ctx.enter_tp(x)
+        return x.float() @ head.float()
+
+    def gather_logits(self, logits: torch.Tensor,
+                      batch: int) -> torch.Tensor:
+        """The whole ``batch``'s whole-vocabulary logits from this rank's
+        part (no gradient; on one device, ``logits`` itself)."""
+        ctx = self.ctx
+        if ctx is None:
+            return logits
+        if ctx.splits(self.cfg.vocab_size):
+            logits = ctx.mesh.all_gather(logits, ctx.model_axis,
+                                         logits.dim() - 1)
+        if ctx.for_batch(batch).rows_local:
+            logits = ctx.mesh.all_gather(logits, ctx.batch_axes, 0)
+        return logits
 
     def forward_trunk(self, tokens: Optional[torch.Tensor] = None,
                       input_embeds: Optional[torch.Tensor] = None,
                       remat=False):
         """Forward without the unembedding head: (x after the final norm
         [B, S, D] in the compute dtype, aux), for the chunked loss."""
+        ctx = self._batch_ctx(tokens, input_embeds)
+        if ctx is not None:
+            tokens, input_embeds = (None if t is None else ctx.rows(t)
+                                    for t in (tokens, input_embeds))
         x = self.embed_inputs(tokens, input_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
         x, _, aux = self._trunk(x, positions, cache=None, cur_index=None,
-                                want_cache=False, s_alloc=0, remat=remat)
+                                want_cache=False, s_alloc=0, remat=remat,
+                                ctx=ctx)
         return L.apply_rmsnorm(self.final_norm, x), aux
 
     def _trunk(self, x, positions, *, cache, cur_index, want_cache,
-               s_alloc, remat):
+               s_alloc, remat, ctx=None):
         """The groups in order; returns (x, cache, aux). Under ``remat``
         (training: no cache) each group runs under
         ``torch.utils.checkpoint`` and only its input is kept for the
@@ -300,7 +418,8 @@ class LM(nn.Module):
             def run(x):
                 x, _, a = _apply_block(
                     kind, group[name], x, cfg, cache=None, cur_index=None,
-                    positions=positions, want_cache=False, s_alloc=0)
+                    positions=positions, want_cache=False, s_alloc=0,
+                    ctx=ctx)
                 return x, a
             return run
 
@@ -331,7 +450,7 @@ class LM(nn.Module):
                 x, nc, a = _apply_block(
                     kind, group[name], x, cfg, cache=bc, cur_index=cur_index,
                     positions=positions, want_cache=want_cache,
-                    s_alloc=s_alloc)
+                    s_alloc=s_alloc, ctx=ctx)
                 auxes.append(a)
                 if want_cache and nc is not None:
                     built.setdefault(name, []).append(nc)
@@ -373,9 +492,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return LM(cfg, state, trainable)
 
 
+def full_shapes(cfg: ModelConfig) -> dict:
+    """The whole state dict's keys and shapes, as meta tensors."""
+    return init_params(cfg, torch.Generator(), device="meta").state_dict()
+
+
+def _local_shape(shape, spec, mesh) -> tuple:
+    return tuple(n // mesh.count(sharding.spec_axes(e)) if e else n
+                 for n, e in zip(shape, spec))
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_alloc: int,
-               device=None) -> dict:
-    """Decode cache, leaves stacked over groups: [n_groups, ...]."""
+               device=None, ctx: Optional[L.ShardCtx] = None) -> dict:
+    """Decode cache, leaves stacked over groups: [n_groups, ...]. On a
+    mesh, this rank's shards as ``cache_pspecs`` cut them."""
+    if L._on(ctx):
+        meta = init_cache(cfg, batch, s_alloc, device="meta")
+        specs = sharding.cache_pspecs(cfg, meta, ctx.mesh)
+        return {name: {key: torch.full(
+            _local_shape(leaf.shape, specs[name][key], ctx.mesh),
+            -1 if key == "pos" else 0, dtype=leaf.dtype, device=device)
+            for key, leaf in sub.items()} for name, sub in meta.items()}
     cache = {}
     for name, kind in _flat_pattern(cfg):
         if kind in ATTN_KINDS:
@@ -445,6 +582,16 @@ def params_to_tree(state: Mapping[str, torch.Tensor], cfg: ModelConfig,
     def to(t):
         return t.detach().to(device) if device is not None else t.detach()
 
+    def stack(ts):
+        # Each group copied once, straight into its slice.
+        out = torch.empty((len(ts),) + tuple(ts[0].shape),
+                          dtype=ts[0].dtype,
+                          device=device if device is not None
+                          else ts[0].device)
+        for g, t in enumerate(ts):
+            out[g].copy_(t.detach())
+        return out
+
     tree: dict = {"embed": to(state["embed"]),
                   "final_norm": {"scale": to(state["final_norm.scale"])}}
     if not cfg.tie_embeddings:
@@ -455,8 +602,8 @@ def params_to_tree(state: Mapping[str, torch.Tensor], cfg: ModelConfig,
             first = f"layers.0.{name}.{part}."
             leaves = [k[len(first):] for k in state if k.startswith(first)]
             groups.setdefault(name, {})[part] = {
-                w: torch.stack([to(state[f"layers.{g}.{name}.{part}.{w}"])
-                                for g in range(cfg.n_groups)])
+                w: stack([state[f"layers.{g}.{name}.{part}.{w}"]
+                          for g in range(cfg.n_groups)])
                 for w in leaves}
     tree["groups"] = groups
     return tree
@@ -515,6 +662,22 @@ def opt_state_from_tree(tree: Mapping[str, Any], cfg: ModelConfig) -> dict:
         if key in tree:
             out[key] = moments(tree[key])
     return out
+
+
+def load_tree_(state: Mapping[str, torch.Tensor], tree: Mapping[str, Any]):
+    """Copy a group-stacked tree (the reference's layout, tensor leaves)
+    into the tensors of a state dict (or moments keyed like it) in
+    place, each group's slice once, cast to the tensor's dtype: what
+    ``params_from_jax`` and ``load_state_dict`` do, without the host
+    copies between."""
+    with torch.no_grad():
+        for key, t in state.items():
+            path = _jax_path(key)
+            node = tree
+            for p in path[:4] if path[0] == "groups" else path:
+                node = node[p]
+            src = node[path[4]] if path[0] == "groups" else node
+            t.copy_(src if torch.is_tensor(src) else _tensor(src))
 
 
 def _jax_path(key: str) -> tuple:

@@ -27,6 +27,12 @@ The reference's jitted programs are plain calls here, under
 ``torch.inference_mode``. The engine serves ``model.serving_copy()``,
 whose weights are cast once to the compute dtype (the values the
 reference casts to on every call).
+
+``Engine(model, sc, ctx=make_ctx(mesh))`` serves on a mesh, as the
+reference's ``Engine(..., ctx=)``: every rank runs the engine on the same
+requests (a whole model is cut to this rank's shards first), the caches
+are sharded as ``cache_pspecs`` says, and each step's last logits are
+gathered whole before the argmax, so every rank emits the same tokens.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ class Request:
         return self.t_done - self.t_submit
 
 
-def _adopt_cache(cache: dict, fresh: dict, slot: int) -> dict:
+def _adopt_cache(cache: dict, fresh: dict, slot: int, ctx=None,
+                 slots: int = 0) -> dict:
     """Copy a batch-1 prefill cache into row ``slot`` of the shared
     continuous decode cache, in place.
 
@@ -71,13 +78,20 @@ def _adopt_cache(cache: dict, fresh: dict, slot: int) -> dict:
     ``pos`` leaf has no batch axis in the prefill cache ([n_groups,
     alloc]) and gains one here. Every leaf of the row is overwritten, the
     recurrent states whole, so nothing of the slot's previous request
-    survives."""
+    survives. On a mesh a leaf split over the batch axes (``slots`` rows
+    in all) holds the row on one batch rank only; ``pos`` is whole."""
     for name, sub in cache.items():
         for key, big in sub.items():
             small = fresh[name][key]
+            row = slot
             if key == "pos":
                 small = small[:, None, :]
-            big[:, slot:slot + 1] = small
+            elif ctx is not None and big.shape[1] != slots:
+                r0, n = ctx.row_range(slots)
+                if not r0 <= slot < r0 + n:
+                    continue
+                row = slot - r0
+            big[:, row:row + 1] = small
     return cache
 
 
@@ -92,8 +106,14 @@ class ServeConfig:
 
 
 class Engine:
-    def __init__(self, model: LM, sc: ServeConfig):
+    def __init__(self, model: LM, sc: ServeConfig, ctx=None):
+        if ctx is not None and ctx.mesh is not None:
+            if model.ctx is None:
+                model = model.shard(ctx)
+            elif model.ctx != ctx:
+                raise ValueError("the model is sharded under another mesh")
         self.model = model.serving_copy()
+        self.ctx = self.model.ctx
         self.cfg = model.cfg
         self.sc = sc
         self.device = model.device
@@ -103,11 +123,14 @@ class Engine:
         self.n_prefills = 0       # prefill calls
 
     def _prefill(self, toks: torch.Tensor):
-        return prefill_step(self.model, toks,
-                            s_alloc=self.sc.max_prompt + self.sc.max_new)
+        """(the last position's whole logits [B, V], cache)."""
+        logits, cache = prefill_step(
+            self.model, toks, s_alloc=self.sc.max_prompt + self.sc.max_new)
+        return self.model.gather_logits(logits[:, -1], toks.shape[0]), cache
 
     def _decode(self, cache: dict, tok: torch.Tensor, cur_index):
-        return decode_step(self.model, cache, tok, cur_index)
+        logits, cache = decode_step(self.model, cache, tok, cur_index)
+        return self.model.gather_logits(logits[:, -1], tok.shape[0]), cache
 
     def submit(self, req: Request):
         req.t_submit = time.perf_counter()
@@ -136,7 +159,7 @@ class Engine:
         S = sc.max_prompt
         logits, cache = self._prefill(self._tokens([r.prompt for r in wave]))
         self.n_prefills += 1
-        tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        tok = torch.argmax(logits[:, None], dim=-1).to(torch.int32)
         max_new = min(sc.max_new, max(r.max_new for r in wave))
         outs = [tok[:, 0].cpu().numpy()]
         # A row is done once it has emitted its eos_id or its own max_new
@@ -149,7 +172,7 @@ class Engine:
                 break
             logits, cache = self._decode(cache, tok, S + i)
             self.n_decode_steps += 1
-            tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+            tok = torch.argmax(logits[:, None], dim=-1).to(torch.int32)
             outs.append(tok[:, 0].cpu().numpy())
             row_done |= (outs[-1] == eos_ids) & (eos_ids >= 0)
             row_done |= max_per_row <= len(outs)
@@ -177,7 +200,8 @@ class Engine:
         leaves widen from [n_groups, alloc] to [n_groups, slots, alloc];
         the recurrent entries have no positions."""
         cache = init_cache(self.cfg, slots,
-                           self.sc.max_prompt + self.sc.max_new, self.device)
+                           self.sc.max_prompt + self.sc.max_new, self.device,
+                           self.ctx)
         for sub in cache.values():
             if "pos" not in sub:
                 continue
@@ -229,8 +253,11 @@ class Engine:
                 for slot, r in admitted:
                     logits, c1 = self._prefill(self._tokens([r.prompt]))
                     self.n_prefills += 1
-                    _adopt_cache(cache, c1, slot)
-                    first = int(torch.argmax(logits[0, -1]))
+                    if self.ctx is None:
+                        _adopt_cache(cache, c1, slot)
+                    else:
+                        _adopt_cache(cache, c1, slot, self.ctx, slots)
+                    first = int(torch.argmax(logits[0]))
                     tok[slot, 0] = first
                     pos[slot] = sc.max_prompt
                     if emit(slot, first):
@@ -243,7 +270,7 @@ class Engine:
                 torch.from_numpy(pos).to(self.device))
             self.n_decode_steps += 1
             n_ticks += 1
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(
+            nxt = torch.argmax(logits, dim=-1).to(
                 torch.int32).cpu().numpy()
             tok = nxt[:, None].copy()
             for slot in np.flatnonzero(active):

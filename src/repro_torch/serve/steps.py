@@ -1,6 +1,7 @@
 """Serving steps: prefill (context → cache + first logits) and decode
 (one token against the cache), and host-driven greedy decoding (torch
-port of ``repro.serve.steps``)."""
+port of ``repro.serve.steps``). On a mesh the steps return this rank's
+part of the logits (``LM.forward``) and the cache's shards."""
 from __future__ import annotations
 
 import torch
@@ -37,10 +38,12 @@ def greedy_generate(model: LM, prompt: torch.Tensor, max_new: int,
     alloc = s_alloc or (S + max_new)
     logits, cache = prefill_step(model, prompt, s_alloc=alloc)
     # argmax returns the first maximum, as jnp.argmax does.
-    tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+    tok = torch.argmax(model.gather_logits(logits[:, -1:], B),
+                       dim=-1).to(torch.int32)
     out = [tok]
     for i in range(max_new - 1):
         logits, cache = decode_step(model, cache, tok, S + i)
-        tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        tok = torch.argmax(model.gather_logits(logits[:, -1:], B),
+                           dim=-1).to(torch.int32)
         out.append(tok)
     return torch.cat(out, dim=1)

@@ -360,13 +360,17 @@ def test_roofline_rows():
 
 
 def test_mesh_constants_and_flags_that_need_a_mesh():
+    """``make_production_mesh`` needs 256 (512) ranks and names the
+    world size it has; the dry-run's mesh flags wait for item 5.2."""
     assert (mesh.PEAK_FLOPS_BF16, mesh.PEAK_FLOPS_F32, mesh.PEAK_FLOPS_TF32,
             mesh.HBM_BW, mesh.HBM_BYTES) == (989e12, 67e12, 495e12, 3.35e12,
                                              80e9)
-    for call in (lambda: mesh.make_production_mesh(),
-                 lambda: dryrun.main(["--mesh", "multipod"]),
+    with pytest.raises(ValueError, match="needs 256 ranks.*world size of 1"):
+        mesh.make_production_mesh()
+    for call in (lambda: dryrun.main(["--mesh", "multipod"]),
                  lambda: dryrun.main(["--grad-scatter"])):
-        with pytest.raises(NotImplementedError, match=r"item 5 \(rest\)"):
+        with pytest.raises(NotImplementedError,
+                           match=r"item 5\.2, the mesh dry-run"):
             call()
 
 

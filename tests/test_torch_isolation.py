@@ -51,13 +51,14 @@ def test_repro_torch_imports_neither_jax_nor_repro():
     seen, failed, leaked = json.loads(out.stdout.strip().splitlines()[-1])
     assert failed == [], failed
     assert leaked == [], leaked
-    # Every module of the port was walked, the LM stack's, training's and
-    # the analysis tools' included.
+    # Every module of the port was walked, the LM stack's (its sharding
+    # rules included), training's and the analysis tools' included.
     on_disk = {p.relative_to(SRC).with_suffix("").as_posix()
                .replace("/", ".").removesuffix(".__init__")
                for p in (SRC / "repro_torch").rglob("*.py")}
     assert set(seen) | {"repro_torch"} == on_disk
-    for name in ("repro_torch.models.model", "repro_torch.configs.shapes",
+    for name in ("repro_torch.models.model", "repro_torch.models.sharding",
+                 "repro_torch.configs.shapes",
                  "repro_torch.serve.engine", "repro_torch.launch.serve",
                  "repro_torch.train.optimizer", "repro_torch.train.steps",
                  "repro_torch.train.router_stats",

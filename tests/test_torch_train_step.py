@@ -181,7 +181,15 @@ def test_train_step_matches_reference(models, arch, nmb, remat, chunk):
     _check_step(pc, lm, opt, metrics, r_new, r_opt, r_metrics, oc)
 
 
-def test_make_train_step_and_grad_shardings(models):
+def test_make_train_step_and_grad_shardings(models, tmp_path):
+    """``grad_shardings`` on a one-rank mesh (``gloo``, this process):
+    the parameters' shardings give the unsharded step bitwise; another
+    layout, or shardings without a mesh, raise."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import make_ctx, to_shardings
+
     rc, pc, _, state = models["llama3_2-1b"]
     _, pb = _tokens(rc)
     lm = _lm(pc, state)
@@ -189,8 +197,26 @@ def test_make_train_step_and_grad_shardings(models):
     step = make_train_step(OptConfig(), n_microbatches=2, remat="save_tp")
     _, _, metrics = step(lm, opt, pb)
     assert int(metrics["step"]) == 1 and torch.isfinite(metrics["loss"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train_step(lm, opt, pb, OptConfig(), grad_shardings={})
+    with pytest.raises(ValueError, match="needs a model sharded"):
+        train_step(_lm(pc, state), opt, pb, OptConfig(), grad_shardings={})
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        ctx = make_ctx(make_host_mesh("cpu"))
+        sharded = _lm(pc, state).shard(ctx)
+        opt2 = init_opt_state(dict(sharded.named_parameters()), OptConfig())
+        shardings = to_shardings(sharded.specs, ctx.mesh)
+        _, _, m2 = step(sharded, opt2, pb, ctx=ctx, grad_shardings=shardings)
+        for k in ("loss", "ce", "grad_norm"):
+            assert torch.equal(m2[k], metrics[k]), k
+        for k, p in lm.state_dict().items():
+            assert torch.equal(sharded.state_dict()[k], p), k
+            assert torch.equal(opt2["m"][k], opt["m"][k]), k
+        wrong = dict(shardings, embed=(None, None))
+        with pytest.raises(ValueError, match="parameter's spec"):
+            train_step(sharded, opt2, pb, OptConfig(), grad_shardings=wrong)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ["llama3_2-1b", "olmoe-1b-7b"])
