@@ -246,7 +246,11 @@ Phases, each fatal on failure:
    the card and counted there by the same ``OpCounter``: FLOPs by dtype
    equal as integers, with kernels, eager bytes and peaks beside; (b) the
    dry-run's predicted peak of the train step within 25% of phase 4i's
-   measured peak;
+   measured peak; (c) the mesh dry-run (``launch/dryrun --mesh``'s
+   ``fake_world``, meta tensors) of phase 4l's train step per card on
+   (1, 1), (2, 2), (1, 4) and (4, 1), counted on the CPU in a subprocess
+   started before phase 4g: each mesh's predicted per-card peak and
+   collective bytes by kind, logged;
 4l. the mesh's LM half (run after phase 4j; FastRandomHash is the one C²
    kernel on the path) — a one-rank ``nccl`` process group in this
    process and ``make_host_mesh()``'s (1, 1) ("data", "model") mesh,
@@ -262,10 +266,16 @@ Phases, each fatal on failure:
    branch at model size 1) and through the unsharded engine: tokens rid
    by rid and every MoE call's expert choices equal, every logit finite;
    (c) a 2-layer Llama-3.2-1B checkpoint (params and AdamW state) saved
-   whole and read back by ``restore_sharded``, every leaf bitwise.
+   whole and read back by ``restore_sharded``, every leaf bitwise; (d)
+   one sharded train step counted on the card by ``OpCounter`` against
+   phase 4j's (1, 1) prediction: FLOPs by dtype equal as integers, no
+   collective bytes on either side.
    ``lm_mesh_alone`` runs the phase alone and, on four cards, one process
    a card over meshes (2, 2), (1, 4) and (4, 1), held to the one-card
-   results, with each card's peak memory;
+   results, with each card's peak memory; each rank also counts one
+   train step on its card, held to the mesh dry-run's prediction for its
+   mesh (FLOPs by dtype and collective bytes by kind equal as integers,
+   the card's training peak within 25% of the predicted one);
 5. timing — each kernel at the main path's shapes (all of Step 2's
    cluster batches; the first hop of a 256-query wave, fused and DMA;
    FastRandomHash of ml1M@1.0), held bitwise against its plain version
@@ -313,6 +323,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3951,16 +3962,23 @@ def watch_logits(engine) -> "torch.Tensor":
     import torch
 
     bad = torch.zeros((), dtype=torch.int64, device=engine.device)
+    # The wrappers reach the engine through a weak reference: one to its
+    # bound method would tie it into a reference cycle, and its model
+    # would outlive the caller's last reference until the garbage
+    # collector ran.
+    ref = weakref.ref(engine)
 
-    def wrap(fn):
+    def wrap(name):
+        method = getattr(type(engine), name)
+
         def call(*args):
-            logits, cache = fn(*args)
+            logits, cache = method(ref(), *args)
             bad.add_((~torch.isfinite(logits)).sum())
             return logits, cache
         return call
 
-    engine._prefill = wrap(engine._prefill)
-    engine._decode = wrap(engine._decode)
+    engine._prefill = wrap("_prefill")
+    engine._decode = wrap("_decode")
     return bad
 
 
@@ -4404,8 +4422,6 @@ def phase4h_serves(arch: str):
     budget, every logit the engine reads is finite, no C² kernel
     launches. Returns (figures, the continuous engine, whose serving
     model (d) times)."""
-    import gc
-
     import numpy as np
     import torch
 
@@ -4417,10 +4433,7 @@ def phase4h_serves(arch: str):
     engine = None
     for label, extra in (("wave", []),
                          ("continuous", ["--continuous", "--slots", "8"])):
-        # ``watch_logits`` ties the engine into a reference cycle: collect
-        # it, so the next build does not count the last serving copy.
         engine = None
-        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         engine = serve_cli.build(argv + extra)
@@ -4729,8 +4742,6 @@ def lm_moe_recurrent(dev, smi: str) -> dict:
     """Phase 4h: the LM stack's serving path for the MoE and recurrent
     families on the card, one model at a time (each freed before the
     next loads)."""
-    import gc
-
     import torch
 
     t0 = time.perf_counter()
@@ -4743,7 +4754,6 @@ def lm_moe_recurrent(dev, smi: str) -> dict:
         numbers = phase4h_numbers(engine.model, serves)
         numbers["serves"] = serves
         del engine
-        gc.collect()
         torch.cuda.empty_cache()
         numbers["card_vs_cpu"] = phase4h_card_vs_cpu(dev, arch)
         numbers["seconds"] = time.perf_counter() - ta
@@ -5607,11 +5617,44 @@ def p4l_drive(dev, ctx, whole: bool, tmp: Path) -> dict:
     return out
 
 
-def lm_mesh(dev, smi: str) -> dict:
+def p4l_count(dev, ctx) -> dict:
+    """One train step of phase 4l's (Llama-3.2-1B, 8 x 512,
+    ``grad_shardings`` the parameters') built on this rank's card under
+    ``ctx`` (random weights, seed 0, a zero batch: a dense step's counts
+    do not depend on the data) and counted there by ``OpCounter``: FLOPs
+    by dtype and the collectives by kind and axis set."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cell = dryrun.build_cell("llama3.2-1b", "p4l", cfg=get_config(
+        "llama3.2-1b"), shape=ShapeSpec(*P4L_TRAIN_SHAPE), mesh=ctx.mesh)
+    counts = dryrun.count_cell(cell)
+    del cell
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return {"flops_by_dtype": counts.flops,
+            "collectives": counts.collectives(),
+            "seconds": time.perf_counter() - t0}
+
+
+def same_as_predicted(counted: dict, predicted: dict) -> bool:
+    """FLOPs by dtype and collective bytes by kind equal as integers."""
+    return (counted["flops_by_dtype"] == predicted["flops_by_dtype"]
+            and counted["collectives"]["per_op_bytes"]
+            == predicted["collectives"]["per_op_bytes"])
+
+
+def lm_mesh(dev, smi: str, predicted: dict) -> dict:
     """Phase 4l: the mesh's LM half on one card: a one-rank ``nccl``
     process group in this process, ``make_host_mesh()``'s (1, 1) mesh,
     every collective an identity; the sharded path held bitwise to the
-    unsharded one."""
+    unsharded one, and one sharded train step counted on the card against
+    the mesh dry-run's (1, 1) count (``predicted``, phase 4j's): FLOPs by
+    dtype equal as integers, no collective bytes on either side."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.sharding import make_ctx
 
@@ -5619,6 +5662,19 @@ def lm_mesh(dev, smi: str) -> dict:
     with process_group(), tempfile.TemporaryDirectory() as tmp:
         ctx = make_ctx(make_host_mesh(dev))
         out = p4l_drive(dev, ctx, True, Path(tmp))
+        out["counted"] = p4l_count(dev, ctx)
+    c = out["counted"]
+    log(f"[lm4l] one rank: a sharded train step counted on the card: FLOPs "
+        f"by dtype {c['flops_by_dtype']}, collective bytes "
+        f"{c['collectives']['total_bytes_per_device']}; the (1, 1) mesh "
+        f"dry-run {predicted['flops_by_dtype']}, collective bytes "
+        f"{predicted['collectives']['total_bytes_per_device']} "
+        f"({c['seconds']:.1f} s)")
+    if not same_as_predicted(c, predicted) or c["collectives"][
+            "total_bytes_per_device"] or predicted["collectives"][
+            "total_bytes_per_device"]:
+        fail(f"phase 4l: the one-rank train step counted on the card {c} "
+             f"against the (1, 1) mesh dry-run's {predicted}")
     tr, sv = out["train"], out["serve"]
     out.update(card=smi, seconds=time.perf_counter() - t0)
     for side in ("unsharded", "sharded"):
@@ -5652,7 +5708,8 @@ def lm_mesh_rank(rank: int, world: int, port: int, one_card: str,
     TRAIN_BF16_REL (bf16 sums in other orders), later steps printed; the
     engine's requests complete with finite logits (tokens equal to the
     one card's counted: the expert capacity follows each rank's batch
-    shard); ``restore_sharded`` bitwise. Writes each mesh's figures and
+    shard); ``restore_sharded`` bitwise; then one train step counted on
+    the card (``p4l_count``). Writes each mesh's figures, the counts and
     this card's peak memory over the training steps and over each serve
     to ``out_dir``."""
     import torch
@@ -5670,6 +5727,7 @@ def lm_mesh_rank(rank: int, world: int, port: int, one_card: str,
             t0 = time.perf_counter()
             tmp = Path(out_dir) / f"ckpt_{shape[0]}x{shape[1]}"
             out = p4l_drive(dev, ctx, False, tmp)
+            counted = p4l_count(dev, ctx)
             loss, ref_loss = (out["train"]["sharded"]["loss"],
                               ref["train"]["sharded"]["loss"])
             if rel_err(loss[0], ref_loss[0]) > TRAIN_BF16_REL:
@@ -5686,7 +5744,7 @@ def lm_mesh_rank(rank: int, world: int, port: int, one_card: str,
                 "serve": {m: {k: v for k, v in out["serve"][m][
                     "sharded"].items()} for m in ("wave", "continuous")},
                 "tokens_equal_one_card": same,
-                "checkpoint": out["checkpoint"],
+                "checkpoint": out["checkpoint"], "counted": counted,
                 "seconds": time.perf_counter() - t0}
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
@@ -5695,9 +5753,13 @@ def lm_mesh_alone() -> dict:
     """Phase 4l alone, one ``nccl`` process a card: the one-rank run in
     this process on the first card, then, with more than one card, one
     process a card over every mesh of ``P4L_MESHES`` held to it, with
-    each card's peak memory. Run as ``PYTHONPATH=src python3 -c "import
-    chip_smoke as c; c.lm_mesh_alone()"`` on a machine with one card, or
-    with four for the meshes."""
+    each card's peak memory, and each rank's counted train step held to
+    the mesh dry-run's prediction for its mesh (phase 4j's subprocess):
+    FLOPs by dtype and collective bytes by kind equal as integers, each
+    card's training peak within PEAK_TOL of the predicted per-rank peak.
+    Run as ``PYTHONPATH=src python3 -c "import chip_smoke as c;
+    c.lm_mesh_alone()"`` on a machine with one card, or with four for
+    the meshes."""
     import torch
 
     from repro_torch.kernels import build
@@ -5708,10 +5770,12 @@ def lm_mesh_alone() -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     log(smi)
+    proc = start_mesh_predictions()
     build.build()
-    one = lm_mesh(dev, smi)
+    predicted = read_mesh_predictions(proc)
+    one = lm_mesh(dev, smi, predicted[mesh_key((1, 1))])
     n = torch.cuda.device_count()
-    out = {"one_card": one}
+    out = {"one_card": one, "mesh_predictions": predicted}
     if n >= 4:
         with tempfile.TemporaryDirectory() as tmp:
             ref = Path(tmp) / "one_card.json"
@@ -5741,8 +5805,30 @@ def lm_mesh_alone() -> dict:
                 "serve_card_gb": [max(r[key]["serve"][m]["card_gb"]
                                       for m in ("wave", "continuous"))
                                   for r in ranks],
-                "serve": r0["serve"]}
+                "serve": r0["serve"],
+                "counted_equal_predicted": [same_as_predicted(
+                    r[key]["counted"], predicted[key]) for r in ranks],
+                "predicted_peak_gb": predicted[key]["peak_gb"],
+                "collective_bytes": r0["counted"]["collectives"]}
             m = out["meshes"][key]
+            peak_ratio = [gb / m["predicted_peak_gb"]
+                          for gb in m["train_card_gb"]]
+            m["peak_ratio"] = peak_ratio
+            log(f"[lm4l] mesh {key} on 4 cards: a train step counted on "
+                f"each card against the mesh dry-run: FLOPs and collective "
+                f"bytes equal {m['counted_equal_predicted']} (collective "
+                f"bytes by kind {m['collective_bytes']['per_op_bytes']}); "
+                f"training peak by card / predicted "
+                f"{m['predicted_peak_gb']:.3f} GB: " + ", ".join(
+                    f"{x:.4f}" for x in peak_ratio) + f"; {smi}")
+            if not all(m["counted_equal_predicted"]):
+                fail(f"phase 4l mesh {key}: the counted train steps "
+                     f"{[r[key]['counted'] for r in ranks]} against the "
+                     f"mesh dry-run's {predicted[key]}")
+            if not all(abs(x - 1.0) <= PEAK_TOL for x in peak_ratio):
+                fail(f"phase 4l mesh {key}: the cards' training peaks "
+                     f"{m['train_card_gb']} GB not within {PEAK_TOL:.0%} "
+                     f"of the predicted {m['predicted_peak_gb']:.3f} GB")
             log(f"[lm4l] mesh {key} on 4 cards: losses "
                 + ", ".join(f"{x:.6f}" for x in m["loss"]) + " (one card "
                 + ", ".join(f"{x:.6f}" for x in m["one_card_loss"])
@@ -5791,12 +5877,82 @@ def card_count(cfg, shape, dev):
     return counts, peak
 
 
-def lm_analysis(dev, smi: str, lm4i: dict) -> dict:
+# Phase 4l's train step, as the mesh dry-run predicts it (ShapeSpec's
+# name, seq_len, global batch, kind), and the meshes it is predicted on:
+# the one-rank mesh and the four-card ones.
+P4L_TRAIN_SHAPE = ("p4l", 512, 8, "train")
+P4J_MESHES = ((1, 1),) + P4L_MESHES
+
+
+def mesh_key(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def mesh_predictions() -> None:
+    """Print, as one JSON line, the mesh dry-run's count of rank 0's
+    share of phase 4l's train step on each mesh of ``P4J_MESHES`` (meta
+    tensors under ``launch.mesh.fake_world`` of the mesh's size): FLOPs by
+    dtype, the collectives and the predicted per-rank peak. Runs on the
+    CPU in a process of its own (``start_mesh_predictions``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, fake_world
+
+    torch.set_num_threads(1)
+    cfg = get_config("llama3.2-1b")
+    out = {}
+    for shape in P4J_MESHES:
+        t0 = time.perf_counter()
+        with fake_world(shape[0] * shape[1]):
+            m = Mesh(shape, ("data", "model"), device="meta")
+            c = dryrun.count_cell(dryrun.build_cell(
+                cfg.name, "p4l", cfg=cfg, shape=ShapeSpec(*P4L_TRAIN_SHAPE),
+                mesh=m))
+        out[mesh_key(shape)] = {"flops_by_dtype": c.flops,
+                                "collectives": c.collectives(),
+                                "peak_gb": c.peak_bytes / 1e9,
+                                "seconds": time.perf_counter() - t0}
+    print(json.dumps(out))
+
+
+def start_mesh_predictions():
+    """``mesh_predictions`` in a CPU-only subprocess, started now and read
+    by ``read_mesh_predictions``; killed at exit if still running."""
+    import atexit
+    import os
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         "c.mesh_predictions()"], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def read_mesh_predictions(proc) -> dict:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode:
+        fail(f"the mesh dry-run's predictions exited {proc.returncode}: "
+             f"{err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def lm_analysis(dev, smi: str, lm4i: dict, mesh_proc=None) -> dict:
     """Phase 4j: (a) the dry-run of phase 4i's train step and of each
     family's batch-8 decode step on meta tensors (the counts phases 4g-4i
     took their bounds from) against the same steps counted on the card:
     FLOPs by dtype equal as integers; (b) the dry-run's predicted peak of
-    the train step against phase 4i's measured peak, within PEAK_TOL."""
+    the train step against phase 4i's measured peak, within PEAK_TOL; (c)
+    the mesh dry-run's predictions of phase 4l's train step per card on
+    (1, 1), (2, 2), (1, 4) and (4, 1) (``mesh_proc``, a
+    ``start_mesh_predictions`` subprocess started earlier, or one started
+    here): the peak and the collective bytes by kind, logged and handed
+    to phase 4l."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5848,6 +6004,17 @@ def lm_analysis(dev, smi: str, lm4i: dict) -> dict:
     if not abs(ratio - 1.0) <= PEAK_TOL:
         fail(f"phase 4j: the predicted peak {predicted:.3f} GB is not "
              f"within {PEAK_TOL:.0%} of phase 4i's {measured:.3f} GB")
+    ts = time.perf_counter()
+    preds = read_mesh_predictions(mesh_proc or start_mesh_predictions())
+    for key, p in preds.items():
+        coll = p["collectives"]
+        log(f"[lm4j] mesh {key}: Llama-3.2-1B train 8 x 512 predicted per "
+            f"card: peak {p['peak_gb']:.3f} GB, collective bytes by kind "
+            f"{coll['per_op_bytes']} (by axes {coll['per_axes_bytes']}), "
+            f"FLOPs by dtype {p['flops_by_dtype']}; counted on the CPU in "
+            f"{p['seconds']:.1f} s")
+    out["mesh_predictions"] = preds
+    out["mesh_wait_s"] = time.perf_counter() - ts
     torch.cuda.empty_cache()
     out.update(card=smi, seconds=time.perf_counter() - t0)
     log(f"[lm4j] phase 4j: {out['seconds']:.1f} s")
@@ -6379,6 +6546,8 @@ def tail_summary(slice10: dict, ck_row: dict, lm: dict, lm4h: dict,
     analysis_short = {
         "flops_equal": all(r["flops_equal"] for r in lm4j["steps"].values()),
         "train_peak_gb": {k: r(v) for k, v in lm4j["train_peak"].items()},
+        "mesh_peak_gb": {k: r(p["peak_gb"]) for k, p in
+                         lm4j["mesh_predictions"].items()},
         "s": r(lm4j["seconds"])}
     mesh_short = {side: {"step_ms": [r(x) for x in t["step_ms"]],
                          "peak_gb": r(t["peak_gb"])}
@@ -6486,15 +6655,17 @@ def main() -> int:
         tick_breakdown(run["cont_engine"])
         build_stages(run["engine"])
         took("5")
+    # Phase 4j's mesh predictions count on the CPU while 4g-4i run.
+    mesh_proc = start_mesh_predictions()
     lm = lm_serving(dev, smi)
     took("4g")
     lm4h = lm_moe_recurrent(dev, smi)
     took("4h")
     lm4i = lm_training(dev, smi)
     took("4i")
-    lm4j = lm_analysis(dev, smi, lm4i)
+    lm4j = lm_analysis(dev, smi, lm4i, mesh_proc)
     took("4j")
-    lm4l = lm_mesh(dev, smi)
+    lm4l = lm_mesh(dev, smi, lm4j["mesh_predictions"][mesh_key((1, 1))])
     took("4l")
     ck_row["max_abs_err"] = max(err_ck, err_wide, err_ck_main, bf["err"],
                                 slice10["AM@0.055"].pop("raw_err"))

@@ -14,11 +14,25 @@ sharding rules (``models/sharding.py``) read, so they run at production
 sizes with no process group; ``Mesh`` adds the process sub-group of every
 set of axes over an initialised ``torch.distributed`` default group
 (``nccl`` on the cards, ``gloo`` on the CPU) and the plain collectives the
-layers build on. ``make_production_mesh`` and ``make_host_mesh`` are
-functions, so importing this module starts no process group.
+layers build on; a collective over one rank is the identity and issues
+nothing. ``make_production_mesh`` and ``make_host_mesh`` are functions,
+so importing this module starts no process group.
+
+The mesh dry-run needs no cards: ``fake_world(n)`` initialises torch's
+``fake`` backend, whose collectives return at once, at world size n as
+rank 0, so ``Mesh(..., device="meta")`` over it builds every sub-group of
+a 256- or 512-rank mesh in this one process and the layers' collectives
+run on meta tensors.
+
+Links: ranks are row-major, eight to a node (a DGX H100), so a sub-group
+whose ranks all sit on one node talks over NVLink and any other over the
+network (``axis_link``). On both production meshes every axis spans more
+than one node (the "model" axis's 16 ranks are two nodes), so every
+collective there is charged at the network's rate.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -41,6 +55,20 @@ HBM_BYTES = 80e9
 PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float16": PEAK_FLOPS_BF16,
               "float32": PEAK_FLOPS_F32}
 
+# Cards a node, as a DGX H100 holds them.
+CARDS_PER_NODE = 8
+# NVLink 4, bytes/s a direction a card (NVIDIA H100 SXM data sheet: 900
+# GB/s bidirectional).
+NVLINK_BW = 450e9
+# The network, bytes/s a card (DGX H100: one 400 Gb/s ConnectX-7 port a
+# card).
+NET_BW = 50e9
+LINK_BW = {"nvlink": NVLINK_BW, "network": NET_BW}
+
+# The reference's production meshes, one rank a card: (shape, axes).
+PRODUCTION_MESHES = {"pod": ((16, 16), ("data", "model")),
+                     "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshShape:
@@ -55,6 +83,56 @@ class MeshShape:
     @property
     def n_devices(self) -> int:
         return math.prod(self.shape)
+
+    def axis_rows(self, axes) -> list:
+        """The ranks of every sub-group over ``axes`` (a set of axis
+        names), one list a sub-group, in the order ``Mesh`` makes them."""
+        dims = tuple(d for d, a in enumerate(self.axis_names) if a in axes)
+        rest = [d for d in range(len(self.shape)) if d not in dims]
+        grid = torch.arange(self.n_devices).reshape(self.shape)
+        # Axes last, row-major: each row is one sub-group.
+        return grid.permute(*rest, *dims).reshape(
+            -1, math.prod(self.shape[d] for d in dims)).tolist()
+
+
+def axis_link(mesh: MeshShape, axes) -> str:
+    """The link a collective over ``axes`` crosses: "nvlink" where every
+    sub-group over them sits on one node of ``CARDS_PER_NODE`` cards,
+    else "network" (module doc)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    one_node = all(len({r // CARDS_PER_NODE for r in row}) == 1
+                   for row in mesh.axis_rows(axes))
+    return "nvlink" if one_node else "network"
+
+
+def production_shape(name: str) -> MeshShape:
+    """The axes and sizes of a production mesh ("pod" or "multipod")."""
+    shape, axes = PRODUCTION_MESHES[name]
+    return MeshShape(axes, shape)
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0):
+    """A default process group of ``n`` ranks on torch's ``fake`` backend
+    (its collectives move nothing), this process rank ``rank``; destroyed
+    on exit. Raises if a process group exists already."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group exists already; "
+                           "destroy it first")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "fake_world needs torch.testing._internal.distributed.fake_pg "
+            f"(the 'fake' process-group backend), which torch "
+            f"{torch.__version__} lacks") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _funcol():
@@ -97,18 +175,15 @@ class Mesh(MeshShape):
         object.__setattr__(self, "coords", tuple(
             int(c) for c in (grid == rank).nonzero()[0]))
         groups = {}
-        n = len(self.shape)
-        for k in range(1, n + 1):
-            for axes in itertools.combinations(range(n), k):
-                rest = [d for d in range(n) if d not in axes]
-                # Axes first, row-major: each row is one sub-group.
-                rows = grid.permute(*rest, *axes).reshape(
-                    -1, math.prod(self.shape[d] for d in axes))
-                for row in rows.tolist():
+        for k in range(1, len(self.shape) + 1):
+            for axes in itertools.combinations(self.axis_names, k):
+                for row in self.axis_rows(axes):
                     g = dist.new_group(row)
                     if rank in row:
-                        groups[tuple(self.axis_names[d] for d in axes)] = g
+                        groups[axes] = g
         object.__setattr__(self, "_groups", groups)
+        object.__setattr__(self, "group_axes", {
+            g.group_name: axes for axes, g in groups.items()})
 
     def _axes(self, axes) -> tuple:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -130,16 +205,22 @@ class Mesh(MeshShape):
 
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0):
         """The shards of ``t`` along ``axes`` concatenated on ``dim``."""
+        if self.count(axes) == 1:
+            return t
         fc = _funcol()
         ag = getattr(fc, "all_gather_single", None) or fc.all_gather_tensor
         return _wait(ag(t.contiguous(), dim, self.group(axes)))
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"):
+        if self.count(axes) == 1:
+            return t
         fc = _funcol()
         return _wait(fc.all_reduce(t.contiguous(), op, self.group(axes)))
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0):
         """The sum of ``t`` over ``axes``, this rank's shard of ``dim``."""
+        if self.count(axes) == 1:
+            return t
         fc = _funcol()
         rs = getattr(fc, "reduce_scatter_single", None) \
             or fc.reduce_scatter_tensor
@@ -148,10 +229,10 @@ class Mesh(MeshShape):
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The reference's (16, 16) ("data", "model") mesh, or (2, 16, 16)
-    with "pod" first: one rank a card, so 256 or 512 of them."""
+    with "pod" first: one rank a card, so 256 or 512 of them (under
+    ``fake_world`` with ``device="meta"`` for the dry-run)."""
     import torch.distributed as dist
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = PRODUCTION_MESHES["multipod" if multi_pod else "pod"]
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != math.prod(shape):
         raise ValueError(

@@ -26,6 +26,16 @@ allocated) or on a card's tensors (the same step, counted where it runs).
   counted from its creation until it dies (a ``weakref.finalize`` on the
   storage), so ``peak_bytes`` is the most the step holds at once, its
   inputs included, in the allocator's terms (no block rounding).
+* Collectives: every ``_c10d_functional`` collective a step on a mesh
+  issues (``launch.mesh.Mesh``'s all-gather, all-reduce and
+  reduce-scatter; all-to-all) is counted by kind and by the set of mesh
+  axes its group spans (``OpCounter(mesh=)`` names a group's axes), in
+  bytes as the reference's ``collective_bytes`` counts them: each
+  result's bytes on this rank, summed. They add no FLOPs and stand
+  outside the ops, kernels and eager bytes above (those are the step's
+  compute); their results count toward the live bytes and the peak as
+  any result does. ``wait_tensor`` and ``_wrap_tensor_autograd`` (the
+  async result's bookkeeping) count nowhere.
 
 On meta tensors an op's result depends only on its operands' shapes,
 strides and dtypes and its other arguments, so the counter remembers
@@ -35,7 +45,7 @@ again (most of them are Python reference implementations that take
 ~0.1-1 ms a call): a loop's second and later trips cost the dispatch
 alone. In-place ops on meta tensors only check their operands, so a
 remembered one returns its first operand; views, ops that resize and
-ops on other devices always run.
+ops on other devices always run, and so does every collective.
 
 The reference multiplies a ``while`` body by its trip count
 (``hlo_analysis._trip_count``). The port's loops are Python loops, which
@@ -48,6 +58,16 @@ number of groups, quadratic in the sequence length of a recurrence
 whole sequence). FLOPs, bytes and op counts are such polynomials, so the
 extension is exact; the peak is extrapolated along the line through the
 two largest sizes.
+
+A count frees the step's tensors when it returns, by reference counts
+alone. torch wraps a dispatch mode's ``__torch_dispatch__`` in
+``torch._disable_dynamo``, which imports ``torch._dynamo`` on its first
+call: the process's first counted op, deep in the step. That import
+runs ``torch.fx.wrap``, whose frame holds itself
+(``inspect.currentframe()``) and, through ``f_back``, its callers'
+frames: the step's, with its activations and gradients, until the
+garbage collector runs. So this module imports ``torch._dynamo`` before
+any step runs, as ``models/model.py`` does for remat's ``checkpoint``.
 """
 from __future__ import annotations
 
@@ -58,6 +78,7 @@ from fractions import Fraction
 from typing import Any
 
 import torch
+import torch._dynamo  # noqa: F401  (module doc: imported before a step)
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -83,6 +104,14 @@ _NO_BYTES = {aten.empty, aten.empty_like, aten.empty_strided,
 _RESIZES = {aten.resize_, aten.set_, aten.resize_as_, aten.as_strided_}
 _ATOMS = (int, float, bool, str, type(None), torch.dtype, torch.device,
           torch.layout, torch.memory_format)
+# ``_c10d_functional`` collectives by the reference's names for them
+# (``repro.launch.dryrun._COLLECTIVES``); the group name is their last
+# positional argument.
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "all_reduce": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all"}
+COLLECTIVE_KINDS = tuple(COLLECTIVES.values())
 
 
 class _Uncached(Exception):
@@ -151,27 +180,53 @@ def nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tensors_of(tree))
 
 
+def axes_key(axes) -> str:
+    """A set of mesh axes as a record's key: "data+model"."""
+    return "+".join(axes)
+
+
 @dataclasses.dataclass
 class Counts:
     """What one counted step did. ``flops`` maps an operand dtype name
-    to the dot-product FLOPs at that dtype."""
+    to the dot-product FLOPs at that dtype; ``coll_bytes`` and
+    ``coll_counts`` a collective's kind to its result bytes and calls,
+    ``axes_bytes`` a set of mesh axes (``axes_key``) to the result bytes
+    of the collectives over it; ``on_mesh``: counted on a mesh (its
+    ``as_dict`` then carries ``collectives``)."""
     flops: dict
     bytes: int
     ops: dict
     kernels: int
     peak_bytes: int
     input_bytes: int
+    coll_bytes: dict = dataclasses.field(default_factory=dict)
+    coll_counts: dict = dataclasses.field(default_factory=dict)
+    axes_bytes: dict = dataclasses.field(default_factory=dict)
+    on_mesh: bool = False
 
     @property
     def total_flops(self) -> int:
         return sum(self.flops.values())
+
+    def collectives(self) -> dict:
+        """The collectives as a mesh record holds them: the reference's
+        ``collective_bytes`` keys (every kind, zeros included) and the
+        bytes by axis set."""
+        return {"per_op_bytes": {k: self.coll_bytes.get(k, 0)
+                                 for k in COLLECTIVE_KINDS},
+                "per_op_counts": {k: self.coll_counts.get(k, 0)
+                                  for k in COLLECTIVE_KINDS},
+                "per_axes_bytes": dict(sorted(self.axes_bytes.items())),
+                "total_bytes_per_device": sum(self.coll_bytes.values())}
 
     def as_dict(self) -> dict:
         return {"flops_by_dtype": dict(sorted(self.flops.items())),
                 "flops": self.total_flops, "eager_bytes": self.bytes,
                 "kernels": self.kernels, "peak_bytes": self.peak_bytes,
                 "input_bytes": self.input_bytes,
-                "ops": dict(sorted(self.ops.items()))}
+                "ops": dict(sorted(self.ops.items())),
+                **({"collectives": self.collectives()} if self.on_mesh
+                   else {})}
 
 
 class OpCounter(TorchDispatchMode):
@@ -183,9 +238,13 @@ class OpCounter(TorchDispatchMode):
         oc.counts()
     """
 
-    def __init__(self, meta_cache: bool = True):
+    def __init__(self, meta_cache: bool = True, mesh=None):
         super().__init__()
         self.meta_cache = meta_cache
+        self.mesh = mesh
+        self.coll_bytes: Counter = Counter()
+        self.coll_counts: Counter = Counter()
+        self.axes_bytes: Counter = Counter()
         self.flops: Counter = Counter()
         self.bytes = 0
         self.ops: Counter = Counter()
@@ -234,8 +293,27 @@ class OpCounter(TorchDispatchMode):
             ins = ins[1:]
         return nbytes(ins) + nbytes(outs)
 
+    def _collective(self, func, args, kwargs):
+        """Run a ``_c10d_functional`` op; count it if it is a collective
+        (module doc)."""
+        out = func(*args, **kwargs)
+        kind = COLLECTIVES.get(func.overloadpacket.__name__)
+        if kind is not None:
+            n = nbytes(tensors_of(out))
+            name = args[-1] if isinstance(args[-1], str) else kwargs.get(
+                "group_name")
+            axes = getattr(self.mesh, "group_axes", {}).get(name)
+            self.coll_bytes[kind] += n
+            self.coll_counts[kind] += 1
+            self.axes_bytes[axes_key(axes) if axes else f"group {name}"] += n
+        for t in tensors_of(out):
+            self._hold(t)
+        return out
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "_c10d_functional":
+            return self._collective(func, args, kwargs)
         packet = func.overloadpacket
         if packet not in flop_registry:
             # Outside autograd (inference mode) composite ops such as
@@ -291,13 +369,18 @@ class OpCounter(TorchDispatchMode):
     def counts(self) -> Counts:
         return Counts(flops=dict(self.flops), bytes=self.bytes,
                       ops=dict(self.ops), kernels=self.kernels,
-                      peak_bytes=self.peak, input_bytes=self.input_bytes)
+                      peak_bytes=self.peak, input_bytes=self.input_bytes,
+                      coll_bytes=dict(self.coll_bytes),
+                      coll_counts=dict(self.coll_counts),
+                      axes_bytes=dict(self.axes_bytes),
+                      on_mesh=self.mesh is not None)
 
 
-def count(step, *inputs) -> tuple[Any, Counts]:
+def count(step, *inputs, mesh=None) -> tuple[Any, Counts]:
     """Run ``step()`` once under an ``OpCounter`` with ``inputs`` tracked
-    as live; returns (its result, the counts)."""
-    with OpCounter() as oc:
+    as live (``mesh``: the one its collectives run on); returns (its
+    result, the counts)."""
+    with OpCounter(mesh=mesh) as oc:
         oc.track(*inputs)
         out = step()
     return out, oc.counts()
@@ -334,7 +417,11 @@ def extend(parts, xs, x) -> Counts:
     return Counts(flops=per_key("flops"), bytes=each("bytes"),
                   ops=per_key("ops"), kernels=each("kernels"),
                   peak_bytes=each("peak_bytes", 2),
-                  input_bytes=each("input_bytes", 2))
+                  input_bytes=each("input_bytes", 2),
+                  coll_bytes=per_key("coll_bytes"),
+                  coll_counts=per_key("coll_counts"),
+                  axes_bytes=per_key("axes_bytes"),
+                  on_mesh=any(p.on_mesh for p in parts))
 
 
 def same_flops(a: Counts, b: Counts) -> bool:

@@ -1,19 +1,27 @@
-"""Roofline over the dry-run records, on one H100's terms (counterpart of
+"""Roofline over the dry-run records, on an H100's terms (counterpart of
 ``repro.launch.roofline``).
 
-For every (arch × shape) cell of ``artifacts/dryrun_torch/``:
+For every (arch × shape) cell of ``artifacts/dryrun_torch/``, on one card
+(``--mesh h100``) or per rank of a production mesh (``pod``,
+``multipod``):
 
     compute term    = Σ over dtype of counted FLOPs / that dtype's peak
                       (bf16 989 TFLOP/s; f32 67 TFLOP/s, TF32 off)
     memory term     = least bytes / 3.35 TB/s
-    collective term = 0 (one card)
+    collective term = Σ over axis sets of the collectives' bytes / the
+                      rate of the link ``mesh.axis_link`` gives them
+                      (NVLink 450 GB/s, the network 50 GB/s a card;
+                      every axis of both production meshes crosses
+                      nodes, so the network's); 0 on one card
 
 plus MODEL_FLOPS = 6·N_active·tokens (train) or 2·N_active·tokens
 (prefill/decode), the reference's formula; the ratio MODEL / counted
-(remat, masked attention blocks and f32 work show up here); the
-dominant term; ``mfu_bound``, the model FLOPs at the bf16 peak over the
-larger term; ``fits``, the predicted peak within the card's 80 GB; and
-the reference's advice where it applies.
+(remat, masked attention blocks and f32 work show up here; per rank on
+a mesh: MODEL / n_devices / counted); the dominant term;
+``mfu_bound``, the model FLOPs (per device on a mesh, the reference's
+form) at the bf16 peak over the larger term; ``fits``, the predicted
+peak (a rank's on a mesh) within the card's 80 GB; and the reference's
+advice where it applies.
 
 The least bytes count each input byte read
 once and each output byte written once (``least_bytes``). The same
@@ -27,8 +35,10 @@ from pathlib import Path
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES
-from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS, PEAK_FLOPS_BF16,
-                                     PEAK_FLOPS_F32)
+from repro_torch.launch.mesh import (HBM_BW, LINK_BW, PEAK_FLOPS,
+                                     PEAK_FLOPS_BF16, PEAK_FLOPS_F32,
+                                     PRODUCTION_MESHES, axis_link,
+                                     production_shape)
 from repro_torch.launch.op_analysis import nbytes
 
 ART = Path(__file__).resolve().parents[3] / "artifacts"
@@ -118,7 +128,7 @@ def cache_write_bytes(cache: dict) -> int:
 
 def least_bytes(kind: str, model, batch: dict, *, opt_state=None,
                 cache=None, cur_index: int = 0, prefill_cache=None,
-                experts_read=None) -> dict:
+                experts_read=None, vocab: int | None = None) -> dict:
     """Bytes one step must move, by part: each input byte read once and
     each output byte written once.
 
@@ -127,8 +137,10 @@ def least_bytes(kind: str, model, batch: dict, *, opt_state=None,
     the batch in; f32 logits [B, S, V] and ``prefill_cache`` (the cache
     it builds) out. decode: the parameters it reads, the ``cur_index +
     1`` valid cache positions and the batch in; f32 logits [B, 1, V] and
-    the cache's new position (recurrent states whole) out."""
+    the cache's new position (recurrent states whole) out. ``vocab``:
+    the logits' width (a rank's share on a mesh; default the config's)."""
     cfg = model.cfg
+    vocab = vocab or cfg.vocab_size
     toks = batch.get("tokens", batch.get("embeddings"))
     B, S = toks.shape[0], toks.shape[1]
     parts = {"batch_in": nbytes(batch)}
@@ -138,12 +150,12 @@ def least_bytes(kind: str, model, batch: dict, *, opt_state=None,
     elif kind == "prefill":
         rows = 0 if "embeddings" in batch else B * S
         parts["params_in"] = param_read_bytes(model, rows, experts_read)
-        parts["logits_out"] = B * S * cfg.vocab_size * 4
+        parts["logits_out"] = B * S * vocab * 4
         parts["cache_out"] = nbytes(prefill_cache)
     else:
         parts["params_in"] = param_read_bytes(model, B, experts_read)
         parts["cache_in"] = cache_read_bytes(cache, cur_index + 1)
-        parts["logits_out"] = B * cfg.vocab_size * 4
+        parts["logits_out"] = B * vocab * 4
         parts["cache_out"] = cache_write_bytes(cache)
     parts["total"] = sum(parts.values())
     return parts
@@ -157,17 +169,36 @@ def compute_s(flops_by_dtype: dict) -> float:
                for dt, n in flops_by_dtype.items())
 
 
-def terms(flops_by_dtype: dict, least: int) -> dict:
-    """The roofline's terms in seconds, the bottleneck and the bound."""
+def collective_s(per_axes_bytes: dict, mesh) -> float:
+    """Σ over axis sets ("data+model") of their collectives' bytes over
+    the rate of the link they cross on ``mesh`` (a ``MeshShape``)."""
+    return sum(n / LINK_BW[axis_link(mesh, key.split("+"))]
+               for key, n in per_axes_bytes.items())
+
+
+def terms(flops_by_dtype: dict, least: int, collectives: dict | None = None,
+          mesh=None) -> dict:
+    """The roofline's terms in seconds, the bottleneck and the bound;
+    ``collectives`` (a mesh record's) over ``mesh``'s links, none on one
+    card."""
+    coll = 0.0
+    if mesh is not None and collectives:
+        coll = collective_s(collectives["per_axes_bytes"], mesh)
     t = {"compute": compute_s(flops_by_dtype), "memory": least / HBM_BW,
-         "collective": 0.0}
+         "collective": coll}
     bott = max(t, key=t.get)
     return {"compute_s": t["compute"], "memory_s": t["memory"],
             "collective_s": t["collective"], "bottleneck": bott,
             "bound_s": t[bott]}
 
 
-def _advice(bottleneck: str, kind: str, flops: dict) -> str:
+def _advice(bottleneck: str, kind: str, flops: dict, arch: str) -> str:
+    if bottleneck == "collective":
+        if get_config(arch).n_experts:
+            return ("shrink TP all-reduce traffic: sequence-sharded "
+                    "norms/residual (SP) + keep expert psum in bf16")
+        return ("sequence parallelism on the model axis to turn per-layer "
+                "all-reduces into reduce-scatter/all-gather halves")
     if bottleneck == "memory":
         if kind == "decode":
             return ("KV-cache traffic dominates: quantize cache to int8, "
@@ -182,11 +213,27 @@ def _advice(bottleneck: str, kind: str, flops: dict) -> str:
     return "compute-bound: raise per-chip utilization (larger tiles/batch)"
 
 
-def load_cells(tag: str = "") -> list:
+def mesh_label(mesh: str = MESH) -> str:
+    """A file name's mesh part: "h100" for one card, "pod_h100" or
+    "multipod_h100" per card of a production mesh."""
+    return MESH if mesh == MESH else f"{mesh}_{MESH}"
+
+
+def record_name(arch: str, shape_name: str, mesh: str = MESH,
+                tag: str = "") -> str:
+    """A dry-run record's file name under ``artifacts/dryrun_torch/``."""
+    return f"{arch}_{shape_name}_{mesh_label(mesh)}{tag}.json"
+
+
+def load_cells(tag: str = "", mesh: str = MESH) -> list:
+    """The roofline's rows from the records of one card (``mesh="h100"``)
+    or of a production mesh's rank ("pod", "multipod")."""
+    shape_of = None if mesh == MESH else production_shape(mesh)
     rows = []
     for arch in ARCH_IDS:
         for shape_name in SHAPES:
-            f = ART / "dryrun_torch" / f"{arch}_{shape_name}_{MESH}{tag}.json"
+            f = ART / "dryrun_torch" / record_name(arch, shape_name,
+                                                   mesh, tag)
             if not f.exists():
                 continue
             rec = json.loads(f.read_text())
@@ -201,20 +248,30 @@ def load_cells(tag: str = "") -> list:
                 rows.append(row)
                 continue
             flops = rec["flops_by_dtype"]
-            t = terms(flops, rec["least_bytes"]["total"])
+            t = terms(flops, rec["least_bytes"]["total"],
+                      rec.get("collectives"), shape_of)
+            n_dev = rec["n_devices"]
             mf = model_flops(arch, shape_name)
             row.update(
-                n_devices=rec["n_devices"], **t,
+                n_devices=n_dev, **t,
                 model_flops_global=mf,
                 counted_flops=rec["flops"],
                 counted_flops_by_dtype=flops,
-                model_over_counted=mf / max(rec["flops"], 1),
-                mfu_bound=(mf / PEAK_FLOPS_BF16) / max(t["bound_s"], 1e-12),
+                model_over_counted=mf / n_dev / max(rec["flops"], 1),
+                mfu_bound=(mf / n_dev / PEAK_FLOPS_BF16)
+                / max(t["bound_s"], 1e-12),
                 peak_bytes=rec["peak_bytes"], fits=rec["fits"],
                 advice=_advice(t["bottleneck"], SHAPES[shape_name].kind,
-                               flops))
+                               flops, arch))
+            if shape_of is not None:
+                row["collective_bytes"] = rec["collectives"][
+                    "total_bytes_per_device"]
             rows.append(row)
     return rows
+
+
+def out_file(mesh: str = MESH, tag: str = "") -> Path:
+    return ART / f"roofline_{mesh_label(mesh)}{tag}.json"
 
 
 def render(rows, title="Roofline (one NVIDIA H100 SXM 80GB: bf16 989, "
@@ -241,14 +298,23 @@ def render(rows, title="Roofline (one NVIDIA H100 SXM 80GB: bf16 989, "
     return "\n".join(out)
 
 
+TITLES = {MESH: "Roofline (one NVIDIA H100 SXM 80GB: bf16 989, f32 67 "
+                "TFLOP/s, HBM 3.35 TB/s)",
+          "pod": "Roofline per card of 256 H100s, (16, 16) (bf16 989, f32 "
+                 "67 TFLOP/s, HBM 3.35 TB/s, network 50 GB/s a card)",
+          "multipod": "Roofline per card of 512 H100s, (2, 16, 16) (bf16 "
+                      "989, f32 67 TFLOP/s, HBM 3.35 TB/s, network 50 GB/s "
+                      "a card)"}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default=MESH, choices=[MESH, *PRODUCTION_MESHES])
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
-    rows = load_cells(args.tag)
-    (ART / f"roofline_{MESH}{args.tag}.json").write_text(
-        json.dumps(rows, indent=2))
-    print(render(rows))
+    rows = load_cells(args.tag, args.mesh)
+    out_file(args.mesh, args.tag).write_text(json.dumps(rows, indent=2))
+    print(render(rows, TITLES[args.mesh]))
     return rows
 
 

@@ -45,6 +45,13 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+# torch wraps ``checkpoint`` in ``torch._disable_dynamo``, which imports
+# ``torch._dynamo`` on its first call; that import runs ``torch.fx.wrap``,
+# whose frame holds itself and, through ``f_back``, its callers' frames,
+# so a process's first remat step (its activations, gradients, model and
+# optimizer state) would live until the garbage collector runs. Import
+# it here, before any step.
+import torch._dynamo  # noqa: F401
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 

@@ -24,9 +24,10 @@ op_analysis, dryrun, roofline}``) held against the reference's
   equal as integers after the terms of ``EXACT_POD`` (Llama-3.2-1B's
   ``train_4k`` among the equal cells), or within 1e-4 of the ratio
   ``POD_RATIO`` states with its term.
-* The roofline's terms from the records, the mesh's constants, the
-  flags that need a mesh, the least bytes of a decode step, and the
-  counter on CPU tensors equal to the counter on meta tensors.
+* The roofline's terms from the records, the mesh's constants and
+  links, the flag that needs a mesh, the least bytes of a decode step,
+  and the counter on CPU tensors equal to the counter on meta tensors.
+  The mesh dry-run itself: ``test_torch_dryrun_mesh.py``.
 """
 import dataclasses
 import json
@@ -360,18 +361,32 @@ def test_roofline_rows():
 
 
 def test_mesh_constants_and_flags_that_need_a_mesh():
-    """``make_production_mesh`` needs 256 (512) ranks and names the
-    world size it has; the dry-run's mesh flags wait for item 5.2."""
+    """The card's peaks and links; ``make_production_mesh`` needs 256
+    (512) ranks and names the world size it has, outside a process group
+    and inside a fake one of another size; ``fake_world`` refuses to
+    stack on a group; ``--grad-scatter`` needs a mesh."""
     assert (mesh.PEAK_FLOPS_BF16, mesh.PEAK_FLOPS_F32, mesh.PEAK_FLOPS_TF32,
             mesh.HBM_BW, mesh.HBM_BYTES) == (989e12, 67e12, 495e12, 3.35e12,
                                              80e9)
+    assert (mesh.CARDS_PER_NODE, mesh.NVLINK_BW, mesh.NET_BW) == (
+        8, 450e9, 50e9)
+    assert mesh.LINK_BW == {"nvlink": 450e9, "network": 50e9}
+    assert mesh.PRODUCTION_MESHES == {
+        "pod": ((16, 16), ("data", "model")),
+        "multipod": ((2, 16, 16), ("pod", "data", "model"))}
     with pytest.raises(ValueError, match="needs 256 ranks.*world size of 1"):
         mesh.make_production_mesh()
-    for call in (lambda: dryrun.main(["--mesh", "multipod"]),
-                 lambda: dryrun.main(["--grad-scatter"])):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 5\.2, the mesh dry-run"):
-            call()
+    with mesh.fake_world(4):
+        with pytest.raises(ValueError,
+                           match="needs 512 ranks.*world size of 4"):
+            mesh.make_production_mesh(multi_pod=True, device="meta")
+        with pytest.raises(RuntimeError, match="exists already"):
+            with mesh.fake_world(2):
+                pass
+    with pytest.raises(SystemExit):
+        dryrun.main(["--grad-scatter"])
+    with pytest.raises(ValueError, match="--grad-scatter .* mesh"):
+        dryrun.run_cell("llama3_2-1b", "train_4k", grad_scatter=True)
 
 
 def test_least_bytes_of_a_decode_step():

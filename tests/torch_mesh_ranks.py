@@ -7,6 +7,9 @@ and inputs ``torch_mesh_reference.save_inputs`` wrote. Every rank runs
 every task; rank 0 gathers the results whole and writes them to the job's
 ``out`` file (``torch.save``): logits, MoE choices per layer, train steps
 (loss, ce, grad norm, parameters and moments) and engine tokens rid by rid.
+A ``count`` task reads no inputs: each rank counts one dry-run step
+(``launch.dryrun.build_cell`` on its CPU shards, random weights) and
+writes its own counts as JSON.
 """
 import json
 import sys
@@ -220,8 +223,28 @@ def run_world1(task, ctx, job_dir):
     return out
 
 
+def run_count(task, ctx, job_dir):
+    """The dry-run's step of ``task["arch"]``'s scaled-down config at
+    (``step``: its kind, ``seq``, ``batch``) built on this rank's CPU and
+    counted by ``OpCounter`` here; writes ``count_{name}_rank{r}.json``:
+    FLOPs by dtype, the collectives (``Counts.collectives``) and the
+    peak."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    cfg = scaled_down(get_config(task["arch"]))
+    shape = ShapeSpec("small", task["seq"], task["batch"], task["step"])
+    counts = dryrun.count_cell(dryrun.build_cell(
+        task["arch"], "small", cfg=cfg, shape=shape, mesh=ctx.mesh))
+    out = {"flops": counts.flops, "collectives": counts.collectives(),
+           "peak_bytes": counts.peak_bytes}
+    (job_dir / f"count_{task['name']}_rank{ctx.mesh.rank}.json").write_text(
+        json.dumps(out))
+    return out
+
+
 RUN = {"forward": run_forward, "train": run_train, "engine": run_engine,
-       "ckpt": run_ckpt, "world1": run_world1}
+       "ckpt": run_ckpt, "world1": run_world1, "count": run_count}
 
 
 def main(job_path: str, rank: int) -> None:
