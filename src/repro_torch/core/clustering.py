@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import hashing
 from repro_torch.core.params import C2Params
 from repro_torch.core.splitting import SplitResult, split_config
@@ -51,24 +52,26 @@ def frh_seeds(params: C2Params) -> np.ndarray:
 
 def build_plan(ds: Dataset, params: C2Params) -> ClusterPlan:
     """Cluster all users under t FastRandomHash functions + recursive split."""
-    seeds = frh_seeds(params)
-    item_h = hashing.item_hashes(ds.items, seeds, params.b)  # [t, nnz]
-    cands = hashing.user_distinct_hashes_np(item_h, ds.offsets, params.split_depth)
-
-    members: list[np.ndarray] = []
-    config_of: list[int] = []
-    paths: list[tuple[int, ...]] = []
-    for i in range(params.t):
-        res: SplitResult = split_config(cands[i], params.max_cluster)
-        for mem, path in zip(res.members, res.paths):
-            if len(mem) >= 2:  # singleton clusters yield no edges
-                members.append(mem)
-                config_of.append(i)
-                paths.append(path)
-    return ClusterPlan(
-        members=members,
-        config_of=np.array(config_of, dtype=np.int32),
-        n_users=ds.n_users,
-        t=params.t,
-        paths=paths,
-    )
+    with obs.span("clustering.hash"):
+        seeds = frh_seeds(params)
+        item_h = hashing.item_hashes(ds.items, seeds, params.b)  # [t, nnz]
+        cands = hashing.user_distinct_hashes_np(item_h, ds.offsets,
+                                                params.split_depth)
+    with obs.span("clustering.split"):
+        members: list[np.ndarray] = []
+        config_of: list[int] = []
+        paths: list[tuple[int, ...]] = []
+        for i in range(params.t):
+            res: SplitResult = split_config(cands[i], params.max_cluster)
+            for mem, path in zip(res.members, res.paths):
+                if len(mem) >= 2:  # singleton clusters yield no edges
+                    members.append(mem)
+                    config_of.append(i)
+                    paths.append(path)
+        return ClusterPlan(
+            members=members,
+            config_of=np.array(config_of, dtype=np.int32),
+            n_users=ds.n_users,
+            t=params.t,
+            paths=paths,
+        )

@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.clustering import ClusterPlan, build_plan
 from repro_torch.core.local_knn import batch_inputs, capacity_of
 from repro_torch.core.merge import merge_partial
@@ -107,30 +108,41 @@ def distributed_local_knn(plan: ClusterPlan, gf: GoldFinger,
     Returns (ids int32[t, n, k], sims float32[t, n, k], DistPlan).
     """
     devs = resolve_devices(devices)
-    dp = build_dist_plan(plan, len(devs))
+    with obs.span("step2.pack"):
+        dp = build_dist_plan(plan, len(devs))
     k = params.k
     card_h = np.asarray(gf.card, dtype=np.int32)
     tables = {}
-    for dev in devs:
-        if dev not in tables:
-            tables[dev] = (words_tensor(gf.words, dev),
-                           torch.from_numpy(card_h).to(dev))
+    with obs.span("step2.upload"):
+        for dev in devs:
+            if dev not in tables:
+                w = words_tensor(gf.words, dev)
+                c = torch.from_numpy(card_h).to(dev)
+                tables[dev] = (w, c)
+                obs.count("step2.h2d_bytes", w.nbytes + c.nbytes)
     # Queue every bin's launches before reading any result back.
-    results = [[gk_ops.cluster_knn(*batch_inputs(*tables[dev], mem[d]), k)
-                for d, dev in enumerate(devs)] for mem in dp.groups]
+    with obs.span("step2.launch"):
+        results = [[gk_ops.cluster_knn(*batch_inputs(*tables[dev], mem[d]), k)
+                    for d, dev in enumerate(devs)] for mem in dp.groups]
+        obs.count("step2.h2d_bytes", sum(mem.nbytes for mem in dp.groups))
 
     t, n = plan.t, plan.n_users
-    out_ids = np.full((t, n, k), PAD_ID, dtype=np.int32)
-    out_sims = np.full((t, n, k), NEG_INF, dtype=np.float32)
+    with obs.span("step2.alloc"):
+        out_ids = np.full((t, n, k), PAD_ID, dtype=np.int32)
+        out_sims = np.full((t, n, k), NEG_INF, dtype=np.float32)
     for per_dev, cof in zip(results, dp.cluster_of):
         for d, (nbr, sims) in enumerate(per_dev):
-            nbr, sims = nbr.cpu().numpy(), sims.cpu().numpy()
-            for s in np.flatnonzero(cof[d] >= 0):  # all-PAD slots skipped
-                ci = cof[d, s]
-                users = plan.members[ci]
-                cfg = plan.config_of[ci]
-                out_ids[cfg, users] = nbr[s, : len(users)]
-                out_sims[cfg, users] = sims[s, : len(users)]
+            with obs.span("step2.wait"):
+                nbr, sims = nbr.cpu().numpy(), sims.cpu().numpy()
+                obs.count("step2.d2h_bytes", nbr.nbytes + sims.nbytes)
+            with obs.span("step2.scatter"):
+                # All-PAD slots are skipped.
+                for s in np.flatnonzero(cof[d] >= 0):
+                    ci = cof[d, s]
+                    users = plan.members[ci]
+                    cfg = plan.config_of[ci]
+                    out_ids[cfg, users] = nbr[s, : len(users)]
+                    out_sims[cfg, users] = sims[s, : len(users)]
     return out_ids, out_sims, dp
 
 

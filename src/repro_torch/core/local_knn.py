@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.clustering import ClusterPlan
 from repro_torch.core.params import C2Params
 from repro_torch.device import resolve_device
@@ -36,9 +37,8 @@ def capacity_of(size: int, minimum: int = 32) -> int:
     return c
 
 
-def group_batches(plan: ClusterPlan, W: int, greedy_from: int | None = None):
-    """Yield ``(cap, batch, members)`` per kernel call: ``batch`` the
-    cluster indices, ``members`` int32[len(batch), cap] PAD_ID-padded.
+def batch_groups(plan: ClusterPlan, W: int, greedy_from: int | None = None):
+    """``(cap, batch)`` per kernel call, ``batch`` the cluster indices.
 
     Capacity groups ascend; within a group, batches of at most
     ``SIM_BUDGET // max(cap²·4, cap·W·16)`` clusters (the reference's
@@ -50,15 +50,30 @@ def group_batches(plan: ClusterPlan, W: int, greedy_from: int | None = None):
     caps = np.array([capacity_of(int(s)) for s in sizes], dtype=np.int64)
     if greedy_from is not None:
         caps[sizes >= greedy_from] = -1
+    out = []
     for cap in np.unique(caps[caps >= 0]):
         idx = np.flatnonzero(caps == cap)
         m_max = max(1, int(SIM_BUDGET // max(cap * cap * 4, cap * W * 4 * 4)))
-        for s in range(0, len(idx), m_max):
-            batch = idx[s:s + m_max]
-            mem = np.full((len(batch), cap), PAD_ID, dtype=np.int32)
-            for j, ci in enumerate(batch):
-                mem[j, : sizes[ci]] = plan.members[ci]
-            yield int(cap), batch, mem
+        out += [(int(cap), idx[s:s + m_max])
+                for s in range(0, len(idx), m_max)]
+    return out
+
+
+def member_matrix(plan: ClusterPlan, batch, cap: int) -> np.ndarray:
+    """int32[len(batch), cap]: the members of each cluster of ``batch``,
+    PAD_ID-padded."""
+    mem = np.full((len(batch), cap), PAD_ID, dtype=np.int32)
+    for j, ci in enumerate(batch):
+        users = plan.members[ci]
+        mem[j, : len(users)] = users
+    return mem
+
+
+def group_batches(plan: ClusterPlan, W: int, greedy_from: int | None = None):
+    """Yield ``(cap, batch, members)`` per kernel call: the batches of
+    :func:`batch_groups`, ``members`` their :func:`member_matrix`."""
+    for cap, batch in batch_groups(plan, W, greedy_from):
+        yield cap, batch, member_matrix(plan, batch, cap)
 
 
 def batch_inputs(words: torch.Tensor, card: torch.Tensor,
@@ -103,24 +118,35 @@ def local_knn(plan: ClusterPlan, gf: GoldFinger, params: C2Params,
     """
     dev = resolve_device(device)
     t, n, k = plan.t, plan.n_users, params.k
-    out_ids = np.full((t, n, k), PAD_ID, dtype=np.int32)
-    out_sims = np.full((t, n, k), NEG_INF, dtype=np.float32)
-    for ci in np.flatnonzero(plan.sizes >= params.bf_threshold):
-        users = plan.members[ci]
-        nbr, sims = _hyrec_cluster(users, gf, k, params.rho, dev)
-        out_ids[plan.config_of[ci], users] = nbr
-        out_sims[plan.config_of[ci], users] = sims
-    words = words_tensor(gf.words, dev)
-    card = torch.from_numpy(np.asarray(gf.card, dtype=np.int32)).to(dev)
-    for _, batch, members in group_batches(plan, words.shape[1],
-                                           params.bf_threshold):
-        nbr, sims = gk_ops.cluster_knn(*batch_inputs(words, card, members), k)
-        nbr, sims = nbr.cpu().numpy(), sims.cpu().numpy()
-        # Scatter back per configuration (each user appears in exactly
-        # one cluster per configuration).
-        for j, ci in enumerate(batch):
-            cfg = plan.config_of[ci]
+    with obs.span("step2.alloc"):
+        out_ids = np.full((t, n, k), PAD_ID, dtype=np.int32)
+        out_sims = np.full((t, n, k), NEG_INF, dtype=np.float32)
+    with obs.span("step2.hyrec"):
+        for ci in np.flatnonzero(plan.sizes >= params.bf_threshold):
             users = plan.members[ci]
-            out_ids[cfg, users] = nbr[j, : len(users)]
-            out_sims[cfg, users] = sims[j, : len(users)]
+            nbr, sims = _hyrec_cluster(users, gf, k, params.rho, dev)
+            out_ids[plan.config_of[ci], users] = nbr
+            out_sims[plan.config_of[ci], users] = sims
+    with obs.span("step2.upload"):
+        words = words_tensor(gf.words, dev)
+        card = torch.from_numpy(np.asarray(gf.card, dtype=np.int32)).to(dev)
+        obs.count("step2.h2d_bytes", words.nbytes + card.nbytes)
+    for cap, batch in batch_groups(plan, words.shape[1],
+                                   params.bf_threshold):
+        with obs.span("step2.pack"):
+            members = member_matrix(plan, batch, cap)
+            inputs = batch_inputs(words, card, members)
+            obs.count("step2.h2d_bytes", members.nbytes)
+        with obs.span("step2.wait"):
+            nbr, sims = gk_ops.cluster_knn(*inputs, k)
+            nbr, sims = nbr.cpu().numpy(), sims.cpu().numpy()
+            obs.count("step2.d2h_bytes", nbr.nbytes + sims.nbytes)
+        with obs.span("step2.scatter"):
+            # Scatter back per configuration (each user appears in exactly
+            # one cluster per configuration).
+            for j, ci in enumerate(batch):
+                cfg = plan.config_of[ci]
+                users = plan.members[ci]
+                out_ids[cfg, users] = nbr[j, : len(users)]
+                out_sims[cfg, users] = sims[j, : len(users)]
     return out_ids, out_sims

@@ -59,6 +59,11 @@ write-ahead journal of every mutation (a ``[serve] store:`` line); a
 ``--recover DIR`` skips the build and restores the engine, bitwise, from
 the last snapshot and the journal's replay (a store written by either
 package).
+
+``--trace-out PATH`` runs the timed serve (after the warm-up step) under
+``torch.profiler`` and writes its Chrome trace, with the program's spans
+(``repro_torch.obs``), to PATH and the program's counters to
+``PATH.counters.json``.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.params import params_for
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.device import resolve_device
@@ -160,6 +166,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device the index and the descent live on")
+    ap.add_argument("--trace-out", default=None,
+                    help="profile the timed serve (torch.profiler) and "
+                         "write its Chrome trace here, the program's "
+                         "counters to PATH.counters.json")
     return ap
 
 
@@ -285,7 +295,8 @@ def _serve(args, engine, index, dev):
             rid=rid, profile=p,
             priority=0 if rid < n_high else 1, deadline=deadline))
     try:
-        stats = engine.run()
+        with obs.capture(args.trace_out, dev):
+            stats = engine.run()
     except EngineCrash as e:
         # The injected crash lands between scheduler steps: every mutation
         # is journaled, the requests in flight are lost (clients retry).

@@ -47,6 +47,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.eval.metrics import knn_recall
 from repro_torch.lifecycle import LifecycleConfig, LifecycleManager
 from repro_torch.query.index import KNNIndex
@@ -72,6 +73,7 @@ class QueryRequest:
     ids: Optional[np.ndarray] = None     # int32[k] neighbor ids
     sims: Optional[np.ndarray] = None    # float32[k] similarities
     t_submit: float = 0.0
+    t_admit: float = 0.0                 # clock() when a wave or slot took it
     t_done: float = 0.0
     status: str = "pending"              # pending | done | rejected
     degraded: bool = False               # served while >=1 shard was
@@ -232,17 +234,21 @@ class QueryEngine:
         masks newly unhealthy shards before the plan step; the failover
         swap and the crash store run last, so they see the step's
         mutations journaled."""
-        if self.faults is not None:
-            self.faults.begin_step()  # may raise EngineCrash
-        if self.failover is not None:
-            self.failover.observe()
-        n = self.plan.step(self.queue, self.done)
-        self.lifecycle.maintain()
-        self.rebalance.maintain()
-        if self.failover is not None:
-            self.failover.maintain()
-        if self.store is not None:
-            self.store.maintain(self)
+        with obs.span("serve.step"):
+            obs.count("serve.steps", 1)
+            if self.faults is not None:
+                with obs.span("serve.maintain"):
+                    self.faults.begin_step()  # may raise EngineCrash
+                    if self.failover is not None:
+                        self.failover.observe()
+            n = self.plan.step(self.queue, self.done)
+            with obs.span("serve.maintain"):
+                self.lifecycle.maintain()
+                self.rebalance.maintain()
+                if self.failover is not None:
+                    self.failover.maintain()
+                if self.store is not None:
+                    self.store.maintain(self)
         return n
 
     def tick(self) -> int:

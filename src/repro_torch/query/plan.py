@@ -51,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.local_knn import capacity_of
 from repro_torch.device import resolve_device
 from repro_torch.query.cache import ResultCache
@@ -420,8 +421,9 @@ class DescentPlan:
         """
         hops = self.spec.hops if hops is None else hops
         if self.cache is None:
-            seeds = route(self.index, items, offsets,
-                          self.spec.seeds_per_config, placed=placed)
+            with obs.span("serve.admit.route"):
+                seeds = route(self.index, items, offsets,
+                              self.spec.seeds_per_config, placed=placed)
             return self.descend_rows(qgf.words, qgf.card, seeds, k,
                                      hops=hops)
         self.cache.sync()
@@ -441,8 +443,9 @@ class DescentPlan:
             m_items, m_offsets = _csr_subset(items, offsets, miss)
             m_placed = ([placed[i] for i in miss]
                         if placed is not None else None)
-            seeds = route(self.index, m_items, m_offsets,
-                          self.spec.seeds_per_config, placed=m_placed)
+            with obs.span("serve.admit.route"):
+                seeds = route(self.index, m_items, m_offsets,
+                              self.spec.seeds_per_config, placed=m_placed)
             m_ids, m_sims = self.descend_rows(qw[miss], qc[miss], seeds, k,
                                               hops=hops)
             degraded = self._degraded()
@@ -459,33 +462,35 @@ class DescentPlan:
         """Beam-descend from explicit seed rows, with no routing; host
         arrays in and out. The lifecycle's updates and repairs seed it
         from a user's graph neighbourhood, with their own ``beam``."""
-        spec = self.spec
-        beam = max(self.beam if beam is None else beam, k)
-        hops = spec.hops if hops is None else hops
-        dev = self.device
-        if spec.placement > 1:
-            sd = self._sync_sharded()
-            ids, sims = sd.descend(q_words, q_card, seeds, k=k, beam=beam,
-                                   hops=hops, kernel=spec.kernel,
-                                   dma=spec.dma)
-            self._note_stats(torch.from_numpy(sd.last_hop_stats))
+        with obs.span("serve.descend"):
+            spec = self.spec
+            beam = max(self.beam if beam is None else beam, k)
+            hops = spec.hops if hops is None else hops
+            dev = self.device
+            if spec.placement > 1:
+                sd = self._sync_sharded()
+                ids, sims = sd.descend(q_words, q_card, seeds, k=k,
+                                       beam=beam, hops=hops,
+                                       kernel=spec.kernel, dma=spec.dma)
+                self._note_stats(torch.from_numpy(sd.last_hop_stats))
+                return ids.cpu().numpy(), sims.cpu().numpy()
+            graph_ids, rev_ids, words, card, tomb = self.sync()
+            ids, sims, stats = batched_descent(
+                graph_ids, rev_ids, words, card, words_tensor(q_words, dev),
+                torch.from_numpy(np.asarray(q_card, dtype=np.int32)).to(dev),
+                torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(dev),
+                k=k, beam=beam, hops=hops, kernel=spec.kernel,
+                dma=spec.dma, tomb=tomb)
+            self._note_stats(stats)
             return ids.cpu().numpy(), sims.cpu().numpy()
-        graph_ids, rev_ids, words, card, tomb = self.sync()
-        ids, sims, stats = batched_descent(
-            graph_ids, rev_ids, words, card, words_tensor(q_words, dev),
-            torch.from_numpy(np.asarray(q_card, dtype=np.int32)).to(dev),
-            torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(dev),
-            k=k, beam=beam, hops=hops, kernel=spec.kernel,
-            dma=spec.dma, tomb=tomb)
-        self._note_stats(stats)
-        return ids.cpu().numpy(), sims.cpu().numpy()
 
     def query_batch(self, profiles, k: int | None = None,
                     hops: int | None = None):
         """Answer raw profiles: (ids int32[q, k], sims float32[q, k])."""
-        items, offsets = profiles_to_csr(profiles)
-        qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
-                                   self.index.fp_seed)
+        with obs.span("serve.admit.fingerprint"):
+            items, offsets = profiles_to_csr(profiles)
+            qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
+                                       self.index.fp_seed)
         return self.search(items, offsets, qgf, k or self.spec.k, hops=hops)
 
     # -- the serving loop ------------------------------------------------------
@@ -527,28 +532,42 @@ class DescentPlan:
         requests, and expired and overflow requests are shed."""
         spec = self.spec
         n_done = 0
-        if spec.admission == "slo":
-            wave, shed = shed_and_select(queue, spec.max_wave, self.clock(),
-                                         spec.max_pending)
-            n_done = self._reject(shed, done)
-        else:
-            wave = []
-            while queue and len(wave) < spec.max_wave:
-                wave.append(queue.popleft())
-        if not wave:
-            return n_done
+        with obs.span("serve.schedule"):
+            if spec.admission == "slo":
+                wave, shed = shed_and_select(queue, spec.max_wave,
+                                             self.clock(), spec.max_pending)
+                n_done = self._reject(shed, done)
+            else:
+                wave = []
+                while queue and len(wave) < spec.max_wave:
+                    wave.append(queue.popleft())
+            if not wave:
+                return n_done
+            self._note_admitted(wave)
         hops = max(r.hops if r.hops is not None else spec.hops
                    for r in wave)
         ids, sims = self.query_batch([r.profile for r in wave], hops=hops)
-        now = self.clock()
-        degraded = self._degraded()
-        for j, r in enumerate(wave):
-            r.ids, r.sims = ids[j], sims[j]
-            r.t_done = now
-            r.status = "done"
-            r.degraded = degraded
-            done.append(r)
+        with obs.span("serve.complete"):
+            now = self.clock()
+            degraded = self._degraded()
+            for j, r in enumerate(wave):
+                r.ids, r.sims = ids[j], sims[j]
+                r.t_done = now
+                r.status = "done"
+                r.degraded = degraded
+                done.append(r)
         return len(wave) + n_done
+
+    def _note_admitted(self, reqs) -> None:
+        """Stamp each request's ``t_admit``; while a profiler records, count
+        the admissions and their seconds from submission to admission."""
+        now = self.clock()
+        for r in reqs:
+            r.t_admit = now
+        if obs.enabled():
+            obs.count("serve.admitted", len(reqs))
+            obs.count("serve.queue_wait_s",
+                      sum(now - r.t_submit for r in reqs))
 
     # -- continuous batching ---------------------------------------------------
 
@@ -586,56 +605,62 @@ class DescentPlan:
         """
         spec = self.spec
         dev = self.device
-        items, offsets = profiles_to_csr([r.profile for _, r in admitted])
-        qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
-                                   self.index.fp_seed)
+        with obs.span("serve.admit.fingerprint"):
+            items, offsets = profiles_to_csr([r.profile for _, r in admitted])
+            qgf = fingerprint_profiles(items, offsets, self.index.n_bits,
+                                       self.index.fp_seed)
         qw, qc = qgf.words, qgf.card
         n_hit = 0
         if self.cache is None:
             rows = list(range(len(admitted)))
         else:
-            rows = []
-            now = self.clock()
-            for j, (slot, req) in enumerate(admitted):
-                budget = req.hops if req.hops is not None else spec.hops
-                ck = self.cache.key(qw[j], qc[j], spec.k, budget)
-                hit = self.cache.get(ck)
-                if hit is not None:
-                    st.sched.release(slot)
-                    req.ids, req.sims = hit
-                    req.t_done = now
-                    req.status = "done"
-                    done.append(req)
-                    n_hit += 1
-                else:
-                    # The completion is stored only if no flush fell while
-                    # the request was in flight (flush count unchanged).
-                    req._cache_key = ck
-                    req._cache_flushes = self.cache.flushes
-                    rows.append(j)
-            if not rows:
+            with obs.span("serve.admit.cache"):
+                rows = []
+                now = self.clock()
+                for j, (slot, req) in enumerate(admitted):
+                    budget = req.hops if req.hops is not None else spec.hops
+                    ck = self.cache.key(qw[j], qc[j], spec.k, budget)
+                    hit = self.cache.get(ck)
+                    if hit is not None:
+                        st.sched.release(slot)
+                        req.ids, req.sims = hit
+                        req.t_done = now
+                        req.status = "done"
+                        done.append(req)
+                        n_hit += 1
+                    else:
+                        # The completion is stored only if no flush fell
+                        # while the request was in flight (flush count
+                        # unchanged).
+                        req._cache_key = ck
+                        req._cache_flushes = self.cache.flushes
+                        rows.append(j)
+                if not rows:
+                    return n_hit
+                items, offsets = _csr_subset(items, offsets, rows)
+                qw, qc = qw[rows], qc[rows]
+        with obs.span("serve.admit.route"):
+            seeds = route(self.index, items, offsets, spec.seeds_per_config)
+        with obs.span("serve.admit.scatter"):
+            slots = np.array([admitted[j][0] for j in rows], dtype=np.int64)
+            for j in rows:
+                slot, req = admitted[j]
+                st.hops_done[slot] = 0
+                st.budget[slot] = (req.hops if req.hops is not None
+                                   else spec.hops)
+                st.streak[slot] = 0
+                st.fresh[slot] = True
+            if spec.placement > 1:
+                self._sync_sharded().slot_admit(st.parts, qw, qc, seeds,
+                                                slots, beam=st.beam)
                 return n_hit
-            items, offsets = _csr_subset(items, offsets, rows)
-            qw, qc = qw[rows], qc[rows]
-        seeds = route(self.index, items, offsets, spec.seeds_per_config)
-        slots = np.array([admitted[j][0] for j in rows], dtype=np.int64)
-        for j in rows:
-            slot, req = admitted[j]
-            st.hops_done[slot] = 0
-            st.budget[slot] = req.hops if req.hops is not None else spec.hops
-            st.streak[slot] = 0
-            st.fresh[slot] = True
-        if spec.placement > 1:
-            self._sync_sharded().slot_admit(st.parts, qw, qc, seeds, slots,
-                                            beam=st.beam)
-            return n_hit
-        words, card, tomb = self.sync()[2:5]
-        p = st.parts[0]
-        slot_admit(words, card, words_tensor(qw, dev),
-                   torch.from_numpy(np.asarray(qc, np.int32)).to(dev),
-                   torch.from_numpy(np.asarray(seeds, np.int32)).to(dev),
-                   torch.from_numpy(slots).to(dev), p.q_words, p.q_card,
-                   p.beam_ids, p.beam_sims, beam=st.beam, tomb=tomb)
+            words, card, tomb = self.sync()[2:5]
+            p = st.parts[0]
+            slot_admit(words, card, words_tensor(qw, dev),
+                       torch.from_numpy(np.asarray(qc, np.int32)).to(dev),
+                       torch.from_numpy(np.asarray(seeds, np.int32)).to(dev),
+                       torch.from_numpy(slots).to(dev), p.q_words, p.q_card,
+                       p.beam_ids, p.beam_sims, beam=st.beam, tomb=tomb)
         return n_hit
 
     def _step_continuous(self, queue, done) -> int:
@@ -653,40 +678,46 @@ class DescentPlan:
         and neither is a result whose flight straddled a cache flush.
         """
         spec = self.spec
-        self.sync()  # mutations since the last tick reach this one's hop
-        had_state = self._slots is not None
-        st = self._slot_state()
-        if spec.placement > 1:
-            # A reshard or a re-balance swap since the last tick may have
-            # relabelled shard-local ids; in-flight beams hold local ids,
-            # so relabel them before the next hop.
-            remap = self._sharded.take_beam_remap()
-            if remap is not None and had_state:
-                # Lanes the map sends to PAD (rows a swap evicted from
-                # their shard) lose their sims; under the frozen-base
-                # extension no live lane maps to PAD.
-                self._sharded.remap_slots(st.parts, remap)
-                if spec.adaptive > 0:
-                    # Stored prefixes hold the old local ids: restart every
-                    # streak rather than compare across labels.
-                    st.streak[:] = 0
-                    st.fresh[:] = True
+        with obs.span("serve.sync"):
+            self.sync()  # mutations since the last tick reach this one's hop
+            had_state = self._slots is not None
+            st = self._slot_state()
+            if spec.placement > 1:
+                # A reshard or a re-balance swap since the last tick may
+                # have relabelled shard-local ids; in-flight beams hold
+                # local ids, so relabel them before the next hop.
+                remap = self._sharded.take_beam_remap()
+                if remap is not None and had_state:
+                    # Lanes the map sends to PAD (rows a swap evicted from
+                    # their shard) lose their sims; under the frozen-base
+                    # extension no live lane maps to PAD.
+                    self._sharded.remap_slots(st.parts, remap)
+                    if spec.adaptive > 0:
+                        # Stored prefixes hold the old local ids: restart
+                        # every streak rather than compare across labels.
+                        st.streak[:] = 0
+                        st.fresh[:] = True
         sched = st.sched
-        while queue:
-            sched.submit(queue.popleft())
-        if self.cache is not None:
-            self.cache.sync()
+        with obs.span("serve.schedule"):
+            while queue:
+                sched.submit(queue.popleft())
+            if self.cache is not None:
+                self.cache.sync()
+            admitted = sched.admit()
+            self._note_admitted([r for _, r in admitted])
         n_done = 0
-        admitted = sched.admit()
         while admitted:
             freed = self._admit(st, admitted, done)
             n_done += freed
             if not freed:
                 break
             # Cache hits released their slots: admit into them.
-            admitted = sched.admit()
-        n_done += self._reject(sched.drain_shed(), done)
-        active = sched.active_mask()
+            with obs.span("serve.schedule"):
+                admitted = sched.admit()
+                self._note_admitted([r for _, r in admitted])
+        with obs.span("serve.schedule"):
+            n_done += self._reject(sched.drain_shed(), done)
+            active = sched.active_mask()
         if not active.any():
             return n_done
         # Zero-budget slots never enter the hop (a hops=0 wave runs no
@@ -694,52 +725,69 @@ class DescentPlan:
         hop_active = active & (st.hops_done < st.budget)
         changed = np.zeros(active.shape[0], bool)
         if hop_active.any():
-            if spec.placement > 1:
-                sd = self._sync_sharded()
-                changed_t, stats = sd.slot_hop(
-                    st.parts, hop_active, kernel=spec.kernel, dma=spec.dma)
-                if spec.adaptive > 0:
-                    stable_t = sd.slot_prefix_stable(st.parts, k=spec.k)
-            else:
-                graph_ids, rev_ids, words, card, tomb = self.sync()
-                p = st.parts[0]
-                p.beam_ids, p.beam_sims, changed_t, stats = slot_hop(
-                    graph_ids, rev_ids, words, card, p.q_words, p.q_card,
-                    p.beam_ids, p.beam_sims,
-                    torch.from_numpy(hop_active).to(self.device),
-                    kernel=spec.kernel, dma=spec.dma, tomb=tomb)
-                if spec.adaptive > 0:
-                    stable_t, p.prefix_ids = slot_prefix_stable(
-                        p.beam_ids, p.prefix_ids, k=spec.k)
-            # The hop's counts, `changed` and (adaptive) `stable` reach the
-            # host in one copy.
-            cols = [stats.to(torch.int32), changed_t[:, None].to(torch.int32)]
+            with obs.span("serve.hop"):
+                changed = self._hop(st, hop_active)
+        with obs.span("serve.complete"):
+            return n_done + self._complete(st, active, hop_active, changed,
+                                           done)
+
+    def _hop(self, st: _SlotState, hop_active: np.ndarray) -> np.ndarray:
+        """Advance the ``hop_active`` slots one hop; fold the hop's counts
+        into :attr:`descent_stats` and return ``changed`` (bool[n_slots]):
+        the rows whose beam moved."""
+        spec = self.spec
+        if spec.placement > 1:
+            sd = self._sync_sharded()
+            changed_t, stats = sd.slot_hop(
+                st.parts, hop_active, kernel=spec.kernel, dma=spec.dma)
             if spec.adaptive > 0:
-                cols.append(stable_t[:, None].to(torch.int32))
-            host = torch.cat(cols, dim=1).cpu().numpy()
-            changed = host[:, 3].astype(bool)
-            # The hop ran every slot row; count only the active ones.
-            self._note_stats(torch.from_numpy(host[hop_active, :3]))
-            st.hops_done[hop_active] += 1
-            self.n_ticks += 1
+                stable_t = sd.slot_prefix_stable(st.parts, k=spec.k)
+        else:
+            graph_ids, rev_ids, words, card, tomb = self.sync()
+            p = st.parts[0]
+            p.beam_ids, p.beam_sims, changed_t, stats = slot_hop(
+                graph_ids, rev_ids, words, card, p.q_words, p.q_card,
+                p.beam_ids, p.beam_sims,
+                torch.from_numpy(hop_active).to(self.device),
+                kernel=spec.kernel, dma=spec.dma, tomb=tomb)
             if spec.adaptive > 0:
-                # A slot's first hop compares against its previous
-                # occupant's prefix: `fresh` keeps it out of the streak.
-                gained = hop_active & host[:, 4].astype(bool) & ~st.fresh
-                st.streak[gained] += 1
-                st.streak[hop_active & ~gained] = 0
-                st.fresh[hop_active] = False
+                stable_t, p.prefix_ids = slot_prefix_stable(
+                    p.beam_ids, p.prefix_ids, k=spec.k)
+        # The hop's counts, `changed` and (adaptive) `stable` reach the
+        # host in one copy.
+        cols = [stats.to(torch.int32), changed_t[:, None].to(torch.int32)]
+        if spec.adaptive > 0:
+            cols.append(stable_t[:, None].to(torch.int32))
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        # The hop ran every slot row; count only the active ones.
+        self._note_stats(torch.from_numpy(host[hop_active, :3]))
+        st.hops_done[hop_active] += 1
+        self.n_ticks += 1
+        if spec.adaptive > 0:
+            # A slot's first hop compares against its previous occupant's
+            # prefix: `fresh` keeps it out of the streak.
+            gained = hop_active & host[:, 4].astype(bool) & ~st.fresh
+            st.streak[gained] += 1
+            st.streak[hop_active & ~gained] = 0
+            st.fresh[hop_active] = False
+        return host[:, 3].astype(bool)
+
+    def _complete(self, st: _SlotState, active, hop_active, changed,
+                  done) -> int:
+        """Release the slots whose request finished this tick, their
+        results stamped and appended to ``done``; returns how many."""
+        spec = self.spec
         exact = (st.hops_done >= st.budget) | (hop_active & ~changed)
         finished = active & exact
         if spec.adaptive > 0:
             finished |= hop_active & (st.streak >= spec.adaptive)
         if not finished.any():
-            return n_done
+            return 0
         ids, sims = self._slot_results(st)
         now = self.clock()
         degraded = self._degraded()
         slots = np.flatnonzero(finished)
-        for slot, req in zip(slots, sched.release_many(slots)):
+        for slot, req in zip(slots, st.sched.release_many(slots)):
             req.ids = ids[slot].copy()
             req.sims = sims[slot].copy()
             req.t_done = now
@@ -755,4 +803,4 @@ class DescentPlan:
                     self.cache.degraded_skips += 1
                 else:
                     self.cache.put(req._cache_key, req.ids, req.sims)
-        return n_done + len(slots)
+        return len(slots)

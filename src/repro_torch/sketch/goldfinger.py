@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.hashing import fmix32
 from repro_torch.types import Dataset
 
@@ -72,14 +73,16 @@ def fingerprint_dataset(ds: Dataset, n_bits: int = DEFAULT_BITS, seed: int = 0) 
     if n_bits % 32:
         raise ValueError(f"n_bits must be a multiple of 32, got {n_bits}")
     W = n_bits // 32
-    pos = item_bit_positions(ds.items, n_bits, seed)
-    word_idx = (pos // 32).astype(np.int64)
-    bit = np.uint32(1) << (pos % 32).astype(np.uint32)
-    words = np.zeros((ds.n_users, W), dtype=np.uint32)
-    # Scatter-OR each item's bit into its user's row.
-    user_of = np.repeat(np.arange(ds.n_users, dtype=np.int64), ds.profile_sizes)
-    np.bitwise_or.at(words, (user_of, word_idx), bit)
-    card = popcount_rows(words)
+    with obs.span("sketch.fingerprint"):
+        pos = item_bit_positions(ds.items, n_bits, seed)
+        word_idx = (pos // 32).astype(np.int64)
+        bit = np.uint32(1) << (pos % 32).astype(np.uint32)
+        words = np.zeros((ds.n_users, W), dtype=np.uint32)
+        # Scatter-OR each item's bit into its user's row.
+        user_of = np.repeat(np.arange(ds.n_users, dtype=np.int64),
+                            ds.profile_sizes)
+        np.bitwise_or.at(words, (user_of, word_idx), bit)
+        card = popcount_rows(words)
     return GoldFinger(words=words, card=card)
 
 
