@@ -48,7 +48,9 @@ Phases, each fatal on failure:
    CSR entry over empty, one-item and longest rows, row offsets of every
    residue mod 4 and an unaligned item array, t = 1, 8 and 32, b = 256,
    4,096 and 2^31 and items near 2^31 - 1, against its plain version and
-   the padded entry;
+   the padded entry; its distinct entry over the same rows, t = 1, 3, 8,
+   12 and 32, b = 256 and 2^31, depth 1, 3, 6 and 8, against its plain
+   version;
 4. main path — ``knn_build`` on ml1M@1.0 with the paper's parameters
    (k=30) into a temporary index, then ``knn_serve`` of 2,048 unseen
    profiles (k=10, beam 32, 3 hops) in waves of 256 with the fused hop,
@@ -58,7 +60,10 @@ Phases, each fatal on failure:
    hop; 256 of those profiles served with ``--beam 128`` by the plain hop,
    ``--kernel`` and ``--kernel --dma``, equal rid by rid; then
    ``dataset_minhash`` of ml1M@1.0 through the CSR entry, equal to the host
-   hashing and the padded entry. Each path is driven with the launch counts
+   hashing and the padded entry; then ``build_plan`` of ml1M@1.0 and of a
+   c2-ml10M dataset (``c2bench/data.py``) on the card, one launch of the
+   distinct entry each, plans equal to the host's and the table bitwise
+   ``user_distinct_hashes_np``, with its device time. Each path is driven with the launch counts
    set to 0 just before it and read just after, and each kernel must have
    launched on its path. A small build on the card must equal the CPU's;
 4b. mutable index — over the same paper index, ``knn_serve --insert 256
@@ -287,8 +292,9 @@ Phases, each fatal on failure:
    Step-2 sweep's device time per capacity group
    beside its host clock; the host clock per phase of a wave and of
    continuous ticks; both FastRandomHash entries' device time; where the
-   ml1M@1.0 build's clustering and one wave's routing spend their host
-   clock (item hashes, distinct hashes, splits, the rest).
+   ml1M@1.0 build's clustering (the distinct-hash table from the card,
+   splits, the rest) and one wave's routing (item hashes and distinct
+   hashes on the host, the rest) spend their host clock.
 
 Prints one ``{"kernels": [...]}`` JSON line (every row also carries phase
 4k's launches under ``phase_4k``; the hop rows also carry the
@@ -1065,7 +1071,26 @@ def check_minhash(dev) -> tuple[int, float]:
         f"with offsets = 0/1/2/3 mod 4 in {residues.tolist()} rows; items "
         f"16-byte aligned and not; t 1/8/32; b 256/4096/2^31) bitwise equal "
         f"to the plain version and to the padded entry")
-    return n_checked + n_csr, 0.0
+    n_distinct = 0
+    for aligned in (True, False):
+        it = d_items[:-1] if aligned else d_items[1:]
+        for t in (1, 3, 8, 12, 32):  # seed groups of 1, 4, 8, 8 + 4, 4 x 8
+            seeds = (np.arange(t, dtype=np.int64) * 1_000_003 - 5).astype(
+                np.int32)
+            for b in (256, 1 << 31):
+                for depth in (1, 3, 6, 8):
+                    got = ops.distinct_csr(d_off, it, seeds, b, depth)
+                    want = ref.distinct_csr_ref(d_off, it, seeds, b, depth)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fail(f"distinct_csr t={t} b={b} depth={depth} "
+                             f"aligned={aligned}: differs from the plain "
+                             f"version")
+                    n_distinct += 1
+    log(f"[kernels] frh_minhash distinct: {n_distinct} cases (the CSR "
+        f"rows above, aligned and not; t 1/3/8/12/32; b 256/2^31; depth "
+        f"1/3/6/8) bitwise equal to the plain version")
+    return n_checked + n_csr + n_distinct, 0.0
 
 
 # -- datasets made once ----------------------------------------------------
@@ -1126,12 +1151,14 @@ def reset_launches() -> None:
 
     gk_ops.launches = ds_ops.launches = ds_ops.launches_dma = 0
     ds_ops.launches_sharded = ds_ops.launches_dma_sharded = 0
-    mh_ops.launches = mh_ops.launches_csr = 0
+    mh_ops.launches = mh_ops.launches_csr = mh_ops.launches_distinct = 0
 
 
 def read_launches() -> dict:
     """Each kernel's launches; the hops' also as ``*_sharded``: those of
-    them made through the sharded entry (``ops.descent_hop_sharded``)."""
+    them made through the sharded entry (``ops.descent_hop_sharded``);
+    FastRandomHash's distinct entry (build Step 1's table on the card)
+    apart from its min-hash entries, as ``frh_minhash_distinct``."""
     from repro_torch.kernels.descent_score import ops as ds_ops
     from repro_torch.kernels.frh_minhash import ops as mh_ops
     from repro_torch.kernels.goldfinger_knn import ops as gk_ops
@@ -1140,6 +1167,7 @@ def read_launches() -> dict:
             "descent_hop": ds_ops.launches,
             "descent_hop_dma": ds_ops.launches_dma,
             "frh_minhash": mh_ops.launches + mh_ops.launches_csr,
+            "frh_minhash_distinct": mh_ops.launches_distinct,
             "descent_hop_sharded": ds_ops.launches_sharded,
             "descent_hop_dma_sharded": ds_ops.launches_dma_sharded}
 
@@ -1180,8 +1208,12 @@ def main_path(dev, tmp: Path) -> dict:
     for name in ("goldfinger_knn", "descent_hop"):
         if path1[name] <= 0:
             fail(f"the main path never launched the {name} kernel")
+    if path1["frh_minhash_distinct"] != 1:
+        fail(f"the main path's build launched FastRandomHash's distinct "
+             f"entry {path1['frh_minhash_distinct']} times, not once")
     launches = {name: path1[name]
-                for name in ("goldfinger_knn", "descent_hop")}
+                for name in ("goldfinger_knn", "descent_hop",
+                             "frh_minhash_distinct")}
 
     graph, plan = built["graph"], built["plan"]
     if graph.ids.shape != (6038, 30):
@@ -1250,7 +1282,9 @@ def main_path(dev, tmp: Path) -> dict:
             cont_engine = d_engine
     wide_beam_serves(serve_args)
     launches["frh_minhash"] = minhash_path()
-    return {"launches": launches, "built": built, "engine": engine,
+    distinct = distinct_path()
+    return {"launches": launches, "distinct": distinct, "built": built,
+            "engine": engine,
             "cont_engine": cont_engine, "serves": serves,
             "serve_args": serve_args, "index_path": index_path}
 
@@ -1334,6 +1368,94 @@ def minhash_path() -> int:
     return count
 
 
+def distinct_path() -> dict:
+    """Build Step 1's distinct-hash table on the card: ``build_plan`` of
+    ml1M@1.0 (the paper build's parameters) and of a c2-ml10M dataset
+    (``c2bench/data.py``, the benchmark's configuration, seed 0) on the
+    card launches FastRandomHash's distinct entry once, nothing else, and
+    gives the host path's plan; the entry's table is bitwise the host's
+    ``user_distinct_hashes_np`` over ``item_hashes``; its device time
+    (held, items warm in L2 after one call) beside its least time and its
+    plain version's, and ``build_plan``'s host clock on the card and on
+    the host."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from c2bench import data as c2data
+    from repro_torch.core import clustering, hashing
+    from repro_torch.core.params import C2Params, params_for
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels.frh_minhash import ops, ref
+    from repro_torch.types import Dataset
+
+    cfg = json.loads((ROOT / "c2bench" / "configs" / "c2-ml10M.json")
+                     .read_text())
+    d = c2data.make_data(cfg, 0, 0)
+    cases = (("ml1M@1.0", make_dataset("ml1M", scale=1.0, seed=0),
+              params_for("ml1M", k=30)),
+             ("c2-ml10M", Dataset(name="c2-ml10M", n_users=d.n_users,
+                                  n_items=d.n_items, items=d.items,
+                                  offsets=d.offsets),
+              C2Params(**cfg["c2"])))
+    out = {}
+    for label, ds, params in cases:
+        seeds = clustering.frh_seeds(params)
+        t, b, depth = params.t, params.b, params.split_depth
+        reset_launches()
+        t0 = time.perf_counter()
+        plan = clustering.build_plan(ds, params, device="cuda")
+        card_s = time.perf_counter() - t0
+        counts = read_launches()
+        if counts["frh_minhash_distinct"] != 1 or any(
+                v for k, v in counts.items() if k != "frh_minhash_distinct"):
+            fail(f"build_plan of {label} on the card launched {counts}; "
+                 f"expected the distinct entry once and nothing else")
+        t0 = time.perf_counter()
+        host_plan = clustering.build_plan(ds, params)
+        host_s = time.perf_counter() - t0
+        if not (plan.paths == host_plan.paths
+                and np.array_equal(plan.config_of, host_plan.config_of)
+                and len(plan.members) == len(host_plan.members)
+                and all(np.array_equal(a, c) for a, c in
+                        zip(plan.members, host_plan.members))):
+            fail(f"build_plan of {label} on the card differs from the "
+                 f"host's plan")
+        host = hashing.user_distinct_hashes_np(
+            hashing.item_hashes(ds.items, seeds, b), ds.offsets, depth)
+        offsets = torch.from_numpy(np.asarray(ds.offsets, np.int64)).cuda()
+        items = torch.from_numpy(np.asarray(ds.items, np.int32)).cuda()
+        got = ops.distinct_csr(offsets, items, seeds, b, depth)
+        if not np.array_equal(got.cpu().numpy(), host):
+            bad = int((got.cpu().numpy() != host).any(axis=2).sum())
+            fail(f"distinct_csr of {label} differs from the host table in "
+                 f"{bad} (seed, user) rows")
+        ms = cuda_ms(lambda: ops.distinct_csr(offsets, items, seeds, b,
+                                              depth), reps=7, inner=20,
+                     hold=True)
+        plain_ms = cuda_ms(lambda: ref.distinct_csr_ref(offsets, items,
+                                                        seeds, b, depth),
+                           reps=3)
+        n, nnz = ds.n_users, len(ds.items)
+        t_ops = nnz * t * MINHASH_OPS / CUDA_CORE_OPS_PER_S * 1e3
+        t_bytes = (nnz * 4 + (n + 1) * 8 + t * n * depth * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        out[label] = {"ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes", "card_s": card_s, "host_s": host_s}
+        log(f"[main] build_plan {label} (n={n}, {nnz} items, t={t}, b={b}, "
+            f"depth={depth}) on the card: 1 launch of the distinct entry, "
+            f"plan equal to the host's, table bitwise "
+            f"user_distinct_hashes_np; build_plan {card_s * 1e3:.1f} ms on "
+            f"the card, {host_s * 1e3:.1f} ms on the host; distinct entry "
+            f"device time {ms:.5f} ms held (warm L2), bound "
+            f"{out[label]['bound_ms']:.5f} ms by {out[label]['bound_by']}, "
+            f"plain version {plain_ms:.4f} ms")
+    return out
+
+
 def timed_calls(spent: dict, key: str, fn):
     """``fn`` wrapped to add its host clock to ``spent[key]``."""
     def wrapper(*a, **kw):
@@ -1346,11 +1468,12 @@ def timed_calls(spent: dict, key: str, fn):
 
 def build_stages(engine) -> None:
     """Host clock per C² stage of the ml1M@1.0 paper build on the card,
-    with clustering split into FastRandomHash's item hashes, the users'
-    distinct hashes, ``split_config`` over the t configurations and the
-    rest; then the same split of the router's hashing in one 256-query
-    wave (item hashes, distinct hashes, and the rest: the prefix match
-    and the seed lists)."""
+    with clustering split into the distinct-hash table from the card
+    (``clustering._device_cands``: the CSR arrays up, FastRandomHash's
+    distinct entry, the table back), ``split_config`` over the t
+    configurations and the rest; then the router's hashing in one
+    256-query wave, which stays on the host: item hashes, distinct hashes,
+    and the rest (the prefix match and the seed lists)."""
     from repro_torch.core import clustering, hashing
     from repro_torch.core.params import params_for
     from repro_torch.core.pipeline import cluster_and_conquer
@@ -1358,13 +1481,14 @@ def build_stages(engine) -> None:
     from repro_torch.query import router
 
     saved = (hashing.item_hashes, hashing.user_distinct_hashes_np,
-             clustering.split_config)
+             clustering.split_config, clustering._device_cands)
     spent = dict.fromkeys(("item_hashes", "user_distinct_hashes_np",
-                           "split_config"), 0.0)
+                           "split_config", "_device_cands"), 0.0)
     hashing.item_hashes = timed_calls(spent, "item_hashes", saved[0])
     hashing.user_distinct_hashes_np = timed_calls(
         spent, "user_distinct_hashes_np", saved[1])
     clustering.split_config = timed_calls(spent, "split_config", saved[2])
+    clustering._device_cands = timed_calls(spent, "_device_cands", saved[3])
     try:
         ds = make_dataset("ml1M", scale=1.0, seed=0)
         _, st = cluster_and_conquer(ds, params_for("ml1M", k=30),
@@ -1383,13 +1507,16 @@ def build_stages(engine) -> None:
             routes.append((time.perf_counter() - t0, dict(spent)))
     finally:
         (hashing.item_hashes, hashing.user_distinct_hashes_np,
-         clustering.split_config) = saved
+         clustering.split_config, clustering._device_cands) = saved
+    if build["item_hashes"] or build["user_distinct_hashes_np"]:
+        fail("the ml1M@1.0 build on the card hashed on the host")
     log(f"[timing] ml1M@1.0 build stages, host clock: clustering "
         f"{st.t_cluster * 1e3:.1f} ms, Step 2 {st.t_local * 1e3:.1f} ms, "
         f"merge {st.t_merge * 1e3:.1f} ms")
-    log("[timing] ml1M@1.0 clustering, host clock: "
-        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in build.items())
-        + f", rest {(st.t_cluster - sum(build.values())) * 1e3:.1f} ms")
+    log("[timing] ml1M@1.0 clustering, host clock: distinct-hash table "
+        f"on the card {build['_device_cands'] * 1e3:.1f} ms, split_config "
+        f"{build['split_config'] * 1e3:.1f} ms, rest "
+        f"{(st.t_cluster - build['_device_cands'] - build['split_config']) * 1e3:.1f} ms")
     total, parts = sorted(routes, key=lambda r: r[0])[1]  # the median
     log("[timing] routing one 256-query wave, host clock (median of 3): "
         f"{total * 1e3:.2f} ms = item_hashes "
@@ -3239,6 +3366,8 @@ def baseline_runs(ds, gf, params, device) -> dict:
     ``device``: Hyrec and NNDescent (30 iterations at most, δ 0.001), LSH
     (t hash functions) and C²; per algorithm its graph, stats, host
     seconds and cluster-KNN launches (counted from 0)."""
+    import torch
+
     from repro_torch.core.pipeline import cluster_and_conquer
     from repro_torch.knn.greedy import hyrec, nndescent
     from repro_torch.knn.lsh import lsh_knn
@@ -3257,7 +3386,10 @@ def baseline_runs(ds, gf, params, device) -> dict:
         reset_launches()
         (graph, stats), secs = synced(fn)
         counts = read_launches()
-        if any(v for key, v in counts.items() if key != "goldfinger_knn"):
+        step1 = int(name == "C2" and torch.device(device).type == "cuda")
+        if counts["frh_minhash_distinct"] != step1 or any(
+                v for key, v in counts.items()
+                if key not in ("goldfinger_knn", "frh_minhash_distinct")):
             fail(f"{name} on {device} launched {counts}")
         runs[name] = {"graph": graph, "stats": stats, "seconds": secs,
                       "launches": counts["goldfinger_knn"]}
@@ -3588,11 +3720,13 @@ def bound_text(b: dict) -> str:
 P4K_SHARDS = 4
 P4K_BUILD = ("ml1M", 1.0, 0, 30)  # phase 4's build: dataset, scale, seed, k
 P4K_EXAMPLES = (
-    ("quickstart_torch", [], ("goldfinger_knn",)),
-    ("knn_recommend_torch", ["--kernel"], ("goldfinger_knn", "descent_hop")),
+    ("quickstart_torch", [], ("goldfinger_knn", "frh_minhash_distinct")),
+    ("knn_recommend_torch", ["--kernel"],
+     ("goldfinger_knn", "descent_hop", "frh_minhash_distinct")),
     ("serve_demo_torch", [], ()),
     ("train_lm_torch", ["--steps", "20"], ("frh_minhash",)),
-    ("distributed_knn_torch", [], ("goldfinger_knn",)),
+    ("distributed_knn_torch", [], ("goldfinger_knn",
+                                   "frh_minhash_distinct")),
 )
 
 
@@ -3649,7 +3783,9 @@ def distributed_build(run: dict, devices: list) -> dict:
         fail(f"distributed_c2 over {len(devices)} bins differs from phase "
              f"4's build in {bad} rows")
     if (sum(per_bin) != counts["goldfinger_knn"] or min(per_bin) < 1
-            or any(v for k, v in counts.items() if k != "goldfinger_knn")):
+            or counts["frh_minhash_distinct"] != 1
+            or any(v for k, v in counts.items()
+                   if k not in ("goldfinger_knn", "frh_minhash_distinct"))):
         fail(f"distributed_c2 launched {counts}, per bin {per_bin}")
     if int((params.bf_threshold <= run["built"]["plan"].sizes).sum()):
         fail(f"a cluster of {name}@{scale} reaches rho k^2: the single-card "
@@ -3851,7 +3987,8 @@ def example_runs(ctx) -> dict:
         counts = read_launches()
         missing = [k for k in kernels if counts[k] <= 0]
         others = [k for k in ("goldfinger_knn", "descent_hop",
-                              "descent_hop_dma", "frh_minhash")
+                              "descent_hop_dma", "frh_minhash",
+                              "frh_minhash_distinct")
                   if k not in kernels and counts[k]]
         if missing or others:
             fail(f"(vi) {name} {argv}: launches {counts}")
@@ -6693,6 +6830,12 @@ def main() -> int:
             row[key] = {label: c[row["name"]] for label, c in
                         phase["launches"].items() if c[row["name"]]}
     mh_row["max_abs_err"] = max(err_mh, err_mh_main)
+    # Build Step 1's table through the distinct entry: one launch a
+    # build_plan on the card (phase 4's build included), device time and
+    # bound at ml1M@1.0 and at c2-ml10M.
+    mh_row["distinct"] = {
+        "main path build": run["launches"]["frh_minhash_distinct"],
+        **run["distinct"]}
     # Phase 4i: the training path's c2 order (one pipeline a run), its
     # launches counted from 0 (held bitwise to the host's order).
     mh_row["phase_4i"] = {

@@ -148,13 +148,14 @@ def distributed_local_knn(plan: ClusterPlan, gf: GoldFinger,
 
 def distributed_c2(ds, params: C2Params, devices,
                    gf: GoldFinger | None = None):
-    """Full distributed pipeline: host plan → Step 2 per device → merge on
-    ``devices[0]``. Returns (graph, stats) with the reference's keys."""
+    """Full distributed pipeline: the plan (its distinct-hash table on
+    ``devices[0]``) → Step 2 per device → merge on ``devices[0]``. Returns
+    (graph, stats) with the reference's keys."""
     devs = resolve_devices(devices)
     t0 = time.perf_counter()
     if gf is None:
         gf = fingerprint_dataset(ds, n_bits=params.n_bits, seed=params.seed)
-    plan = build_plan(ds, params)
+    plan = build_plan(ds, params, device=devs[0])
     t1 = time.perf_counter()
     ids, sims, dp = distributed_local_knn(plan, gf, params, devs)
     t2 = time.perf_counter()

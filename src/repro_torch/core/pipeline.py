@@ -1,7 +1,8 @@
 """Cluster-and-Conquer end-to-end pipeline (paper §II-C), torch port of
 ``repro.core.pipeline``.
 
-Step 1 cluster (FastRandomHash + recursive split, host) → Step 2
+Step 1 cluster (FastRandomHash's distinct-hash table, from the
+FastRandomHash kernel on a card; the recursive split on the host) → Step 2
 per-cluster partial KNNs (cluster-KNN kernel) → Step 3 merge. Returns the
 approximate KNN graph plus a stats record.
 """
@@ -48,7 +49,7 @@ def cluster_and_conquer(
     t0 = time.perf_counter()
     if gf is None:
         gf = fingerprint_dataset(ds, n_bits=params.n_bits, seed=params.seed)
-    plan: ClusterPlan = build_plan(ds, params)
+    plan: ClusterPlan = build_plan(ds, params, device=dev)
     t1 = time.perf_counter()
 
     ids, sims = local_knn(plan, gf, params, device=dev)  # host arrays

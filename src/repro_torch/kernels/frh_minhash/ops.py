@@ -1,13 +1,16 @@
-"""Wrappers for the FastRandomHash kernel's two entries
-(``csrc/frh_minhash.cu``): :func:`minhash` over padded profiles and
-:func:`minhash_csr` over CSR profiles.
+"""Wrappers for the FastRandomHash kernel's three entries
+(``csrc/frh_minhash.cu``): :func:`minhash` over padded profiles,
+:func:`minhash_csr` over CSR profiles, and :func:`distinct_csr`, each
+(seed, user)'s ``depth`` smallest distinct hashes over CSR profiles.
 
 The tensor's device selects the implementation: CPU tensors run the plain
 version (:mod:`.ref`), CUDA tensors launch the kernel, and anything else
-raises. ``launches`` counts launches of the padded entry and
-``launches_csr`` those of the CSR entry (plain calls count in neither).
-Build Step 1 (``core/clustering``) hashes on the host, as the reference
-does; :func:`dataset_minhash` is this kernel's entry point, through the CSR
+raises. ``launches`` counts launches of the padded entry,
+``launches_csr`` those of the CSR entry and ``launches_distinct`` those of
+the distinct entry (plain calls count in none). Build Step 1
+(``core/clustering.build_plan``) takes its distinct-hash table from
+:func:`distinct_csr` on a card, where the reference hashes on the host;
+:func:`dataset_minhash` is the min-hash's entry point, through the CSR
 entry. Seeds go to the kernel by value: no call copies them to the card.
 """
 from __future__ import annotations
@@ -24,8 +27,14 @@ from repro_torch.types import Dataset
 
 KERNEL = "frh_minhash"
 
+# The kernel's compile-time bounds (``repro_frh_max_seeds`` and
+# ``repro_frh_max_depth``), which each launch checks against the library.
+MAX_SEEDS = 32
+MAX_DEPTH = 8
+
 launches = 0
 launches_csr = 0
+launches_distinct = 0
 
 
 def _lib():
@@ -40,8 +49,14 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_uint, ctypes.c_void_p]
         lib.repro_frh_minhash_csr.restype = ctypes.c_int
-        lib.repro_frh_max_seeds.argtypes = []
-        lib.repro_frh_max_seeds.restype = ctypes.c_int
+        lib.repro_frh_distinct_csr.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+        lib.repro_frh_distinct_csr.restype = ctypes.c_int
+        for bound in (lib.repro_frh_max_seeds, lib.repro_frh_max_depth):
+            bound.argtypes = []
+            bound.restype = ctypes.c_int
     return lib
 
 
@@ -83,17 +98,21 @@ def _launch(padded_items: torch.Tensor, seeds, b: int):
     return out
 
 
-def _launch_csr(offsets: torch.Tensor, items: torch.Tensor, seeds, b: int):
-    global launches_csr
-    dev = items.device
+def _check_csr(what: str, offsets: torch.Tensor, items: torch.Tensor):
     if (offsets.dtype != torch.int64 or offsets.dim() != 1
             or items.dtype != torch.int32 or items.dim() != 1
-            or offsets.device != dev or offsets.numel() < 1):
-        raise ValueError(f"minhash_csr takes int64[n + 1] offsets and "
+            or offsets.device != items.device or offsets.numel() < 1):
+        raise ValueError(f"{what} takes int64[n + 1] offsets and "
                          f"int32[nnz] items on one device, got "
                          f"{offsets.dtype}{list(offsets.shape)} on "
                          f"{offsets.device}, {items.dtype}"
-                         f"{list(items.shape)} on {dev}")
+                         f"{list(items.shape)} on {items.device}")
+
+
+def _launch_csr(offsets: torch.Tensor, items: torch.Tensor, seeds, b: int):
+    global launches_csr
+    dev = items.device
+    _check_csr("minhash_csr", offsets, items)
     n = offsets.numel() - 1
     lib = _lib()
     host = _host_seeds(lib, seeds)
@@ -108,6 +127,31 @@ def _launch_csr(offsets: torch.Tensor, items: torch.Tensor, seeds, b: int):
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, KERNEL)
     launches_csr += 1
+    return out
+
+
+def _launch_distinct(offsets: torch.Tensor, items: torch.Tensor, seeds,
+                     b: int, depth: int):
+    global launches_distinct
+    dev = items.device
+    _check_csr("distinct_csr", offsets, items)
+    n = offsets.numel() - 1
+    lib = _lib()
+    host = _host_seeds(lib, seeds)
+    if not 1 <= depth <= lib.repro_frh_max_depth():
+        raise ValueError(f"the distinct-hash kernel takes a depth of 1 to "
+                         f"{lib.repro_frh_max_depth()}, got {depth}")
+    offsets, items = offsets.contiguous(), items.contiguous()
+    out = torch.empty((len(host), n, depth), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.repro_frh_distinct_csr(
+            offsets.data_ptr(), items.data_ptr(), items.numel(), host,
+            out.data_ptr(), n, len(host), depth, b - 1,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, KERNEL)
+    launches_distinct += 1
     return out
 
 
@@ -141,6 +185,28 @@ def minhash_csr(offsets: torch.Tensor, items: torch.Tensor, seeds,
     if kind != "cuda":
         raise ValueError(f"unsupported device {items.device}")
     return _launch_csr(offsets, items, seeds, b)
+
+
+def distinct_csr(offsets: torch.Tensor, items: torch.Tensor, seeds, b: int,
+                 depth: int) -> torch.Tensor:
+    """CSR profiles (offsets int64[n + 1], items int32[nnz], no PAD) →
+    int32[t, n, depth]: for each seed and user the ``depth`` smallest
+    distinct FastRandomHash values of the user's items, ascending, padded
+    with NO_HASH (an empty profile is NO_HASH throughout). Bitwise
+    ``core.hashing.user_distinct_hashes_np(item_hashes(items, seeds, b),
+    offsets, depth)``.
+
+    Same ``seeds`` and ``b`` as :func:`minhash`; the items' device picks
+    the implementation. The kernel takes up to ``MAX_SEEDS`` seeds and a
+    ``depth`` up to ``MAX_DEPTH``.
+    """
+    _check_b(b)
+    kind = items.device.type
+    if kind == "cpu":
+        return ref.distinct_csr_ref(offsets, items, seeds, b, depth)
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {items.device}")
+    return _launch_distinct(offsets, items, seeds, b, depth)
 
 
 def dataset_minhash(ds: Dataset, seeds, b: int,

@@ -50,7 +50,7 @@ def build(ds, params: C2Params, ckpt_dir: str | None = None,
         if gf is None:
             gf = fingerprint_dataset(ds, n_bits=params.n_bits,
                                      seed=params.seed)
-        plan = build_plan(ds, params)
+        plan = build_plan(ds, params, device=dev)
         t, n, k = params.t, ds.n_users, params.k
         with obs.span("build.partials"):
             ids = np.full((t, n, k), PAD_ID, dtype=np.int32)

@@ -26,8 +26,11 @@ root), ``sketch.fingerprint``, ``clustering.hash``, ``clustering.split``,
 ``step2.wait`` and ``step2.scatter`` (over a device list, one
 ``step2.pack`` builds every batch and ``step2.launch`` queues them all
 before the first ``step2.wait``); ``merge``. Counters
-``build.calls``, ``step2.h2d_bytes``, ``step2.d2h_bytes``,
-``merge.h2d_bytes``, ``merge.d2h_bytes``.
+``build.calls``, ``clustering.h2d_bytes``, ``clustering.d2h_bytes`` and
+``clustering.device_calls`` (Step 1's distinct-hash table from the card:
+the CSR arrays up, the table back, one a build on a card),
+``step2.h2d_bytes``, ``step2.d2h_bytes``, ``merge.h2d_bytes``,
+``merge.d2h_bytes``.
 
 Serve path (``query/engine.QueryEngine.step``): ``serve.step`` (the
 root), ``serve.sync``, ``serve.schedule``, ``serve.admit.fingerprint``,

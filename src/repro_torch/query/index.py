@@ -762,7 +762,7 @@ def build_index(ds: Dataset, params: C2Params | None = None, *,
     if gf is None:
         gf = fingerprint_dataset(ds, n_bits=params.n_bits, seed=params.seed)
     if plan is None:
-        plan = build_plan(ds, params)
+        plan = build_plan(ds, params, device=device)
     if plan.paths is None:
         raise ValueError("plan must retain split paths for routing")
     if graph is None:
